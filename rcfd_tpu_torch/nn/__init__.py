@@ -1,0 +1,3 @@
+from . import functional
+from .layers import (BatchNorm2d, Conv2d, DecoderBlock, FullyConnected,
+                     ResNetBlock, UpConv2d, init_parameters)
