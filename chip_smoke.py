@@ -5,17 +5,31 @@
 
 Phases, each printed as it starts and ends:
 
-  build      compile the hand-written CUDA kernels with nvcc (first use)
+  build      compile the hand-written CUDA kernels with nvcc, one process
+             per source, all started together
   kernel     hold each kernel against its plain PyTorch version on the card
-             at the shapes of the serving path, bit for bit, and time the
+             at the shapes of the serving paths, bit for bit, and time the
              kernel, the plain version and the nearest one-call PyTorch
              operator
-  reference  a small configuration on the card against the same port on
-             the CPU, stage by stage
+  reference  small configurations on the card against the same port on
+             the CPU, stage by stage (the canonical one, one with RadarNet's
+             deferred skip pools, one at a patch width that is not a
+             multiple of 32)
   slice      the two-stage serving path at full width (RadarNet at its
              900x288 patch, FusionNet at the benchmark config, 900x1600
              frames, 64 radar points) with seeded random weights, serving a
-             few requests
+             few requests; kernel: the quasi-dense scatter
+  fused      the same path with RadarNet's 1/2- and 1/4-scale pools
+             deferred into its decoder (PerfConfig(fused_pool2=True,
+             fused_pool4=True)); kernels: the fused skip gather-add and the
+             scatter
+  wide       the same path with RadarNet at a 900x300 patch, whose 1/8,
+             1/16 and 1/32 pools take the variable-bin branch; kernels: the
+             column crop and the scatter
+
+Each path phase sets every kernel's launch count to 0 before its counted
+requests, reads them after, and fails if a kernel of its path was not
+launched.
 
 Then a line with the card's name and power limit, a line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
@@ -26,7 +40,7 @@ It imports torch, numpy and rcfd_tpu_torch only.
 The models run under the pipeline's own numerics
 (rcfd_tpu_torch.pipeline.serving_numerics: float32 with TF32 off, cuDNN
 algorithms autotuned among deterministic ones), as a caller gets them;
-the script sets no backend flag of its own. With --profile the slice
+the script sets no backend flag of its own. With --profile each path
 phase also traces one request with torch.profiler and prints the device
 time by kernel.
 """
@@ -46,6 +60,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # the serving path's shapes (run_pipeline.py / bench.py defaults)
 H, W = 900, 1600
 PATCH = (900, 288)
+WIDE_PATCH = (900, 300)
+# scales of RadarNet's column pools: the four skips, then the latent
+SCALES = [1 / 2., 1 / 4., 1 / 8., 1 / 16., 1 / 32.]
 K = 64
 N_INVALID = 4
 RADARNET = dict(
@@ -67,7 +84,7 @@ FUSIONNET = dict(
     max_predict_depth=100.0)
 N_REQUESTS = 3
 SEED = 0
-# --profile: also trace one request with torch.profiler
+# --profile: also trace one request of each path with torch.profiler
 PROFILE = '--profile' in sys.argv[1:]
 # H100 SXM data sheet: HBM3 rate, bytes/s
 HBM_BYTES_PER_S = 3.35e12
@@ -126,12 +143,12 @@ def import_port():
     return rcfd_tpu_torch
 
 
-def scatter_inputs(rng, device):
-    """Canonical scatter inputs with the hard cases: ties inside one 2^-14
-    step, values of exactly 0.5, invalid points, points at x = 0 and
-    x = W - 1, and integer depths equal to other points' indices (the
-    legacy rewrite cascade)."""
-    ph, pw = PATCH
+def scatter_inputs(rng, device, patch=PATCH):
+    """Scatter inputs with the hard cases: ties inside one 2^-14 step,
+    values of exactly 0.5, invalid points, points at x = 0 and x = W - 1,
+    and integer depths equal to other points' indices (the legacy rewrite
+    cascade)."""
+    ph, pw = patch
     pad = pw // 2
     crops = rng.random((K, ph, pw), dtype=np.float32)
     x = rng.integers(0, W, K).astype(np.float32)
@@ -157,25 +174,34 @@ def scatter_bound_bytes(x_start, valid, ph, pw, w):
     return 4 * ph * int(cols.sum()) + 3 * 4 * len(x_start) + 2 * 4 * ph * w
 
 
-def phase_kernel(device, record):
+def scatter_kernel_check(device, patch):
+    """The scatter kernel against its plain version at ``patch``, bit for
+    bit: (args, max abs err)."""
     from rcfd_tpu_torch.ops import scatter_cuda as sc
 
-    ph, pw = PATCH
-    rng = np.random.default_rng(SEED)
-    crops, xs, zs, valid = scatter_inputs(rng, device)
-    args = (crops, xs, zs, valid, H, W, PATCH)
-
+    crops, xs, zs, valid = scatter_inputs(np.random.default_rng(SEED),
+                                          device, patch)
+    args = (crops, xs, zs, valid, H, W, patch)
     d_k, r_k = sc.scatter_quasi_dense(*args)
     d_p, r_p = sc.scatter_quasi_dense_plain(*args)
     torch.cuda.synchronize()
     err = max(float((d_k - d_p).abs().max()), float((r_k - r_p).abs().max()))
     check(torch.equal(d_k, d_p) and torch.equal(r_k, r_p),
-          'scatter kernel differs from its plain version: max abs err '
-          '{}'.format(err))
+          'scatter kernel differs from its plain version at patch {}: max '
+          'abs err {}'.format(patch, err))
     check(int((r_k > 0).sum()) > 0, 'scatter produced an empty map')
-    log('scatter kernel == plain version, bit for bit (tolerance 0); '
-        '{} covered pixels'.format(int((r_k > 0).sum())))
+    log('scatter kernel == plain version at patch {}x{}, bit for bit '
+        '(tolerance 0); {} covered pixels'.format(patch[0], patch[1],
+                                                  int((r_k > 0).sum())))
+    return args, err
 
+
+def phase_kernel_scatter(device, record):
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+
+    ph, pw = PATCH
+    args, err = scatter_kernel_check(device, PATCH)
+    crops, xs, zs, valid = args[:4]
     ms = device_ms(lambda: sc.scatter_quasi_dense(*args), 20)
     plain_ms = device_ms(lambda: sc.scatter_quasi_dense_plain(*args), 5, 1)
     # yardstick: the one PyTorch call that computes the max, on keys
@@ -196,12 +222,142 @@ def phase_kernel(device, record):
         '({} bytes at {:.3g} B/s)'.format(K, ph, pw, W, ms, plain_ms,
                                           library_ms, bound_ms, nbytes,
                                           HBM_BYTES_PER_S))
+    # the variable-bin path serves 300-wide crops
+    scatter_kernel_check(device, WIDE_PATCH)
     record['scatter_quasi_dense'] = dict(
         name='scatter_quasi_dense', route='cuda',
         source='rcfd_tpu_torch/csrc/scatter_quasi_dense.cu',
         replaces='rcfd_tpu/ops/scatter_pallas.py:42',
         launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
         bound_ms=bound_ms, bound_by='bytes', library_ms=library_ms)
+
+
+def encoder_maps(rn, patch, device):
+    """Shapes of the feature maps RadarNet's column pools read for a
+    900x1600 frame padded by patch_w // 2 on each side: [1/2, 1/4, 1/8,
+    1/16 skips, 1/32 latent], from a run of its image encoder on the card."""
+    with torch.inference_mode():
+        latent, skips = rn.encoder.encode_image(
+            torch.zeros((1, 3, H, W + 2 * (patch[1] // 2)), device=device))
+    return [tuple(t.shape) for t in list(skips) + [latent]]
+
+
+def kernel_entry(name, source, replaces, parts, library):
+    """One kernel's line of the kernels JSON: the sums over the shapes one
+    request runs (its parts, also listed), the largest error."""
+    total = lambda key: float(sum(p[key] for p in parts))
+    return dict(name=name, route='cuda', source=source, replaces=replaces,
+                launches=None, max_abs_err=max(p['max_abs_err']
+                                               for p in parts),
+                ms=total('ms'), plain_ms=total('plain_ms'),
+                bound_ms=total('bound_ms'), bound_by='bytes',
+                library_ms=total('library_ms') if library else None,
+                per_request=True, parts=parts)
+
+
+def phase_kernel_fused_skip(device, record, rn):
+    """The fused skip gather-add at deconv1's and deconv2's shapes of the
+    900x288 patch (64 windows of one frame), against its plain version."""
+    from rcfd_tpu_torch.ops import fused_skip as fs
+
+    maps = encoder_maps(rn, PATCH, device)
+    rng = np.random.default_rng(SEED + 2)
+    t = lambda a: torch.from_numpy(a).to(device)
+    parts = []
+    for i in (0, 1):  # deconv1 takes the 1/2-scale skip, deconv2 the 1/4
+        block = 'deconv{}'.format(i + 1)
+        co = getattr(rn.decoder, block).conv.conv.weight.shape[0]
+        ph, pw = int(PATCH[0] * SCALES[i]), int(PATCH[1] * SCALES[i])
+        wg = maps[i][3] + pw
+        a = t(rng.standard_normal((K, co, ph, pw), dtype=np.float32))
+        cg = t(rng.standard_normal((1, co, ph, wg), dtype=np.float32))
+        starts = rng.integers(0, wg - pw + 1, (1, K)).astype(np.int32)
+        starts[0, :2] = [0, wg - pw]
+        corr_l = t(rng.standard_normal((K, co, ph), dtype=np.float32))
+        corr_r = t(rng.standard_normal((K, co, ph), dtype=np.float32))
+        args = (a, cg, t(starts), corr_l, corr_r)
+        out = fs.fused_skip_gather_add(*args)
+        ref = fs.fused_skip_gather_add_plain(*args)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(torch.equal(out, ref), 'fused skip kernel differs from its '
+              'plain version at {}: max abs err {}'.format(block, err))
+        del out, ref
+        ms = device_ms(lambda: fs.fused_skip_gather_add(*args), 20)
+        plain_ms = device_ms(lambda: fs.fused_skip_gather_add_plain(*args),
+                             5, 1)
+        nbytes = 4 * (2 * a.numel() + cg.numel() + 2 * corr_l.numel() + K)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log('fused skip at {}: a {} cg {}, kernel == plain version, bit for '
+            'bit (tolerance 0); device time: kernel {:.4f} ms (median of '
+            '20), plain {:.4f} ms, bound {:.4f} ms ({} bytes at {:.3g} B/s); '
+            'one-call PyTorch yardstick: none (no one call adds windows of '
+            'one tensor with the boundary corrections)'.format(
+                block, tuple(a.shape), tuple(cg.shape), ms, plain_ms,
+                bound_ms, nbytes, HBM_BYTES_PER_S))
+        parts.append(dict(shape=block, a=list(a.shape), cg=list(cg.shape),
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bytes=nbytes))
+        del args, a, cg, corr_l, corr_r
+    record['fused_skip_gather_add'] = kernel_entry(
+        'fused_skip_gather_add', 'rcfd_tpu_torch/csrc/fused_skip_gather_add.cu',
+        'rcfd_tpu/ops/fused_skip.py:174', parts, library=False)
+
+
+def phase_kernel_column_crop(device, record, rn):
+    """The column crop at the 1/8, 1/16 and 1/32 pools of the 900x300 patch
+    (the variable-bin ones; 64 windows of one frame), against its plain
+    version, with torch.gather on the padded rows as the yardstick."""
+    from rcfd_tpu_torch.ops import crop_cuda as cc
+    from rcfd_tpu_torch.ops.roi_pool import variable_bin_window
+
+    maps = encoder_maps(rn, WIDE_PATCH, device)
+    rng = np.random.default_rng(SEED + 3)
+    parts = []
+    for i in (2, 3, 4):
+        c, w_f = maps[i][1], maps[i][3]
+        ph, pw = int(H * SCALES[i]), int(WIDE_PATCH[1] * SCALES[i])
+        _, win = variable_bin_window(WIDE_PATCH[1], SCALES[i], pw)
+        rows = torch.from_numpy(rng.standard_normal(
+            (1, c, ph, w_f), dtype=np.float32)).to(device)
+        starts = rng.integers(0, w_f + 1, (1, K)).astype(np.int32)
+        starts[0, :2] = [0, w_f]  # the first column, and wholly past W
+        starts = torch.from_numpy(starts).to(device)
+        out = cc.batch_column_crop(rows, starts, win)
+        ref = cc.batch_column_crop_plain(rows, starts, win)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        check(torch.equal(out, ref), 'column crop kernel differs from its '
+              'plain version at 1/{}: max abs err {}'.format(
+                  int(1 / SCALES[i]), err))
+        ms = device_ms(lambda: cc.batch_column_crop(rows, starts, win), 20)
+        plain_ms = device_ms(
+            lambda: cc.batch_column_crop_plain(rows, starts, win), 5, 1)
+        # yardstick: one torch.gather from the zero-padded rows with the
+        # index computed beforehand
+        rows_p = torch.nn.functional.pad(rows, (0, win)).expand(K, -1, -1,
+                                                               -1)
+        cols = starts[0].long()[:, None] + torch.arange(win, device=device)
+        index = cols[:, None, None, :].expand(K, c, ph, win).contiguous()
+        check(torch.equal(torch.gather(rows_p, 3, index), out),
+              'the torch.gather yardstick differs from the kernel')
+        library_ms = device_ms(lambda: torch.gather(rows_p, 3, index), 20)
+        nbytes = 4 * (out.numel() + rows.numel() + K)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log('column crop at 1/{}: rows {} -> {} windows of {}, kernel == '
+            'plain version, bit for bit (tolerance 0); device time: kernel '
+            '{:.4f} ms (median of 20), plain {:.4f} ms, torch.gather {:.4f} '
+            'ms, bound {:.4f} ms ({} bytes at {:.3g} B/s)'.format(
+                int(1 / SCALES[i]), tuple(rows.shape), K, win, ms, plain_ms,
+                library_ms, bound_ms, nbytes, HBM_BYTES_PER_S))
+        parts.append(dict(shape='1/{}'.format(int(1 / SCALES[i])),
+                          rows=list(rows.shape), win=win, max_abs_err=err,
+                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          library_ms=library_ms, bytes=nbytes))
+        del out, ref, rows_p, index
+    record['column_crop'] = kernel_entry(
+        'column_crop', 'rcfd_tpu_torch/csrc/column_crop.cu',
+        'rcfd_tpu/ops/crop_pallas.py:29', parts, library=True)
 
 
 def build_models(radarnet_kw, fusionnet_kw, device, seed):
@@ -216,6 +372,16 @@ def build_models(radarnet_kw, fusionnet_kw, device, seed):
     return rn.to(device), fn.to(device)
 
 
+def radarnet_like(rn, device, **kw):
+    """A RadarNet of another patch or perf with ``rn``'s weights (no
+    configuration of the smoke changes a parameter's shape)."""
+    from rcfd_tpu_torch.models import RadarNetModel
+
+    other = RadarNetModel(**dict(RADARNET, **kw), device='cpu')
+    other.load_state_dict(rn.state_dict(), strict=True)
+    return other.to(device)
+
+
 def requests(rng, n, h, w, k, n_invalid):
     out = []
     for _ in range(n):
@@ -228,9 +394,33 @@ def requests(rng, n, h, w, k, n_invalid):
     return out
 
 
+def launch_counters():
+    from rcfd_tpu_torch.ops import crop_cuda as cc
+    from rcfd_tpu_torch.ops import fused_skip as fs
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    return {'scatter_quasi_dense': sc.scatter_quasi_dense,
+            'fused_skip_gather_add': fs.fused_skip_gather_add,
+            'column_crop': cc.batch_column_crop}
+
+
+def reset_launches():
+    for wrapper in launch_counters().values():
+        wrapper.launches = 0
+
+
+def read_launches():
+    return {name: wrapper.launches
+            for name, wrapper in launch_counters().items()}
+
+
 def phase_reference(device):
-    """A small configuration on the card against the port on the CPU,
-    stage by stage, on the same weights and inputs."""
+    """Small configurations on the card against the port on the CPU, stage
+    by stage, on the same weights and inputs: the canonical one in full;
+    with the deferred skip pools and at a patch width that is not a
+    multiple of 32, RadarNet's crops, whose card stage must launch the
+    fused skip and the column crop kernels."""
+    from rcfd_tpu_torch.models import RadarNetModel
+    from rcfd_tpu_torch.nn.perf import PerfConfig
     from rcfd_tpu_torch.ops import scatter_cuda as sc
     from rcfd_tpu_torch.pipeline import TwoStagePipeline, serving_numerics
 
@@ -273,27 +463,43 @@ def phase_reference(device):
         log('reference: FusionNet depth card vs CPU max abs err {:.3g} m '
             '(tolerance 1e-3 m)'.format(err))
 
+    # RadarNet with the deferred skip pools, and at a patch width that is
+    # not a multiple of 32 (its 1/8, 1/16 and 1/32 pools are variable-bin)
+    for label, kw, kernel, n in (
+            ('deferred pools', dict(perf=PerfConfig(fused_pool2=True,
+                                                    fused_pool4=True)),
+             'fused_skip_gather_add', 2),
+            ('patch 96x76', dict(input_patch_size_image=(96, 76)),
+             'column_crop', 3)):
+        rn_c = RadarNetModel(**dict(rn_kw, **kw), device='cpu')
+        rn_c.load_state_dict(rn.state_dict(), strict=True)
+        cpu = TwoStagePipeline(rn_c, fn, h, w, device='cpu')
+        gpu = TwoStagePipeline(copy.deepcopy(rn_c), copy.deepcopy(fn), h, w,
+                               device=device)
+        with torch.inference_mode(), serving_numerics():
+            crops_c = cpu.radarnet_stage(image, points)[1]
+            reset_launches()
+            crops_g = gpu.radarnet_stage(image, points)[1]
+            launches = read_launches()[kernel]
+        check(launches == n, 'reference, {}: {} launched {} times, expected '
+              '{}'.format(label, kernel, launches, n))
+        err = float((crops_g.cpu() - crops_c).abs().max())
+        check(err <= 1e-4, 'reference, {}: RadarNet crops card vs CPU max '
+              'abs err {} > 1e-4'.format(label, err))
+        log('reference, {}: RadarNet crops card vs CPU max abs err {:.3g} '
+            '(tolerance 1e-4); {} launched {} times'.format(
+                label, err, kernel, launches))
 
-def phase_slice(device, record):
-    from rcfd_tpu_torch.ops import scatter_cuda as sc
-    from rcfd_tpu_torch.pipeline import TwoStagePipeline, serving_numerics
 
-    rn, fn = build_models(RADARNET, FUSIONNET, device, SEED)
-    with serving_numerics():
-        b, m = torch.backends.cudnn, torch.backends.cuda.matmul
-        log('slice: the pipeline serves with TF32 {} for convolutions and '
-            '{} for matmuls; cuDNN benchmark mode {}, deterministic {}'
-            .format('on' if b.allow_tf32 else 'off',
-                    'on' if m.allow_tf32 else 'off', b.benchmark,
-                    b.deterministic))
-    pipe = TwoStagePipeline(rn, fn, H, W, device=device)
-    reqs = requests(np.random.default_rng(SEED), N_REQUESTS + 1, H, W, K,
-                    N_INVALID)
-    pipe(*reqs[0])  # warm-up request
+def serve_path(name, pipe, reqs, device, expect):
+    """Serve the warm-up request, then the counted ones with every launch
+    count set to 0 just before and read just after. ``expect`` maps each
+    kernel of the path to the launches it must make. Checks the outputs;
+    returns (outs, ms per request, peak memory bytes, launches)."""
+    pipe(*reqs[0])  # warm-up request: cuDNN chooses its algorithms
     torch.cuda.synchronize()
-
     torch.cuda.reset_peak_memory_stats(device)
-    sc.scatter_quasi_dense.launches = 0
+    reset_launches()
     outs, times = [], []
     for req in reqs[1:]:
         t0 = time.perf_counter()
@@ -301,56 +507,71 @@ def phase_slice(device, record):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
-    launches = sc.scatter_quasi_dense.launches
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated(device)
-    check(launches == N_REQUESTS,
-          'scatter kernel launched {} times for {} requests'.format(
-              launches, N_REQUESTS))
-    record['scatter_quasi_dense']['launches'] = launches
-
+    for kernel, n in expect.items():
+        check(launches[kernel] == n, '{}: {} launched {} times for {} '
+              'requests, expected {}'.format(name, kernel, launches[kernel],
+                                             len(reqs) - 1, n))
+    h, w = pipe.image_height, pipe.image_width
     for dense, quasi, response in outs:
-        for name, t in (('dense', dense), ('quasi', quasi),
-                        ('response', response)):
-            check(tuple(t.shape) == (H, W), '{} has shape {}'.format(
-                name, tuple(t.shape)))
-            check(bool(torch.isfinite(t).all()), '{} is not finite'.format(
-                name))
+        for label, t in (('dense', dense), ('quasi', quasi),
+                         ('response', response)):
+            check(tuple(t.shape) == (h, w), '{}: {} has shape {}'.format(
+                name, label, tuple(t.shape)))
+            check(bool(torch.isfinite(t).all()), '{}: {} is not finite'
+                  .format(name, label))
         check(float(dense.min()) >= 1.0 and float(dense.max()) <= 100.0,
-              'dense depth outside [1, 100] m')
+              '{}: dense depth outside [1, 100] m'.format(name))
         check(float(response.min()) >= 0.0 and float(response.max()) <= 1.0,
-              'response outside [0, 1]')
-        check(int((response > 0).sum()) > 0, 'empty quasi-dense map')
-
-    ref = copy.copy(pipe)
-    ref.scatter = sc.scatter_quasi_dense_plain
-    dense_p, quasi_p, response_p = ref(*reqs[1])
-    dense, quasi, response = outs[0]
-    check(torch.equal(quasi, quasi_p) and torch.equal(response, response_p),
-          'slice with the kernel differs from the slice with the plain '
-          'scatter: {} quasi and {} response pixels'.format(
-              int((quasi != quasi_p).sum()),
-              int((response != response_p).sum())))
-    log('slice: quasi and response maps == the plain-scatter slice, bit for '
-        'bit; dense max abs diff {:.3g} m'.format(
-            float((dense - dense_p).abs().max())))
-    log('slice: {} requests at {}x{}, K={} ({} padding): ms/frame {} '
-        '(median {:.2f}); peak memory {} bytes; scatter launches {}'.format(
-            N_REQUESTS, H, W, K, N_INVALID,
+              '{}: response outside [0, 1]'.format(name))
+        check(int((response > 0).sum()) > 0,
+              '{}: empty quasi-dense map'.format(name))
+    log('{}: {} requests at {}x{}, K={} ({} padding): ms/frame {} (median '
+        '{:.2f}); peak memory {} bytes; launches {}'.format(
+            name, len(outs), h, w, K, N_INVALID,
             ', '.join('{:.2f}'.format(t) for t in times),
             float(np.median(times)), peak, launches))
-    log('slice: covered quasi-dense pixels per request: {}'.format(
-        [int((o[2] > 0).sum()) for o in outs]))
+    log('{}: covered quasi-dense pixels per request: {}'.format(
+        name, [int((o[2] > 0).sum()) for o in outs]))
+    return outs, times, peak, launches
 
-    # where a request's time goes, stage by stage (host clock around each
-    # stage, synchronized; one more request after the counted ones)
-    image, points, valid = reqs[1]
+
+def check_plain_route(name, pipe, req, out, module, attr, plain):
+    """The same request through the same pipeline with one kernel's
+    wrapper replaced by its plain version, where the path looks it up: the
+    quasi and response maps must be equal bit for bit."""
+    kernel = getattr(module, attr)
+    setattr(module, attr, plain)
+    try:
+        dense_p, quasi_p, response_p = pipe(*req)
+    finally:
+        setattr(module, attr, kernel)
+    dense, quasi, response = out
+    check(torch.equal(quasi, quasi_p) and torch.equal(response, response_p),
+          '{}: the path with the kernel differs from the path with {}: {} '
+          'quasi and {} response pixels'.format(
+              name, plain.__name__, int((quasi != quasi_p).sum()),
+              int((response != response_p).sum())))
+    log('{}: quasi and response maps == the same path with {}, bit for bit; '
+        'dense max abs diff {:.3g} m'.format(
+            name, plain.__name__, float((dense - dense_p).abs().max())))
+
+
+def stage_times(name, pipe, req, device):
+    """Where a request's time goes, stage by stage (host clock around each
+    stage, synchronized; one more request after the counted ones)."""
+    from rcfd_tpu_torch.pipeline import serving_numerics
+
+    image, points, valid = req
     with torch.inference_mode(), serving_numerics():
         t0 = time.perf_counter()
         image_t, crops, xs, zs = pipe.radarnet_stage(image, points)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         maps = pipe.scatter(crops, xs, zs,
-                            torch.from_numpy(valid).to(device), H, W, PATCH)
+                            torch.from_numpy(valid).to(device), H, W,
+                            pipe.radarnet.input_patch_size_image)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         _, _, input_depth = pipe.bridge(*maps)
@@ -359,13 +580,95 @@ def phase_slice(device, record):
         t3 = time.perf_counter()
     stage_ms = dict(radarnet=(t1 - t0) * 1e3, scatter=(t2 - t1) * 1e3,
                     bridge_fusionnet=(t3 - t2) * 1e3)
-    log('slice: stage ms (host clock, synchronized): {}'.format(
-        ', '.join('{} {:.2f}'.format(k, v) for k, v in stage_ms.items())))
+    log('{}: stage ms (host clock, synchronized): {}'.format(
+        name, ', '.join('{} {:.2f}'.format(k, v)
+                        for k, v in stage_ms.items())))
     if PROFILE:
-        profile_request(pipe, reqs[1])
+        profile_request(name, pipe, req)
 
 
-def profile_request(pipe, req):
+def crops_of(pipe, req):
+    from rcfd_tpu_torch.pipeline import serving_numerics
+
+    with torch.inference_mode(), serving_numerics():
+        return pipe.radarnet_stage(*req[:2])[1]
+
+
+def phase_slice(device, record, rn, fn, reqs):
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline, serving_numerics
+
+    with serving_numerics():
+        b, m = torch.backends.cudnn, torch.backends.cuda.matmul
+        log('slice: the pipeline serves with TF32 {} for convolutions and '
+            '{} for matmuls; cuDNN benchmark mode {}, deterministic {}'
+            .format('on' if b.allow_tf32 else 'off',
+                    'on' if m.allow_tf32 else 'off', b.benchmark,
+                    b.deterministic))
+    pipe = TwoStagePipeline(rn, fn, H, W, device=device)
+    outs, _, _, launches = serve_path(
+        'slice', pipe, reqs, device,
+        {'scatter_quasi_dense': N_REQUESTS, 'fused_skip_gather_add': 0,
+         'column_crop': 0})
+    record['scatter_quasi_dense']['launches'] = \
+        launches['scatter_quasi_dense']
+    check_plain_route('slice', pipe, reqs[1], outs[0], pipe, 'scatter',
+                      sc.scatter_quasi_dense_plain)
+    stage_times('slice', pipe, reqs[1], device)
+    return pipe
+
+
+def phase_fused(device, record, slice_pipe, reqs):
+    """Path A: RadarNet's 1/2- and 1/4-scale pools deferred into deconv1
+    and deconv2, which run the fused skip gather-add."""
+    from rcfd_tpu_torch.nn.perf import PerfConfig
+    from rcfd_tpu_torch.ops import fused_skip as fs
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline
+
+    rn = radarnet_like(slice_pipe.radarnet, device, perf=PerfConfig(
+        fused_pool2=True, fused_pool4=True))
+    pipe = TwoStagePipeline(rn, slice_pipe.fusionnet, H, W, device=device)
+    outs, _, _, launches = serve_path(
+        'fused', pipe, reqs, device,
+        {'scatter_quasi_dense': N_REQUESTS,
+         'fused_skip_gather_add': 2 * N_REQUESTS, 'column_crop': 0})
+    record['fused_skip_gather_add']['launches'] = \
+        launches['fused_skip_gather_add']
+    check_plain_route('fused', pipe, reqs[1], outs[0], fs,
+                      'fused_skip_gather_add',
+                      fs.fused_skip_gather_add_plain)
+    # the JAX package's own tolerance for this fusion
+    # (tests/test_fused_skip.py): float32 sums in another order
+    err = float((crops_of(pipe, reqs[1]) -
+                 crops_of(slice_pipe, reqs[1])).abs().max())
+    check(err <= 5e-4, 'fused: RadarNet crops differ from the slice\'s by '
+          '{} > 5e-4'.format(err))
+    log('fused: RadarNet crops vs the slice\'s (pools not deferred): max abs '
+        'err {:.3g} (tolerance 5e-4)'.format(err))
+    stage_times('fused', pipe, reqs[1], device)
+
+
+def phase_wide(device, record, slice_pipe, reqs):
+    """Path B: RadarNet at a 900x300 patch, whose 1/8, 1/16 and 1/32 pools
+    take the variable-bin branch through the column crop kernel."""
+    from rcfd_tpu_torch.ops import crop_cuda as cc
+    from rcfd_tpu_torch.ops import roi_pool
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline
+
+    rn = radarnet_like(slice_pipe.radarnet, device,
+                       input_patch_size_image=WIDE_PATCH)
+    pipe = TwoStagePipeline(rn, slice_pipe.fusionnet, H, W, device=device)
+    outs, _, _, launches = serve_path(
+        'wide', pipe, reqs, device,
+        {'scatter_quasi_dense': N_REQUESTS, 'fused_skip_gather_add': 0,
+         'column_crop': 3 * N_REQUESTS})
+    record['column_crop']['launches'] = launches['column_crop']
+    check_plain_route('wide', pipe, reqs[1], outs[0], roi_pool,
+                      'batch_column_crop', cc.batch_column_crop_plain)
+    stage_times('wide', pipe, reqs[1], device)
+
+
+def profile_request(name, pipe, req):
     """torch.profiler over one request: device time by kernel name, and the
     device's busy share of the request's wall time."""
     from torch.profiler import ProfilerActivity, profile
@@ -383,11 +686,12 @@ def profile_request(pipe, req):
             ('Buffer Flush', 'Activity Buffer Request')]
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     total_us = sum(e.self_device_time_total for e in rows)
-    log('profile: wall {:.2f} ms, device kernels {:.2f} ms ({:.1f}% busy)'
-        .format(wall_ms, total_us / 1e3, 100.0 * total_us / 1e3 / wall_ms))
+    log('{} profile: wall {:.2f} ms, device kernels {:.2f} ms ({:.1f}% busy)'
+        .format(name, wall_ms, total_us / 1e3,
+                100.0 * total_us / 1e3 / wall_ms))
     for e in rows[:25]:
-        log('profile: {:9.3f} ms {:6d} calls  {}'.format(
-            e.self_device_time_total / 1e3, e.count, e.key[:110]))
+        log('{} profile: {:9.3f} ms {:6d} calls  {}'.format(
+            name, e.self_device_time_total / 1e3, e.count, e.key[:110]))
 
 
 def gpu_name_and_power():
@@ -411,22 +715,43 @@ def main():
 
     with Phase('build'):
         from rcfd_tpu_torch.ops import _build
+        from rcfd_tpu_torch.ops import crop_cuda as cc
+        from rcfd_tpu_torch.ops import fused_skip as fs
         from rcfd_tpu_torch.ops import scatter_cuda as sc
+        sources = [m.SOURCE for m in (sc, fs, cc)]
         t0 = time.perf_counter()
-        sc._kernel()
-        log('built {} in {:.2f} s'.format(sc.SOURCE, time.perf_counter() - t0))
-        for line in _build.BUILD_LOGS.get(sc.SOURCE, '').splitlines():
-            log('  nvcc: ' + line)
+        _build.load_libraries(sources)
+        for m in (sc, fs, cc):
+            m._kernel()
+        log('built {} in {:.2f} s, one nvcc each, started together'.format(
+            ', '.join(sources), time.perf_counter() - t0))
+        for source in sources:
+            log('  {}: {:.2f} s from its start until collected'.format(
+                source, _build.BUILD_SECONDS.get(source, float('nan'))))
+            for line in _build.BUILD_LOGS.get(source, '').splitlines():
+                log('  nvcc: ' + line)
+    # one set of weights for every full-width phase (no configuration of
+    # the smoke changes a parameter's shape), and one set of requests
+    rn, fn = build_models(RADARNET, FUSIONNET, device, SEED)
+    reqs = requests(np.random.default_rng(SEED), N_REQUESTS + 1, H, W, K,
+                    N_INVALID)
     with Phase('kernel'):
-        phase_kernel(device, record)
+        phase_kernel_scatter(device, record)
+        phase_kernel_fused_skip(device, record, rn)
+        phase_kernel_column_crop(device, record, rn)
+        torch.cuda.empty_cache()
     with Phase('reference'):
         phase_reference(device)
     with Phase('slice'):
-        phase_slice(device, record)
+        slice_pipe = phase_slice(device, record, rn, fn, reqs)
+    with Phase('fused'):
+        phase_fused(device, record, slice_pipe, reqs)
+    with Phase('wide'):
+        phase_wide(device, record, slice_pipe, reqs)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),
-          'a kernel of the path was not launched: {}'.format(kernels))
+          'a kernel of a path was not launched: {}'.format(kernels))
     log(gpu_name_and_power())
     log(json.dumps({'kernels': kernels}))
     log(json.dumps({'ok': True, 'device': {

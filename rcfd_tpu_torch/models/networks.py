@@ -15,6 +15,7 @@ from torch import nn
 
 from ..nn import functional as F
 from ..nn.layers import Conv2d, DecoderBlock, FullyConnected, ResNetBlock
+from ..nn.perf import PerfConfig
 from ..ops.roi_pool import roi_pool_column
 
 
@@ -192,7 +193,9 @@ class RadarNetV1Encoder(nn.Module):
 
     forward(image (B, 3, H, W), points (B*K, 3), x1 (B, K)) returns the
     fused latent (B*K, C_img + C_pt, h/32, w/32) and the per-point pooled
-    skips.
+    skips. With ``perf.fused_pool2`` (``fused_pool4``) the 1/2-scale
+    (1/4-scale) skip is handed on deferred, as a LazyColumnWindows, when
+    its pooled width is at most 256.
     """
 
     def __init__(self, input_channels_image: int = 3,
@@ -203,8 +206,9 @@ class RadarNetV1Encoder(nn.Module):
                  latent_size_depth: int = 128 * 28 * 9,
                  weight_initializer: str = 'kaiming_uniform',
                  activation_func: str = 'leaky_relu',
-                 use_batch_norm: bool = False):
+                 use_batch_norm: bool = False, perf: PerfConfig = None):
         super().__init__()
+        self.perf = perf if perf is not None else PerfConfig()
         self.n_neuron_latent_depth = list(n_neurons_encoder_depth)[-1]
         self.input_patch_size_image = tuple(input_patch_size_image)
         self.encoder_image = ResNetEncoder(
@@ -233,10 +237,15 @@ class RadarNetV1Encoder(nn.Module):
             latent_image, x1, box_width=patch_w, box_y1=0,
             box_y2=box_height, spatial_scale=1 / 32.,
             output_size=(latent_height, latent_width))
+        # inference only, so the JAX package's `not training` term holds
+        fuse_pool2 = self.perf.fused_pool2 and skip_sizes[0][1] <= 256
+        fuse_pool4 = self.perf.fused_pool4 and skip_sizes[1][1] <= 256
         skips_pooled = [
             roi_pool_column(skip, x1, box_width=patch_w, box_y1=0,
                             box_y2=box_height, spatial_scale=skip_scales[i],
-                            output_size=skip_sizes[i])
+                            output_size=skip_sizes[i],
+                            return_global=(fuse_pool2 and i == 0) or
+                            (fuse_pool4 and i == 1))
             for i, skip in enumerate(skips_image)]
         latent_depth = self.encoder_depth(points)
         # torch .view(N, C, -1, W) of the (N, C*h*w) latent: C-major, which

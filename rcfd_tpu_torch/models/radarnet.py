@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from .. import default_device
+from ..nn.perf import PerfConfig
 from .networks import MultiScaleDecoder, RadarNetV1Encoder
 
 
@@ -18,7 +19,8 @@ class RadarNetModel(nn.Module):
 
     Built on ``device`` (``cuda`` unless ``device='cpu'`` is given) and put
     in eval mode; weights come from ``init_parameters`` or
-    ``load_state_dict(state_dict_from_jax(...))``.
+    ``load_state_dict(state_dict_from_jax(...))``. ``perf`` (a PerfConfig)
+    turns on the deferred skip pools; it adds no parameter.
     """
 
     def __init__(self, input_channels_image: int, input_channels_depth: int,
@@ -27,7 +29,8 @@ class RadarNetModel(nn.Module):
                  n_neurons_encoder_depth: List[int], decoder_type: str,
                  n_filters_decoder: List[int],
                  weight_initializer: str = 'kaiming_uniform',
-                 activation_func: str = 'leaky_relu', device=None):
+                 activation_func: str = 'leaky_relu', device=None,
+                 perf: PerfConfig = None):
         super().__init__()
         device = default_device(device)
         self.input_patch_size_image = tuple(input_patch_size_image)
@@ -41,7 +44,8 @@ class RadarNetModel(nn.Module):
             input_channels_image, input_channels_depth,
             input_patch_size_image, n_filters_encoder_image,
             n_neurons_encoder_depth, latent_size_depth, weight_initializer,
-            activation_func, use_batch_norm='batch_norm' in encoder_type)
+            activation_func, use_batch_norm='batch_norm' in encoder_type,
+            perf=perf)
         if 'multiscale' not in decoder_type:
             raise ValueError('Decoder type {} not supported.'.format(
                 decoder_type))

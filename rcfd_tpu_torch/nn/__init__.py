@@ -1,3 +1,4 @@
 from . import functional
 from .layers import (BatchNorm2d, Conv2d, DecoderBlock, FullyConnected,
                      ResNetBlock, UpConv2d, init_parameters)
+from .perf import PerfConfig

@@ -5,7 +5,9 @@ reference's torch state_dicts, so ``utils.checkpoint.state_dict_from_jax``
 loads with ``strict=True``. All math is NCHW. Inference only: batch norm
 always uses its running statistics. The TPU layout rewrites of the JAX
 package (fused upsample, fast split-conv decoder, packed tails) are not
-ported; these blocks compute the plain math they rewrite.
+ported; these blocks compute the plain math they rewrite. A DecoderBlock
+given a deferred skip (LazyColumnWindows) runs the fused skip gather-add
+(ops/fused_skip.py).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.fused_skip import LazyColumnWindows, fused_skip_conv_add
 from . import functional as F
 
 
@@ -75,7 +78,10 @@ class Conv2d(nn.Module):
             else None
 
     def forward(self, x):
-        y = self.conv(x)
+        return self.finish(self.conv(x))
+
+    def finish(self, y):
+        """Batch norm and activation of the convolution's output."""
         if self.batch_norm is not None:
             y = self.batch_norm(y)
         if self.activation is not None:
@@ -174,6 +180,13 @@ class DecoderBlock(nn.Module):
         elif shape is None:
             shape = (2 * x.shape[2], 2 * x.shape[3])
         y = self.deconv(x, shape)
+        if isinstance(skip, LazyColumnWindows):
+            # conv(concat[y, windows]) with the skip half convolved once on
+            # the global map and its windows gathered into the sum
+            w = self.conv.conv.weight
+            co = y.shape[1]
+            return self.conv.finish(
+                fused_skip_conv_add(y, w[:, :co], skip, w[:, co:]))
         if self.skip_channels > 0:
             y = torch.cat([y, skip], dim=1)
         return self.conv(y)

@@ -1,5 +1,5 @@
-"""Build a CUDA source of ``csrc/`` with nvcc into a plain C shared library
-and load it with ctypes.
+"""Build the CUDA sources of ``csrc/`` with nvcc, each into a plain C shared
+library, and load them with ctypes.
 
 No PyTorch headers and no ``torch.utils.cpp_extension``: a source with a
 plain C interface compiles in seconds. The library goes into
@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
@@ -24,8 +25,12 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 BUILD_TIMEOUT_S = 300
 
 _LIBS = {}
-# nvcc's stderr (ptxas register and shared-memory report) per source
+# nvcc's stderr (ptxas register and shared-memory report) and the seconds
+# from its start until its end was collected (builds started together are
+# collected in order, so a later one may have ended sooner), per source
+# built in this process
 BUILD_LOGS = {}
+BUILD_SECONDS = {}
 
 
 def find_nvcc() -> str:
@@ -43,27 +48,55 @@ def find_nvcc() -> str:
         'the CUDA kernels of rcfd_tpu_torch are built with it at first use')
 
 
-def load_library(source: str) -> ctypes.CDLL:
-    """Compile ``csrc/<source>`` (once per content) and load it."""
-    if source in _LIBS:
-        return _LIBS[source]
+def _target(source: str):
+    """(source path, library path) of ``csrc/<source>``, the library named
+    after a hash of the source and the flags."""
     path = os.path.join(CSRC_DIR, source)
     with open(path, 'rb') as f:
         digest = hashlib.sha256(
             f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = os.path.splitext(source)[0]
-    out = os.path.join(BUILD_DIR, 'lib{}-{}.so'.format(stem, digest))
-    if not os.path.exists(out):
-        nvcc = find_nvcc()
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = '{}.{}.tmp'.format(out, os.getpid())
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, '-o', tmp, path],
-                              capture_output=True, text=True,
-                              timeout=BUILD_TIMEOUT_S)
-        if proc.returncode != 0:
-            raise RuntimeError('nvcc failed on {} (exit {}):\n{}'.format(
-                source, proc.returncode, proc.stderr))
-        BUILD_LOGS[source] = proc.stderr
-        os.replace(tmp, out)
-    _LIBS[source] = ctypes.CDLL(out)
-    return _LIBS[source]
+    return path, os.path.join(BUILD_DIR, 'lib{}-{}.so'.format(stem, digest))
+
+
+def load_libraries(sources) -> list:
+    """Compile every source of ``sources`` that is not built yet, one nvcc
+    process per source, all started together, then load each library.
+    A failed or timed-out build raises, after every nvcc has ended."""
+    procs = {}
+    try:
+        for source in sources:
+            if source in _LIBS or source in procs:
+                continue
+            path, out = _target(source)
+            if os.path.exists(out):
+                _LIBS[source] = ctypes.CDLL(out)
+                continue
+            nvcc = find_nvcc()
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = '{}.{}.tmp'.format(out, os.getpid())
+            proc = subprocess.Popen([nvcc, *NVCC_FLAGS, '-o', tmp, path],
+                                    stdout=subprocess.DEVNULL,
+                                    stderr=subprocess.PIPE, text=True)
+            procs[source] = (proc, tmp, out, time.perf_counter())
+        for source, (proc, tmp, out, t0) in procs.items():
+            _, stderr = proc.communicate(
+                timeout=max(1.0, t0 + BUILD_TIMEOUT_S - time.perf_counter()))
+            if proc.returncode != 0:
+                raise RuntimeError('nvcc failed on {} (exit {}):\n{}'.format(
+                    source, proc.returncode, stderr))
+            BUILD_LOGS[source] = stderr
+            BUILD_SECONDS[source] = time.perf_counter() - t0
+            os.replace(tmp, out)
+            _LIBS[source] = ctypes.CDLL(out)
+    finally:
+        for proc, _, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return [_LIBS[source] for source in sources]
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Compile ``csrc/<source>`` (once per content) and load it."""
+    return load_libraries([source])[0]

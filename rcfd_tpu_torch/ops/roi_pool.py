@@ -7,20 +7,30 @@ point, with torchvision.ops.roi_pool's bin arithmetic:
 bin j covers ``[floor(j * bin), ceil((j + 1) * bin))`` in float32, clamped
 to the map; empty bins give 0.
 
-Only the constant-bin branch is ported. When ``box_width * scale`` is an
-integer equal to ``pooled_w`` (every scale of the canonical 288-wide
-patch), each bin is exactly ``[j, j + 2)``, so the pool is a
-box-independent 2-tap column max followed by a contiguous window per box.
-The variable-bin branch, which the JAX package serves with its Pallas crop
-kernel, raises NotImplementedError.
+Two branches, as in the JAX package:
+
+- constant-bin: when ``box_width * scale`` is an integer equal to
+  ``pooled_w`` (every scale of the canonical 288-wide patch), each bin is
+  exactly ``[j, j + 2)``, so the pool is a box-independent 2-tap column max
+  followed by a contiguous window per box. It can also be returned
+  deferred, as a LazyColumnWindows, for the fused skip of the decoder.
+- variable-bin: otherwise (any patch width that is not a multiple of 32),
+  each box takes one contiguous window of the row-pooled map through the
+  column crop kernel (ops/crop_cuda.py; its plain version on the CPU), and
+  the bin maxima are masked maxima over a few static shifts of it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from .crop_cuda import batch_column_crop
+from .fused_skip import LazyColumnWindows
 
 
 def _round_half_away(v):
@@ -75,44 +85,91 @@ def pool_rows_static(feat, box_y1: int, box_y2: int, spatial_scale: float,
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
+def variable_bin_window(box_width: int, spatial_scale: float,
+                        pooled_w: int):
+    """(shifts, win) of the variable-bin branch. roi_width is at most
+    ceil(box_width * scale) + 2, so every bin is at most max_bin_w wide, and
+    bin j's taps lie at local columns j + s, s < shifts, of a window of win
+    columns from the box's start."""
+    max_roi_w = int(math.ceil(box_width * spatial_scale)) + 2
+    max_bin_w = int(math.ceil(max_roi_w / pooled_w)) + 1
+    shifts = (max_roi_w - pooled_w) + max_bin_w
+    return shifts, pooled_w + shifts
+
+
 def roi_pool_column(feat, x1, box_width: int, box_y1: int, box_y2: int,
-                    spatial_scale: float, output_size: Tuple[int, int]):
+                    spatial_scale: float, output_size: Tuple[int, int],
+                    return_global: bool = False):
     """ROI max pool of full-height, fixed-width column boxes.
 
     Arg(s):
         feat : (N, C, H_f, W_f) feature map
-        x1 : (N, K) left box edges in input coordinates (x2 = x1 + box_width)
+        x1 : (N, K) left box edges in input coordinates (x2 = x1 + box_width),
+            non-negative
         box_width : static box width in input coordinates
         box_y1, box_y2 : static vertical box extent in input coordinates
         spatial_scale : feature scale (e.g. 1/32)
         output_size : (pooled_h, pooled_w)
+        return_global : when the constant-bin branch applies, return the
+            pool deferred, as a LazyColumnWindows of the global 2-tap-max map
+            (its -inf apron zeroed) and the window starts; ``materialize()``
+            gives the windows this function returns otherwise. Without the
+            constant-bin branch, the windows are returned.
     Returns:
-        (N * K, C, pooled_h, pooled_w), image-major like torchvision.ops.roi_pool
+        (N * K, C, pooled_h, pooled_w), image-major like
+        torchvision.ops.roi_pool; or a LazyColumnWindows (see return_global)
     """
     n, c, h_f, w_f = feat.shape
     k = x1.shape[1]
     pooled_h, pooled_w = output_size
-    bw_scaled = box_width * spatial_scale
-    if not (float(bw_scaled).is_integer() and pooled_w == int(bw_scaled)
-            and _bins_are_j_j2(pooled_w)):
-        raise NotImplementedError(
-            'roi_pool_column: only the constant-bin branch is ported '
-            '(box_width * spatial_scale == pooled_w); the variable-bin '
-            'branch and its crop kernel are in the port queue of ROADMAP.md')
-
     rows = pool_rows_static(feat, box_y1, box_y2, spatial_scale, pooled_h)
-    # right tap rows[..., w + 1], -inf past the map; then -inf past w_f
-    # so bins wholly beyond the map give 0 like empty bins
-    neg_inf = torch.full_like(rows[..., :1], float('-inf'))
-    g = torch.maximum(rows, torch.cat([rows[..., 1:], neg_inf], dim=3))
-    g = torch.cat([g, neg_inf.expand(-1, -1, -1, pooled_w)], dim=3)
+    # rows: (N, C, pooled_h, W_f)
+    x1f = x1.float()
+    roi_start_w = _round_half_away(x1f * spatial_scale).to(torch.int32)
+    bw_scaled = box_width * spatial_scale
 
-    start = _round_half_away(x1.float() * spatial_scale).to(torch.int64)
-    start = torch.clamp(start, 0, w_f)                        # (N, K)
-    cols = start[:, :, None] + torch.arange(pooled_w, device=feat.device)
-    pooled = torch.stack([g[i][:, :, cols[i]] for i in range(n)])
-    # (N, C, ph, K, pw) -> (N * K, C, ph, pw)
-    pooled = pooled.permute(0, 3, 1, 2, 4).reshape(n * k, c, pooled_h,
-                                                   pooled_w)
-    return torch.where(torch.isfinite(pooled), pooled,
-                       torch.zeros_like(pooled))
+    if float(bw_scaled).is_integer() and pooled_w == int(bw_scaled) and \
+            _bins_are_j_j2(pooled_w):
+        # right tap rows[..., w + 1], -inf past the map (the last column's
+        # bin is the column alone); rows are finite, so g is, and a zero
+        # apron past w_f makes bins wholly beyond the map 0 like empty bins
+        neg_inf = torch.full_like(rows[..., :1], float('-inf'))
+        g = torch.maximum(rows, torch.cat([rows[..., 1:], neg_inf], dim=3))
+        g = F.pad(g, (0, pooled_w))
+        start = torch.clamp(roi_start_w, 0, w_f)                 # (N, K)
+        lazy = LazyColumnWindows(g, start, pooled_w)
+        return lazy if return_global else lazy.materialize()
+
+    roi_end_w = _round_half_away((x1f + box_width) * spatial_scale).to(
+        torch.int32)
+    roi_width = torch.clamp_min(roi_end_w - roi_start_w + 1, 1)  # (N, K)
+
+    shifts, win = variable_bin_window(box_width, spatial_scale, pooled_w)
+
+    bin_w = roi_width.float() / pooled_w                         # (N, K)
+    j = torch.arange(pooled_w, dtype=torch.float32, device=feat.device)
+    wstart = torch.floor(j * bin_w[..., None])                   # (N, K, pw)
+    wend = torch.ceil((j + 1.0) * bin_w[..., None])
+    wstart = torch.clamp(wstart.to(torch.int32) + roi_start_w[..., None],
+                         0, w_f)
+    wend = torch.clamp(wend.to(torch.int32) + roi_start_w[..., None], 0, w_f)
+
+    # the crop clips its start to [0, W_f] (x1 >= 0 keeps start >= 0); boxes
+    # wholly right of the map give empty bins, so 0
+    start = torch.clamp_max(roi_start_w, w_f)                    # (N, K)
+    windows = batch_column_crop(rows.contiguous(), start.contiguous(), win)
+    windows = windows.reshape(n, k, c, pooled_h, win)
+    ws_l = (wstart - start[..., None])[:, :, None, None, :]      # (N,K,1,1,pw)
+    we_l = (wend - start[..., None])[:, :, None, None, :]
+
+    neg_inf = torch.tensor(float('-inf'), dtype=rows.dtype,
+                           device=feat.device)
+    jj = torch.arange(pooled_w, dtype=torch.int32, device=feat.device)
+    acc = None
+    for s in range(shifts):
+        a = jj + s  # local column of this shift for every output bin
+        seg = torch.where((a >= ws_l) & (a < we_l),
+                          windows[..., s:s + pooled_w], neg_inf)
+        acc = seg if acc is None else torch.maximum(acc, seg)
+    pooled = torch.where(torch.isfinite(acc), acc, torch.zeros_like(acc))
+    return pooled.reshape(n * k, c, pooled_h, pooled_w)

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
+from rcfd_tpu_torch.ops import crop_cuda as cc  # noqa: E402
+from rcfd_tpu_torch.ops import fused_skip as fs  # noqa: E402
 from rcfd_tpu_torch.ops import scatter_cuda as sc  # noqa: E402
 
 from torch_parity import SCATTER_CASES, scatter_case  # noqa: E402
@@ -55,3 +57,74 @@ def test_kernel_wrapper_refuses_bad_cuda_tensors(cuda_device, rng):
         sc.scatter_quasi_dense(c, xs.double(), zs, v, h, w, patch)
     with pytest.raises(ValueError):
         sc.scatter_quasi_dense(c, xs.cpu(), zs, v, h, w, patch)
+
+
+def _gather_add_inputs(rng, device, n=2, k=5, co=3, ph=7, pw=6, wg=40):
+    t = lambda a: torch.from_numpy(a).to(device)
+    starts = rng.integers(0, wg - pw + 1, (n, k)).astype(np.int32)
+    starts[0, 0], starts[-1, -1] = 0, wg - pw  # both edges
+    return (t(rng.standard_normal((n * k, co, ph, pw), dtype=np.float32)),
+            t(rng.standard_normal((n, co, ph, wg), dtype=np.float32)),
+            t(starts),
+            t(rng.standard_normal((n * k, co, ph), dtype=np.float32)),
+            t(rng.standard_normal((n * k, co, ph), dtype=np.float32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('pw', [2, 6, 37])
+def test_fused_skip_kernel_matches_plain_on_card(cuda_device, rng, pw):
+    args = _gather_add_inputs(rng, cuda_device, pw=pw)
+    before = fs.fused_skip_gather_add.launches
+    out = fs.fused_skip_gather_add(*args)
+    ref = fs.fused_skip_gather_add_plain(*args)
+    torch.cuda.synchronize()
+    assert fs.fused_skip_gather_add.launches == before + 1
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_fused_skip_wrapper_refuses_bad_cuda_tensors(cuda_device, rng):
+    a, cg, starts, cl, cr = _gather_add_inputs(rng, cuda_device)
+    with pytest.raises(ValueError, match='contiguous'):
+        fs.fused_skip_gather_add(a, cg, starts, cl.transpose(1, 2)
+                                 .contiguous().transpose(1, 2), cr)
+    with pytest.raises(NotImplementedError):
+        fs.fused_skip_gather_add(a.to(torch.bfloat16), cg, starts, cl, cr)
+    with pytest.raises(NotImplementedError):
+        fs.fused_skip_gather_add(a, cg, starts.long(), cl, cr)
+    with pytest.raises(ValueError):
+        fs.fused_skip_gather_add(a, cg.cpu(), starts, cl, cr)
+
+
+def _crop_inputs(rng, device, n=2, k=6, c=3, ph=5, w=29):
+    starts = rng.integers(0, w, (n, k)).astype(np.int32)
+    starts[0, :3] = [-4, w, w + 9]  # clipped to 0, w and w
+    return (torch.from_numpy(rng.standard_normal(
+        (n, c, ph, w), dtype=np.float32)).to(device),
+        torch.from_numpy(starts).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('win', [1, 15, 43])
+def test_column_crop_kernel_matches_plain_on_card(cuda_device, rng, win):
+    rows, starts = _crop_inputs(rng, cuda_device)
+    before = cc.batch_column_crop.launches
+    out = cc.batch_column_crop(rows, starts, win)
+    ref = cc.batch_column_crop_plain(rows, starts, win)
+    torch.cuda.synchronize()
+    assert cc.batch_column_crop.launches == before + 1
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+def test_column_crop_wrapper_refuses_bad_cuda_tensors(cuda_device, rng):
+    rows, starts = _crop_inputs(rng, cuda_device)
+    with pytest.raises(ValueError, match='contiguous'):
+        cc.batch_column_crop(rows.transpose(2, 3).contiguous()
+                             .transpose(2, 3), starts, 7)
+    with pytest.raises(NotImplementedError):
+        cc.batch_column_crop(rows.double(), starts, 7)
+    with pytest.raises(NotImplementedError):
+        cc.batch_column_crop(rows, starts.long(), 7)
+    with pytest.raises(ValueError):
+        cc.batch_column_crop(rows, starts.cpu(), 7)

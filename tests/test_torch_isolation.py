@@ -96,3 +96,13 @@ def test_kernel_source_names_what_it_replaces():
         text = f.read()
     assert 'rcfd_tpu/ops/scatter_pallas.py::_kernel' in text
     assert 'extern "C"' in text and 'cudaGetLastError' in text
+
+
+@pytest.mark.parametrize('source,replaces', [
+    ('fused_skip_gather_add.cu', 'rcfd_tpu/ops/fused_skip.py::_fused_pallas'),
+    ('column_crop.cu', 'rcfd_tpu/ops/crop_pallas.py::_kernel')])
+def test_kernel_sources_name_the_tpu_kernels_they_replace(source, replaces):
+    with open(os.path.join(PACKAGE, 'csrc', source)) as f:
+        text = f.read()
+    assert replaces in text
+    assert 'extern "C"' in text and 'cudaGetLastError' in text

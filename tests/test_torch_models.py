@@ -18,10 +18,12 @@ from rcfd_tpu.nn.perf import PerfConfig  # noqa: E402
 from rcfd_tpu_torch.models import networks  # noqa: E402
 from rcfd_tpu_torch.models.fusionnet import FusionNetModel  # noqa: E402
 from rcfd_tpu_torch.models.radarnet import RadarNetModel  # noqa: E402
+from rcfd_tpu_torch.nn.perf import PerfConfig as PortPerfConfig  # noqa: E402
 from rcfd_tpu_torch.utils.checkpoint import state_dict_from_jax  # noqa: E402
 
-from torch_parity import (FUSIONNET_TINY, H, RADARNET_TINY, W,  # noqa: E402
-                          jax_variables, nchw, nhwc)
+from torch_parity import (FUSIONNET_TINY, H, RADARNET_FUSED_JAX_PERF,  # noqa
+                          RADARNET_TINY, RADARNET_WIDE, RADARNET_WIDE_JAX_PERF,
+                          W, jax_variables, nchw, nhwc)
 
 # float32 networks of ~20 layers; sums in another order on each side
 ATOL = 1e-4
@@ -46,8 +48,8 @@ def fusionnet():
     return p, s, port
 
 
-def _radarnet_inputs(rng, k=6):
-    pad = RADARNET_TINY['input_patch_size_image'][1] // 2
+def _radarnet_inputs(rng, k=6, config=RADARNET_TINY):
+    pad = config['input_patch_size_image'][1] // 2
     image = rng.random((1, H, W + 2 * pad, 3), dtype=np.float32)
     x = rng.integers(0, W, k).astype(np.float32)
     points = np.stack([x + pad, rng.integers(0, H, k),
@@ -68,6 +70,50 @@ def test_radarnet_apply_matches_jax(radarnet, perf, return_logits, rng):
                      torch.from_numpy(x1), box_height=H,
                      return_logits=return_logits)
     assert out.shape == (6, 32, 32, 1)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
+                               rtol=0)
+
+
+@pytest.mark.parametrize('perf', sorted(PERFS))
+def test_radarnet_deferred_skip_pools_match_jax(radarnet, perf, rng):
+    """The port with the deferred 1/2- and 1/4-scale pools (fused skip
+    gather-add, plain version on the CPU) against the JAX package's fused
+    path under both baselines, within its own tolerance for the fusion
+    (tests/test_fused_skip.py)."""
+    p, s, port = radarnet
+    fused = RadarNetModel(**RADARNET_TINY, device='cpu',
+                          perf=PortPerfConfig(fused_pool2=True,
+                                              fused_pool4=True))
+    fused.load_state_dict(port.state_dict(), strict=True)
+    base = PERFS[perf] or PerfConfig()
+    jm = JaxRadarNet(**RADARNET_TINY, perf=base.replace(
+        **RADARNET_FUSED_JAX_PERF))
+    image, points, x1 = _radarnet_inputs(rng)
+    ref, _ = jm.apply(p, s, jnp.asarray(image), jnp.asarray(points),
+                      jnp.asarray(x1), box_height=H, return_logits=False)
+    out = fused.apply(torch.from_numpy(image), torch.from_numpy(points),
+                      torch.from_numpy(x1), box_height=H,
+                      return_logits=False)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=5e-4,
+                               rtol=0)
+
+
+def test_radarnet_variable_bin_patch_matches_jax(rng):
+    """A patch whose width is not a multiple of 32: the 1/16 and 1/32
+    pools take the variable-bin branch (the crop's plain version here),
+    against the JAX package's XLA branch."""
+    p, s = jax_variables(JaxRadarNet(**RADARNET_WIDE), 3,
+                         np.random.default_rng(12))
+    port = RadarNetModel(**RADARNET_WIDE, device='cpu')
+    port.load_state_dict(state_dict_from_jax(p, s), strict=True)
+    jm = JaxRadarNet(**RADARNET_WIDE,
+                     perf=PerfConfig(**RADARNET_WIDE_JAX_PERF))
+    image, points, x1 = _radarnet_inputs(rng, config=RADARNET_WIDE)
+    ref, _ = jm.apply(p, s, jnp.asarray(image), jnp.asarray(points),
+                      jnp.asarray(x1), box_height=H)
+    out = port.apply(torch.from_numpy(image), torch.from_numpy(points),
+                     torch.from_numpy(x1), box_height=H)
+    assert out.shape == (6,) + RADARNET_WIDE['input_patch_size_image'] + (1,)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL,
                                rtol=0)
 

@@ -15,14 +15,17 @@ from rcfd_tpu.data import transport as jax_transport  # noqa: E402
 from rcfd_tpu.data.transforms import Transforms as JaxTransforms  # noqa: E402
 from rcfd_tpu.models.fusionnet import FusionNetModel as JaxFusionNet  # noqa
 from rcfd_tpu.models.radarnet import RadarNetModel as JaxRadarNet  # noqa
+from rcfd_tpu.nn.perf import PerfConfig  # noqa: E402
 from rcfd_tpu.ops.scatter_pallas import scatter_quasi_dense_pallas  # noqa
 
 from rcfd_tpu_torch import pipeline  # noqa: E402
 from rcfd_tpu_torch.models import FusionNetModel, RadarNetModel  # noqa: E402
+from rcfd_tpu_torch.nn.perf import PerfConfig as PortPerfConfig  # noqa: E402
 from rcfd_tpu_torch.utils.checkpoint import state_dict_from_jax  # noqa: E402
 
-from torch_parity import (FUSIONNET_TINY, H, RADARNET_TINY, W,  # noqa: E402
-                          frame_and_points, jax_variables)
+from torch_parity import (FUSIONNET_TINY, H, RADARNET_FUSED_JAX_PERF,  # noqa
+                          RADARNET_TINY, RADARNET_WIDE, RADARNET_WIDE_JAX_PERF,
+                          W, frame_and_points, jax_variables)
 
 Q = 2.0 ** 14
 PATCH = RADARNET_TINY['input_patch_size_image']
@@ -46,7 +49,8 @@ def models():
 def _jax_stages(jr, jf, rv, fv, image, points, valid):
     """rcfd_tpu/pipeline.py:121-196, step by step, with the Pallas scatter
     kernel in interpret mode: returns (crops, dense, quasi, response)."""
-    pad = PATCH[1] // 2
+    patch = jr.input_patch_size_image
+    pad = patch[1] // 2
     (image_t,) = JaxTransforms(normalized_image_range=[0, 1]).transform(
         jax.random.PRNGKey(0), [jax_transport.decode(jnp.asarray(image))],
         random_transform_probability=0.0)
@@ -59,7 +63,7 @@ def _jax_stages(jr, jf, rv, fv, image, points, valid):
                             training=False, return_logits=False)
     crops = responses[..., 0]
     depth, response = scatter_quasi_dense_pallas(
-        crops, x_shifted, points[:, 2], jnp.asarray(valid), H, W, PATCH,
+        crops, x_shifted, points[:, 2], jnp.asarray(valid), H, W, patch,
         interpret=True)
     depth = jnp.floor(depth * 256.0) / 256.0
     response = jnp.floor(response * Q) / Q
@@ -86,6 +90,23 @@ def request_separate():
     return image, points, valid
 
 
+def _port_downstream_of_jax_crops(port, crops, image, points, valid):
+    """The JAX crops through the port's scatter, bridge and FusionNet:
+    (quasi, response, dense)."""
+    patch = port.radarnet.input_patch_size_image
+    pad = patch[1] // 2
+    with torch.inference_mode():
+        maps = port.scatter(torch.from_numpy(crops),
+                            torch.from_numpy(points[:, 0] + pad),
+                            torch.from_numpy(points[:, 2].copy()),
+                            torch.from_numpy(valid), H, W, patch)
+        quasi, response, input_depth = port.bridge(*maps)
+        image_t = port.transforms.transform(
+            torch.from_numpy(image).float()).permute(0, 3, 1, 2)
+        dense = port.fusionnet(image_t, input_depth)[0, 0]
+    return quasi.numpy(), response.numpy(), dense.numpy()
+
+
 def test_slice_stage_by_stage(models, request_overlapping):
     """The JAX crops through the port's scatter, bridge and FusionNet
     against the JAX composition with the interpret-mode kernel: quasi and
@@ -94,19 +115,53 @@ def test_slice_stage_by_stage(models, request_overlapping):
     image, points, valid = request_overlapping
     crops, dense_ref, quasi_ref, response_ref = _jax_stages(
         jr, jf, rv, fv, image, points, valid)
-    pad = PATCH[1] // 2
+    quasi, response, dense = _port_downstream_of_jax_crops(
+        port, crops, image, points, valid)
+    np.testing.assert_array_equal(quasi, quasi_ref)
+    np.testing.assert_array_equal(response, response_ref)
+    np.testing.assert_allclose(dense, dense_ref, atol=1e-4, rtol=0)
+    assert (response_ref > 0).sum() > 100
+
+
+# RadarNet configurations beside the canonical one: (config, JAX perf, port
+# perf, crop tolerance). The deferred pools are held within the JAX
+# package's own tolerance for that fusion (tests/test_fused_skip.py), the
+# variable-bin patch within tests/test_torch_models.py's ATOL.
+RADARNET_CONFIGS = {
+    'deferred_pools': (RADARNET_TINY, RADARNET_FUSED_JAX_PERF,
+                       PortPerfConfig(fused_pool2=True, fused_pool4=True),
+                       5e-4),
+    'variable_bin_patch': (RADARNET_WIDE, RADARNET_WIDE_JAX_PERF, None, 1e-4),
+}
+
+
+@pytest.mark.parametrize('config', sorted(RADARNET_CONFIGS))
+def test_slice_stage_by_stage_radarnet_configs(models, config,
+                                               request_overlapping):
+    """The slice with RadarNet's deferred skip pools, or at a patch width
+    that takes the variable-bin pool: the port's crops against the JAX
+    package's with the same perf, then, from the JAX crops on, the maps and
+    dense depth as in test_slice_stage_by_stage."""
+    _, jf, _, fv, base, _ = models
+    radarnet_kw, jax_perf, port_perf, crop_tol = RADARNET_CONFIGS[config]
+    jr = JaxRadarNet(**radarnet_kw, perf=PerfConfig(**jax_perf))
+    # the weights are drawn as the models fixture draws its RadarNet's
+    rv = jax_variables(jr, 0, np.random.default_rng(20))
+    rn = RadarNetModel(**radarnet_kw, device='cpu', perf=port_perf)
+    rn.load_state_dict(state_dict_from_jax(*rv), strict=True)
+    port = pipeline.TwoStagePipeline(rn, base.fusionnet, H, W, device='cpu')
+    image, points, valid = request_overlapping
+    crops_ref, dense_ref, quasi_ref, response_ref = _jax_stages(
+        jr, jf, rv, fv, image, points, valid)
     with torch.inference_mode():
-        maps = port.scatter(torch.from_numpy(crops),
-                            torch.from_numpy(points[:, 0] + pad),
-                            torch.from_numpy(points[:, 2].copy()),
-                            torch.from_numpy(valid), H, W, PATCH)
-        quasi, response, input_depth = port.bridge(*maps)
-        image_t = port.transforms.transform(
-            torch.from_numpy(image).float()).permute(0, 3, 1, 2)
-        dense = port.fusionnet(image_t, input_depth)[0, 0]
-    np.testing.assert_array_equal(quasi.numpy(), quasi_ref)
-    np.testing.assert_array_equal(response.numpy(), response_ref)
-    np.testing.assert_allclose(dense.numpy(), dense_ref, atol=1e-4, rtol=0)
+        crops = port.radarnet_stage(image, points)[1]
+    np.testing.assert_allclose(crops.numpy(), crops_ref, atol=crop_tol,
+                               rtol=0)
+    quasi, response, dense = _port_downstream_of_jax_crops(
+        port, crops_ref, image, points, valid)
+    np.testing.assert_array_equal(quasi, quasi_ref)
+    np.testing.assert_array_equal(response, response_ref)
+    np.testing.assert_allclose(dense, dense_ref, atol=1e-4, rtol=0)
     assert (response_ref > 0).sum() > 100
 
 

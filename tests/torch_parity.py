@@ -14,6 +14,15 @@ RADARNET_TINY = dict(
     n_filters_encoder_image=[4, 8, 8, 8, 8],
     n_neurons_encoder_depth=[4, 8, 8, 8, 8],
     decoder_type='multiscale-batch_norm', n_filters_decoder=[8, 8, 8, 8, 8])
+# the JAX package's gates of the fused skip path on the CPU: the XLA gather
+# (fused_pool2_pallas off) and the split-conv decoder that consumes lazy
+# skips (fast_decoder on)
+RADARNET_FUSED_JAX_PERF = dict(fused_pool2=True, fused_pool4=True,
+                               fused_pool2_pallas=False, fast_decoder=True)
+# a patch width that is not a multiple of 32, so the 1/16 and 1/32 pools take
+# the variable-bin branch; the JAX package serves it by XLA off the TPU
+RADARNET_WIDE = dict(RADARNET_TINY, input_patch_size_image=(64, 40))
+RADARNET_WIDE_JAX_PERF = dict(pallas_crop=False)
 FUSIONNET_TINY = dict(
     input_channels_image=3, input_channels_depth=2,
     encoder_type='fusionnet18_batch_norm',
