@@ -11,6 +11,10 @@ Phases, each printed as it starts and ends:
              at the shapes of the serving paths, bit for bit, and time the
              kernel, the plain version and the nearest one-call PyTorch
              operator
+  variants   the fused skip gather-add's variants (K3 and four that split
+             its time: rcfd_tpu_torch.tools.fusepall_exp) at deconv1's and
+             deconv2's shapes, in float32 and bf16, each against its plain
+             version bit for bit, timed against its byte bound
   reference  small configurations on the card against the same port on
              the CPU, stage by stage (the canonical one, one with RadarNet's
              deferred skip pools, one at a patch width that is not a
@@ -18,7 +22,9 @@ Phases, each printed as it starts and ends:
   slice      the two-stage serving path at full width (RadarNet at its
              900x288 patch, FusionNet at the benchmark config, 900x1600
              frames, 64 radar points) with seeded random weights, serving a
-             few requests; kernel: the quasi-dense scatter
+             few requests; kernel: the quasi-dense scatter. Also one
+             request with codec_encode=True, whose uint16 outputs must
+             equal floor(x * 256) / floor(x * 2^14) of the float ones
   fused      the same path with RadarNet's 1/2- and 1/4-scale pools
              deferred into its decoder (PerfConfig(fused_pool2=True,
              fused_pool4=True)); kernels: the fused skip gather-add and the
@@ -26,10 +32,15 @@ Phases, each printed as it starts and ends:
   wide       the same path with RadarNet at a 900x300 patch, whose 1/8,
              1/16 and 1/32 pools take the variable-bin branch; kernels: the
              column crop and the scatter
+  optimize   the slice and fused paths with every batch norm folded into
+             its convolution (TwoStagePipeline(optimize=True)): launches,
+             the deviation from the unfolded paths, and ms/frame of
+             interleaved, paired requests against the slice
 
 Each path phase sets every kernel's launch count to 0 before its counted
-requests, reads them after, and fails if a kernel of its path was not
-launched.
+requests, reads them after, and fails unless each kernel of its path was
+launched as often as its requests need and every other kernel not at
+all.
 
 Then a line with the card's name and power limit, a line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
@@ -255,20 +266,29 @@ def kernel_entry(name, source, replaces, parts, library):
                 per_request=True, parts=parts)
 
 
+def fused_skip_shapes(rn, device):
+    """(block, channels, ph, pw, map width) of the fused skip gather-add
+    at deconv1 (the 1/2-scale skip) and deconv2 (the 1/4) of the 900x288
+    patch."""
+    maps = encoder_maps(rn, PATCH, device)
+    out = []
+    for i in (0, 1):
+        block = 'deconv{}'.format(i + 1)
+        co = getattr(rn.decoder, block).conv.conv.weight.shape[0]
+        ph, pw = int(PATCH[0] * SCALES[i]), int(PATCH[1] * SCALES[i])
+        out.append((block, co, ph, pw, maps[i][3] + pw))
+    return out
+
+
 def phase_kernel_fused_skip(device, record, rn):
     """The fused skip gather-add at deconv1's and deconv2's shapes of the
     900x288 patch (64 windows of one frame), against its plain version."""
     from rcfd_tpu_torch.ops import fused_skip as fs
 
-    maps = encoder_maps(rn, PATCH, device)
     rng = np.random.default_rng(SEED + 2)
     t = lambda a: torch.from_numpy(a).to(device)
     parts = []
-    for i in (0, 1):  # deconv1 takes the 1/2-scale skip, deconv2 the 1/4
-        block = 'deconv{}'.format(i + 1)
-        co = getattr(rn.decoder, block).conv.conv.weight.shape[0]
-        ph, pw = int(PATCH[0] * SCALES[i]), int(PATCH[1] * SCALES[i])
-        wg = maps[i][3] + pw
+    for block, co, ph, pw, wg in fused_skip_shapes(rn, device):
         a = t(rng.standard_normal((K, co, ph, pw), dtype=np.float32))
         cg = t(rng.standard_normal((1, co, ph, wg), dtype=np.float32))
         starts = rng.integers(0, wg - pw + 1, (1, K)).astype(np.int32)
@@ -360,6 +380,55 @@ def phase_kernel_column_crop(device, record, rn):
         'rcfd_tpu/ops/crop_pallas.py:29', parts, library=True)
 
 
+def phase_variants(device, record, rn):
+    """K3 and its four variants (rcfd_tpu_torch.tools.fusepall_exp) at
+    deconv1's and deconv2's shapes, in float32 and bf16, on the tool's
+    inputs: each against its plain version bit for bit, full and align16
+    also against K3's plain version; timed against the byte bound, with
+    torch.mul and torch.gather as the yardsticks of nodma and dmaonly."""
+    from rcfd_tpu_torch.ops import fused_skip_variants as fv
+    from rcfd_tpu_torch.tools import fusepall_exp as tool
+
+    before = {v: fv.WRAPPERS[v].launches for v in fv.VARIANTS}
+    parts = []
+    for block, co, ph, pw, wg in fused_skip_shapes(rn, device):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = tool.make_inputs(K, 1, ph, pw, co, wg - pw, dtype,
+                                    device, seed=SEED)
+            for r in tool.run_variants(args, timer=device_ms):
+                label = '{} {} {}'.format(block, r['variant'], r['dtype'])
+                check(r['equal'], '{}: the kernel differs from its plain '
+                      'version: max abs err {}'.format(label,
+                                                       r['max_abs_err']))
+                check(r.get('err_vs_k3', 0.0) == 0.0, "{}: differs from "
+                      "K3's plain version by {}".format(
+                          label, r.get('err_vs_k3')))
+                check(r.get('library_equal', True), '{}: the {} yardstick '
+                      'differs from the plain version'.format(
+                          label, r['library']))
+                check(r['launched'], '{}: the wrapper did not count a '
+                      'launch'.format(label))
+                log('variants, {}: {}'.format(block, tool.describe(r)))
+                parts.append(dict(r, shape=block, a=list(args[0].shape),
+                                  cg=list(args[1].shape)))
+            del args
+    launches = sum(fv.WRAPPERS[v].launches - before[v] for v in fv.VARIANTS)
+    check(launches == len(parts) * (1 + 2 + tool.N_TIMED),
+          'variants: {} launches for {} parts'.format(launches, len(parts)))
+    total = lambda key: float(sum(p[key] for p in parts))
+    record['fused_skip_variants'] = dict(
+        name='fused_skip_variants', route='cuda',
+        source='rcfd_tpu_torch/csrc/fused_skip_variants.cu',
+        replaces='tools/fusepall_exp.py:63',
+        launches=launches,
+        launches_note='launches of the variants phase: K4 is a measurement '
+                      'tool on no serving path (0 launches on every path)',
+        max_abs_err=max(p['max_abs_err'] for p in parts),
+        ms=total('ms'), plain_ms=total('plain_ms'),
+        bound_ms=total('bound_ms'), bound_by='bytes', library_ms=None,
+        sums_over_parts=True, parts=parts)
+
+
 def build_models(radarnet_kw, fusionnet_kw, device, seed):
     from rcfd_tpu_torch.models import FusionNetModel, RadarNetModel
     from rcfd_tpu_torch.nn import init_parameters
@@ -397,10 +466,14 @@ def requests(rng, n, h, w, k, n_invalid):
 def launch_counters():
     from rcfd_tpu_torch.ops import crop_cuda as cc
     from rcfd_tpu_torch.ops import fused_skip as fs
+    from rcfd_tpu_torch.ops import fused_skip_variants as fv
     from rcfd_tpu_torch.ops import scatter_cuda as sc
-    return {'scatter_quasi_dense': sc.scatter_quasi_dense,
-            'fused_skip_gather_add': fs.fused_skip_gather_add,
-            'column_crop': cc.batch_column_crop}
+    counters = {'scatter_quasi_dense': sc.scatter_quasi_dense,
+                'fused_skip_gather_add': fs.fused_skip_gather_add,
+                'column_crop': cc.batch_column_crop}
+    for variant, wrapper in fv.WRAPPERS.items():
+        counters['fused_skip_variants.' + variant] = wrapper
+    return counters
 
 
 def reset_launches():
@@ -494,11 +567,13 @@ def phase_reference(device):
 def serve_path(name, pipe, reqs, device, expect):
     """Serve the warm-up request, then the counted ones with every launch
     count set to 0 just before and read just after. ``expect`` maps each
-    kernel of the path to the launches it must make. Checks the outputs;
+    kernel of the path to the launches it must make; every other kernel
+    must make none. Checks the outputs;
     returns (outs, ms per request, peak memory bytes, launches)."""
     pipe(*reqs[0])  # warm-up request: cuDNN chooses its algorithms
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
+    resident = torch.cuda.memory_allocated(device)
     reset_launches()
     outs, times = [], []
     for req in reqs[1:]:
@@ -509,7 +584,8 @@ def serve_path(name, pipe, reqs, device, expect):
         outs.append(out)
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated(device)
-    for kernel, n in expect.items():
+    for kernel in launches:
+        n = expect.get(kernel, 0)
         check(launches[kernel] == n, '{}: {} launched {} times for {} '
               'requests, expected {}'.format(name, kernel, launches[kernel],
                                              len(reqs) - 1, n))
@@ -528,10 +604,12 @@ def serve_path(name, pipe, reqs, device, expect):
         check(int((response > 0).sum()) > 0,
               '{}: empty quasi-dense map'.format(name))
     log('{}: {} requests at {}x{}, K={} ({} padding): ms/frame {} (median '
-        '{:.2f}); peak memory {} bytes; launches {}'.format(
+        '{:.2f}); peak memory {} bytes ({} above the {} resident before '
+        'the requests); launches {}'.format(
             name, len(outs), h, w, K, N_INVALID,
             ', '.join('{:.2f}'.format(t) for t in times),
-            float(np.median(times)), peak, launches))
+            float(np.median(times)), peak, peak - resident, resident,
+            launches))
     log('{}: covered quasi-dense pixels per request: {}'.format(
         name, [int((o[2] > 0).sum()) for o in outs]))
     return outs, times, peak, launches
@@ -614,8 +692,34 @@ def phase_slice(device, record, rn, fn, reqs):
         launches['scatter_quasi_dense']
     check_plain_route('slice', pipe, reqs[1], outs[0], pipe, 'scatter',
                       sc.scatter_quasi_dense_plain)
+    check_codec_encode(rn, fn, reqs[1], outs[0], device)
     stage_times('slice', pipe, reqs[1], device)
     return pipe
+
+
+def check_codec_encode(rn, fn, req, out, device):
+    """One request of the slice built with codec_encode=True: its three
+    uint16 outputs on the card must equal floor(x * 256), floor(x * 256)
+    and floor(x * 2^14) of the float outputs ``out`` of the same
+    request."""
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline
+
+    codes = TwoStagePipeline(rn, fn, H, W, codec_encode=True,
+                             device=device)(*req)
+    for label, c, f, m in zip(('dense', 'quasi', 'response'), codes, out,
+                              (256.0, 256.0, 2.0 ** 14)):
+        check(c.dtype == torch.uint16 and c.device == f.device,
+              'codec_encode: {} is {} on {}'.format(label, c.dtype,
+                                                    c.device))
+        got = c.cpu().numpy().astype(np.int64)
+        want = np.floor(f.cpu().numpy().astype(np.float64) * m).astype(
+            np.int64)
+        check(np.array_equal(got, want), 'codec_encode: {} codes differ '
+              'from floor(x * {:g}) at {} pixels'.format(
+                  label, m, int((got != want).sum())))
+    log('slice, codec_encode=True: uint16 dense, quasi and response on the '
+        'card == floor(x * 256), floor(x * 256), floor(x * 2^14) of the '
+        'float outputs, bit for bit')
 
 
 def phase_fused(device, record, slice_pipe, reqs):
@@ -668,6 +772,189 @@ def phase_wide(device, record, slice_pipe, reqs):
     stage_times('wide', pipe, reqs[1], device)
 
 
+# the JAX package's tolerance for the fold (tests/test_optimize.py): float32
+# products of the folded weights round differently from batch norm after
+# the conv
+FOLD_TOL = 1e-4
+PAIRED_ROUNDS = 10
+
+
+def radarnet_outputs(pipe, req):
+    """RadarNet's crops (K, ph, pw) and the padded x of each point."""
+    from rcfd_tpu_torch.pipeline import serving_numerics
+
+    with torch.inference_mode(), serving_numerics():
+        _, crops, xs, _ = pipe.radarnet_stage(*req[:2])
+    return crops, xs
+
+
+def unexplained_quasi(crops, xs, valid, pixels, tol):
+    """The pixels (row, col) of ``pixels`` whose quasi depth a perturbation
+    of the crops by at most ``tol`` cannot change: the top response there
+    is farther than ``tol`` from the 0.5 threshold, and the top two are
+    farther apart than one 2^-14 step plus 2 * tol (so K1's 14-bit max
+    keeps its winner)."""
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+
+    k, ph, pw = crops.shape
+    x_start = sc.point_tables(torch.as_tensor(xs), torch.zeros(k),
+                              torch.as_tensor(valid), pw, W)[0].numpy()
+    out = []
+    for r, c in pixels:
+        j = c + pw - x_start
+        hit = np.flatnonzero(valid & (j >= 0) & (j < pw))
+        vals = np.sort(crops[hit, r - (H - ph), j[hit]].astype(
+            np.float64))[::-1]
+        near_threshold = len(vals) and abs(vals[0] - 0.5) <= tol
+        tie = len(vals) > 1 and vals[0] - vals[1] <= 2.0 ** -14 + 2 * tol
+        if not (near_threshold or tie):
+            out.append((int(r), int(c)))
+    return out
+
+
+def fold_deviation(name, pipe, ref_pipe, req):
+    """The folded path against the unfolded one on the same request: crops
+    within FOLD_TOL; the share of quasi pixels that differ, each explained
+    by a top response within FOLD_TOL of the threshold or a 14-bit tie;
+    dense max and median abs difference."""
+    crops, xs = radarnet_outputs(pipe, req)
+    crops_ref, _ = radarnet_outputs(ref_pipe, req)
+    err = float((crops - crops_ref).abs().max())
+    check(err <= FOLD_TOL, '{}: RadarNet crops differ from the unfolded '
+          'path\'s by {} > {}'.format(name, err, FOLD_TOL))
+    dense, quasi, _ = pipe(*req)
+    dense_ref, quasi_ref, _ = ref_pipe(*req)
+    pixels = torch.nonzero(quasi != quasi_ref).cpu().numpy()
+    bad = unexplained_quasi(crops_ref.cpu().numpy(), xs.cpu().numpy(),
+                            req[2], pixels, FOLD_TOL)
+    check(not bad, '{}: quasi depth differs from the unfolded path at {} '
+          'pixels no tie or threshold explains: {}'.format(
+              name, len(bad), bad[:10]))
+    diff = (dense - dense_ref).abs()
+    log('{}: deviation from the unfolded path: crops max abs {:.3g} '
+        '(tolerance {:g}); quasi pixels that differ {} of {} ({:.3g}%), '
+        'each at a 14-bit tie or within {:g} of the 0.5 threshold; dense '
+        'max abs {:.3g} m, median abs {:.3g} m'.format(
+            name, err, FOLD_TOL, len(pixels), quasi.numel(),
+            100.0 * len(pixels) / quasi.numel(), FOLD_TOL,
+            float(diff.max()), float(diff.median())))
+
+
+def paired_times(pipes, reqs, rounds):
+    """Serve every pipeline of ``pipes`` the same request in each round, in
+    an order that rotates from round to round; print each one's median
+    ms/frame and the median of its per-round difference from the first,
+    and its largest peak of device memory above what was allocated before
+    the request."""
+    names = list(pipes)
+    times = {name: [] for name in names}
+    peaks = {name: 0 for name in names}
+    for i in range(rounds):
+        req = reqs[i % len(reqs)]
+        for name in names[i % len(names):] + names[:i % len(names)]:
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            pipes[name](*req)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            peaks[name] = max(peaks[name],
+                              torch.cuda.max_memory_allocated() - resident)
+    base = names[0]
+    for name in names:
+        line = ('paired: {} ms/frame median {:.2f} over {} rounds ({}); '
+                'request peak {} bytes above resident').format(
+            name, float(np.median(times[name])), rounds,
+            ', '.join('{:.2f}'.format(t) for t in times[name]),
+            peaks[name])
+        if name != base:
+            d = np.subtract(times[name], times[base])
+            line += '; minus {}: median {:+.2f} ms, {} of {} rounds ' \
+                'lower'.format(base, float(np.median(d)), int((d < 0).sum()),
+                               rounds)
+        log(line)
+
+
+def with_batch_norm_statistics(model, seed):
+    """A copy of ``model`` whose batch norms have statistics drawn from
+    ``seed`` near the identity (weight and running variance in [0.9, 1.1],
+    bias and running mean N(0, 0.02)), so that folding them changes the
+    weights; init_parameters leaves every batch norm the identity."""
+    from rcfd_tpu_torch.nn import BatchNorm2d
+
+    model = copy.deepcopy(model)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, BatchNorm2d):
+                n = bn.weight.numel()
+                for t, draw in ((bn.weight, torch.rand),
+                                (bn.bias, torch.randn),
+                                (bn.running_mean, torch.randn),
+                                (bn.running_var, torch.rand)):
+                    x = draw(n, generator=gen)
+                    x = 0.9 + 0.2 * x if draw is torch.rand else 0.02 * x
+                    t.copy_(x.to(t.device))
+    return model
+
+
+def phase_optimize(device, slice_pipe, reqs):
+    """The slice and fused paths with batch norm folded
+    (TwoStagePipeline(optimize=True)), from the slice's weights with batch
+    norm statistics drawn near the identity: launches, outputs and the
+    plain-route check as in the other paths, the deviation from the
+    unfolded paths on the same weights, then interleaved, paired requests
+    of slice, optimize, fused and optimize+fused (all four on those
+    weights)."""
+    from rcfd_tpu_torch.nn import Conv2d
+    from rcfd_tpu_torch.nn.perf import PerfConfig
+    from rcfd_tpu_torch.ops import fused_skip as fs
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline
+
+    rn, fn = (with_batch_norm_statistics(m, SEED + 4 + i)
+              for i, m in enumerate((slice_pipe.radarnet,
+                                     slice_pipe.fusionnet)))
+    rn_fused = radarnet_like(rn, device, perf=PerfConfig(fused_pool2=True,
+                                                         fused_pool4=True))
+    base = TwoStagePipeline(rn, fn, H, W, device=device)
+    fused = TwoStagePipeline(rn_fused, fn, H, W, device=device)
+    opt = TwoStagePipeline(rn, fn, H, W, optimize=True, device=device)
+    opt_fused = TwoStagePipeline(rn_fused, fn, H, W, optimize=True,
+                                 device=device)
+
+    def batch_norms(*models):
+        return sum(m.batch_norm is not None for model in models
+                   for m in model.modules() if isinstance(m, Conv2d))
+    n_bn = batch_norms(rn, fn)
+    check(n_bn > 0 and batch_norms(opt.radarnet, opt.fusionnet,
+                                   opt_fused.radarnet) == 0,
+          'optimize: batch norms left after the fold')
+    check(batch_norms(rn, fn) == n_bn, 'optimize: the fold changed the '
+          "caller's models")
+    log('optimize: {} batch norms folded into their convolutions; the '
+        "caller's models keep theirs".format(n_bn))
+    outs, _, _, _ = serve_path('optimize', opt, reqs, device,
+                               {'scatter_quasi_dense': N_REQUESTS})
+    check_plain_route('optimize', opt, reqs[1], outs[0], opt, 'scatter',
+                      sc.scatter_quasi_dense_plain)
+    stage_times('optimize', opt, reqs[1], device)
+    outs, _, _, _ = serve_path(
+        'optimize+fused', opt_fused, reqs, device,
+        {'scatter_quasi_dense': N_REQUESTS,
+         'fused_skip_gather_add': 2 * N_REQUESTS})
+    check_plain_route('optimize+fused', opt_fused, reqs[1], outs[0], fs,
+                      'fused_skip_gather_add',
+                      fs.fused_skip_gather_add_plain)
+    stage_times('optimize+fused', opt_fused, reqs[1], device)
+    for pipe in (base, fused):
+        pipe(*reqs[0])  # warm-up requests of the unfolded paths
+    fold_deviation('optimize', opt, base, reqs[1])
+    fold_deviation('optimize+fused', opt_fused, fused, reqs[1])
+    paired_times({'slice': base, 'optimize': opt, 'fused': fused,
+                  'optimize+fused': opt_fused}, reqs[1:], PAIRED_ROUNDS)
+
+
 def profile_request(name, pipe, req):
     """torch.profiler over one request: device time by kernel name, and the
     device's busy share of the request's wall time."""
@@ -717,11 +1004,12 @@ def main():
         from rcfd_tpu_torch.ops import _build
         from rcfd_tpu_torch.ops import crop_cuda as cc
         from rcfd_tpu_torch.ops import fused_skip as fs
+        from rcfd_tpu_torch.ops import fused_skip_variants as fv
         from rcfd_tpu_torch.ops import scatter_cuda as sc
-        sources = [m.SOURCE for m in (sc, fs, cc)]
+        sources = [m.SOURCE for m in (sc, fs, cc, fv)]
         t0 = time.perf_counter()
         _build.load_libraries(sources)
-        for m in (sc, fs, cc):
+        for m in (sc, fs, cc, fv):
             m._kernel()
         log('built {} in {:.2f} s, one nvcc each, started together'.format(
             ', '.join(sources), time.perf_counter() - t0))
@@ -740,6 +1028,9 @@ def main():
         phase_kernel_fused_skip(device, record, rn)
         phase_kernel_column_crop(device, record, rn)
         torch.cuda.empty_cache()
+    with Phase('variants'):
+        phase_variants(device, record, rn)
+        torch.cuda.empty_cache()
     with Phase('reference'):
         phase_reference(device)
     with Phase('slice'):
@@ -748,6 +1039,8 @@ def main():
         phase_fused(device, record, slice_pipe, reqs)
     with Phase('wide'):
         phase_wide(device, record, slice_pipe, reqs)
+    with Phase('optimize'):
+        phase_optimize(device, slice_pipe, reqs)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

@@ -8,7 +8,8 @@ Semantics kept from the JAX package:
 - convolutions pad symmetrically by ``k // 2`` and have no bias;
 - ``resize_nearest`` maps ``src = (dst * in) // out`` in integers. It
   does not use ``F.interpolate``, whose float scale can pick another
-  source row at ratios such as 57 -> 113 or 112 -> 225;
+  source row at ratios such as 57 -> 113 or 112 -> 225. At integer
+  factors it repeats each pixel by a broadcast, as the JAX package does;
 - batch norm (inference) computes ``x * scale + shift`` with
   ``scale = w * rsqrt(var + eps)``, as the JAX package does.
 """
@@ -133,6 +134,13 @@ def resize_nearest(x, shape: Tuple[int, int]):
     out_h, out_w = int(shape[0]), int(shape[1])
     if (out_h, out_w) == (h, w):
         return x
+    if out_h % h == 0 and out_w % w == 0:
+        # integer factors: the index map repeats each pixel, so a broadcast
+        # copy gives the gather's result without an index
+        n, c = x.shape[0], x.shape[1]
+        kh, kw = out_h // h, out_w // w
+        return x[:, :, :, None, :, None].expand(n, c, h, kh, w, kw) \
+            .reshape(n, c, out_h, out_w)
     rows = torch.arange(out_h, device=x.device) * h // out_h
     cols = torch.arange(out_w, device=x.device) * w // out_w
     return x.index_select(2, rows).index_select(3, cols)

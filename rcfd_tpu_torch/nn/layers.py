@@ -59,7 +59,9 @@ class BatchNorm2d(nn.Module):
 
 
 class Conv2d(nn.Module):
-    """Conv (+ batch norm) (+ activation), no bias. src/net_utils.py:29-91."""
+    """Conv (+ batch norm) (+ activation). src/net_utils.py:29-91. The conv
+    has no bias until ``nn.optimize.fold_batch_norm`` folds the batch norm
+    into its weight and a bias (``conv.bias``)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
                  stride=1, weight_initializer: str = 'kaiming_uniform',
@@ -81,7 +83,8 @@ class Conv2d(nn.Module):
         return self.finish(self.conv(x))
 
     def finish(self, y):
-        """Batch norm and activation of the convolution's output."""
+        """Batch norm and activation of the convolution's output, whose
+        bias, if any, is already added."""
         if self.batch_norm is not None:
             y = self.batch_norm(y)
         if self.activation is not None:
@@ -183,10 +186,12 @@ class DecoderBlock(nn.Module):
         if isinstance(skip, LazyColumnWindows):
             # conv(concat[y, windows]) with the skip half convolved once on
             # the global map and its windows gathered into the sum
-            w = self.conv.conv.weight
+            w, b = self.conv.conv.weight, self.conv.conv.bias
             co = y.shape[1]
-            return self.conv.finish(
-                fused_skip_conv_add(y, w[:, :co], skip, w[:, co:]))
+            y = fused_skip_conv_add(y, w[:, :co], skip, w[:, co:])
+            if b is not None:  # a folded batch norm, added after the sum
+                y = y + b[:, None, None]
+            return self.conv.finish(y)
         if self.skip_channels > 0:
             y = torch.cat([y, skip], dim=1)
         return self.conv(y)

@@ -130,13 +130,57 @@ def fused_skip_gather_add_plain(a, cg, starts, corr_l, corr_r):
     """Plain PyTorch version of the kernel: ``a`` plus the windows of ``cg``
     at ``starts``, then the first column minus ``corr_l`` and the last minus
     ``corr_r``, in float32 and in that order. Starts are clipped to
-    [0, Wg - pw] as in the kernel."""
+    [0, Wg - pw] as in the kernel. With bf16 ``a`` and ``cg`` the sum is
+    rounded to bf16 and the two edge columns are corrected in float32, then
+    rounded to bf16 (the JAX package's order, rcfd_tpu/ops/fused_skip.py)."""
     pw = a.shape[3]
     starts = torch.clamp(starts.long(), 0, cg.shape[3] - pw)
     y = a + gather_windows(cg, starts, pw)
     y[..., 0] = y[..., 0] - corr_l
     y[..., pw - 1] = y[..., pw - 1] - corr_r
     return y
+
+
+def check_shapes(name, a, cg, starts, corr_l, corr_r):
+    """Raise ValueError unless a (N * K, Co, ph, pw), cg (N, Co, ph, Wg),
+    starts (N, K) and both corrections (N * K, Co, ph) fit, with
+    2 <= pw <= Wg."""
+    nk, co, ph, pw = a.shape
+    n, wg = cg.shape[0], cg.shape[3]
+    if tuple(cg.shape[1:3]) != (co, ph) or starts.dim() != 2 or \
+            starts.shape[0] != n or starts.shape[1] * n != nk or \
+            tuple(corr_l.shape) != (nk, co, ph) or \
+            tuple(corr_r.shape) != (nk, co, ph) or not 2 <= pw <= wg:
+        raise ValueError(
+            '{}: shapes do not fit: a {}, cg {}, starts {}, corrections {} '
+            'and {}'.format(name, tuple(a.shape), tuple(cg.shape),
+                            tuple(starts.shape), tuple(corr_l.shape),
+                            tuple(corr_r.shape)))
+
+
+def check_cuda_tensors(kernel, device, named, hint):
+    """Raise unless every (name, tensor, dtype) of ``named`` lies on the
+    CUDA ``device``, is contiguous and has its dtype (NotImplementedError
+    for another dtype, with ``hint``), and the windows fit the kernel's
+    grid."""
+    if device.type != 'cuda':
+        raise ValueError('{} runs on CUDA or CPU tensors, got {}'.format(
+            kernel, device))
+    for name, t, dtype in named:
+        if t.device != device:
+            raise ValueError('{} is on {}, a on {}'.format(name, t.device,
+                                                           device))
+        if t.dtype != dtype:
+            raise NotImplementedError('{} takes {} {}, got {} {}'.format(
+                kernel, dtype, name, t.dtype, hint))
+        if not t.is_contiguous():
+            raise ValueError('{} needs a contiguous {}'.format(kernel, name))
+    nk, co, ph, pw = named[0][1].shape
+    if co * ph * pw > MAX_WINDOW_ELEMS or not 1 <= nk <= MAX_WINDOWS:
+        raise ValueError('{}: {} windows of {} elements; it takes 1 to {} '
+                         'windows of at most {}'.format(
+                             kernel, nk, co * ph * pw, MAX_WINDOWS,
+                             MAX_WINDOW_ELEMS))
 
 
 def fused_skip_gather_add(a, cg, starts, corr_l, corr_r):
@@ -153,43 +197,18 @@ def fused_skip_gather_add(a, cg, starts, corr_l, corr_r):
     Returns:
         (N * K, Co, ph, pw), a.dtype
     """
-    nk, co, ph, pw = a.shape
-    n, wg = cg.shape[0], cg.shape[3]
-    if tuple(cg.shape[1:3]) != (co, ph) or starts.dim() != 2 or \
-            starts.shape[0] != n or starts.shape[1] * n != nk or \
-            tuple(corr_l.shape) != (nk, co, ph) or \
-            tuple(corr_r.shape) != (nk, co, ph) or not 2 <= pw <= wg:
-        raise ValueError(
-            'fused_skip_gather_add: shapes do not fit: a {}, cg {}, starts '
-            '{}, corrections {} and {}'.format(
-                tuple(a.shape), tuple(cg.shape), tuple(starts.shape),
-                tuple(corr_l.shape), tuple(corr_r.shape)))
+    check_shapes('fused_skip_gather_add', a, cg, starts, corr_l, corr_r)
     device = a.device
     if device.type == 'cpu':
         return fused_skip_gather_add_plain(a, cg, starts, corr_l, corr_r)
-    if device.type != 'cuda':
-        raise ValueError('fused_skip_gather_add runs on CUDA or CPU tensors, '
-                         'got {}'.format(device))
-    for name, t, dtype in (('a', a, torch.float32), ('cg', cg, torch.float32),
-                           ('starts', starts, torch.int32),
-                           ('corr_l', corr_l, torch.float32),
-                           ('corr_r', corr_r, torch.float32)):
-        if t.device != device:
-            raise ValueError('{} is on {}, a on {}'.format(name, t.device,
-                                                           device))
-        if t.dtype != dtype:
-            raise NotImplementedError(
-                'the fused skip kernel takes {} {}, got {} (bf16 is in the '
-                'port queue of ROADMAP.md)'.format(dtype, name, t.dtype))
-        if not t.is_contiguous():
-            raise ValueError('the fused skip kernel needs a contiguous '
-                             '{}'.format(name))
-    if co * ph * pw > MAX_WINDOW_ELEMS or not 1 <= nk <= MAX_WINDOWS:
-        raise ValueError('fused_skip_gather_add: {} windows of {} elements; '
-                         'the kernel takes 1 to {} windows of at most {}'
-                         .format(nk, co * ph * pw, MAX_WINDOWS,
-                                 MAX_WINDOW_ELEMS))
-
+    check_cuda_tensors(
+        'the fused skip kernel', device,
+        (('a', a, torch.float32), ('cg', cg, torch.float32),
+         ('starts', starts, torch.int32), ('corr_l', corr_l, torch.float32),
+         ('corr_r', corr_r, torch.float32)),
+        '(bf16 is in the port queue of ROADMAP.md)')
+    nk, co, ph, pw = a.shape
+    n, wg = cg.shape[0], cg.shape[3]
     out = torch.empty_like(a)
     fn = _kernel()
     with torch.cuda.device(device):

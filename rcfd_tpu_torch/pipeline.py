@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from . import default_device
 from .data import transport
 from .data.transforms import Transforms
+from .nn.optimize import fold_batch_norm
 from .ops import scatter_cuda
 
 # load_depth(multiplier=256) applied to a save_response(x2^14) PNG
@@ -63,14 +64,19 @@ def serving_numerics():
 class TwoStagePipeline:
     """Camera frame + radar points -> dense depth, on ``device`` (``cuda``
     unless ``device='cpu'`` is given). The two models carry their weights;
-    they are moved to the device and put in eval mode. A request runs under
+    they are moved to the device and put in eval mode. ``optimize`` folds
+    every batch norm into its convolution (nn.optimize.fold_batch_norm),
+    in copies of the two models. A request runs under
     ``serving_numerics()``."""
 
     def __init__(self, radarnet, fusionnet, image_height: int,
                  image_width: int, normalized_image_range=(0, 1),
                  quantize_bridge: bool = True, codec_encode: bool = False,
-                 device=None):
+                 optimize: bool = False, device=None):
         self.device = default_device(device)
+        if optimize:
+            radarnet = fold_batch_norm(radarnet)
+            fusionnet = fold_batch_norm(fusionnet)
         self.radarnet = radarnet.to(self.device).eval()
         self.fusionnet = fusionnet.to(self.device).eval()
         self.image_height = image_height

@@ -10,8 +10,10 @@ import pytest
 
 torch = pytest.importorskip('torch')
 
+from rcfd_tpu_torch import pipeline  # noqa: E402
 from rcfd_tpu_torch.ops import crop_cuda as cc  # noqa: E402
 from rcfd_tpu_torch.ops import fused_skip as fs  # noqa: E402
+from rcfd_tpu_torch.ops import fused_skip_variants as fv  # noqa: E402
 from rcfd_tpu_torch.ops import scatter_cuda as sc  # noqa: E402
 
 from torch_parity import SCATTER_CASES, scatter_case  # noqa: E402
@@ -128,3 +130,85 @@ def test_column_crop_wrapper_refuses_bad_cuda_tensors(cuda_device, rng):
         cc.batch_column_crop(rows, starts.long(), 7)
     with pytest.raises(ValueError):
         cc.batch_column_crop(rows, starts.cpu(), 7)
+
+
+def _variant_inputs(rng, device, dtype, n=2, k=5, co=3, ph=7, pw=16, wg=64):
+    """fused skip variant inputs with starts at both edges and at starts
+    that are not multiples of a 16-byte vector (4 or 8 elements)."""
+    t = lambda a, d=dtype: torch.from_numpy(a).to(device=device, dtype=d)
+    starts = rng.integers(0, wg - pw + 1, (n, k)).astype(np.int32)
+    starts[0, :4] = [0, wg - pw, 5, 13]
+    starts[-1, -1] = wg - pw - 3
+    return (t(rng.standard_normal((n * k, co, ph, pw), dtype=np.float32)),
+            t(rng.standard_normal((n, co, ph, wg), dtype=np.float32)),
+            t(starts, torch.int32),
+            t(rng.standard_normal((n * k, co, ph), dtype=np.float32),
+              torch.float32),
+            t(rng.standard_normal((n * k, co, ph), dtype=np.float32),
+              torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('pw', [8, 24])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('variant', fv.VARIANTS)
+def test_fused_skip_variant_matches_plain_on_card(cuda_device, rng, variant,
+                                                  dtype, pw):
+    args = _variant_inputs(rng, cuda_device, getattr(torch, dtype), pw=pw)
+    wrapper = fv.WRAPPERS[variant]
+    before = wrapper.launches
+    out = wrapper(*args)
+    ref = fv.PLAIN[variant](*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.dtype == args[0].dtype
+    assert torch.equal(out, ref)
+    if variant in ('full', 'align16'):
+        assert torch.equal(out, fs.fused_skip_gather_add_plain(*args))
+
+
+@pytest.mark.cuda
+def test_fused_skip_variant_wrappers_refuse_bad_cuda_tensors(cuda_device,
+                                                             rng):
+    a, cg, starts, cl, cr = _variant_inputs(rng, cuda_device, torch.float32)
+    # rows of a and out of 6 float32 elements: not 16-byte aligned
+    a6, cg6, starts6, cl6, cr6 = _variant_inputs(rng, cuda_device,
+                                                 torch.float32, pw=6)
+    with pytest.raises(ValueError, match='16-byte'):
+        fv.align16(a6, cg6, starts6, cl6, cr6)
+    fv.full(a6, cg6, starts6, cl6, cr6)  # the scalar full takes them
+    # rows of cg of 62 elements
+    with pytest.raises(ValueError, match='16-byte'):
+        fv.align16(a, cg[..., :62].contiguous(), starts, cl, cr)
+    # a at an address 4 bytes past a 16-byte boundary
+    shifted = torch.empty(a.numel() + 1, device=cuda_device)[1:].view(
+        a.shape)
+    shifted.copy_(a)
+    with pytest.raises(ValueError, match='16-byte'):
+        fv.align16(shifted, cg, starts, cl, cr)
+    with pytest.raises(ValueError, match='contiguous'):
+        fv.align16(a.transpose(2, 3).contiguous().transpose(2, 3), cg,
+                   starts, cl, cr)
+    with pytest.raises(NotImplementedError):
+        fv.align16(a.half(), cg.half(), starts, cl, cr)
+    with pytest.raises(ValueError):
+        fv.align16(a, cg.cpu(), starts, cl, cr)
+
+
+@pytest.mark.cuda
+def test_codec_encode_on_card(cuda_device, rng):
+    """uint16 codes of CUDA tensors equal the CPU path's, and floor(x * 256)
+    / floor(x * 2^14) of the float values."""
+    dense = (rng.random((5, 7)) * 99 + 1).astype(np.float32)
+    quasi = np.floor(rng.random((5, 7)) * 80).astype(np.float32)
+    resp = rng.random((5, 7)).astype(np.float32)
+    ts = [torch.from_numpy(x) for x in (dense, quasi, resp)]
+    out = pipeline.codec_encode(*[t.to(cuda_device) for t in ts])
+    ref = pipeline.codec_encode(*ts)
+    for o, r, x, m in zip(out, ref, (dense, quasi, resp),
+                          (256.0, 256.0, 2.0 ** 14)):
+        assert o.dtype == torch.uint16 and o.is_cuda
+        codes = o.cpu().numpy().astype(np.int64)
+        np.testing.assert_array_equal(codes, r.numpy().astype(np.int64))
+        np.testing.assert_array_equal(
+            codes, np.floor(x.astype(np.float64) * m).astype(np.int64))

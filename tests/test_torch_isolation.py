@@ -20,6 +20,16 @@ FORBIDDEN_IMPORT = re.compile(
     re.M)
 
 
+def test_port_sources_include_the_measurement_tool():
+    """The K4 tool and its kernels' module are port sources, held to the
+    import rule below."""
+    paths = [os.path.relpath(p, REPO) for p in _port_sources()]
+    for path in ('rcfd_tpu_torch/tools/fusepall_exp.py',
+                 'rcfd_tpu_torch/ops/fused_skip_variants.py',
+                 'rcfd_tpu_torch/nn/optimize.py'):
+        assert path in paths
+
+
 def _port_sources():
     for root, _, files in os.walk(PACKAGE):
         for f in files:
@@ -59,6 +69,7 @@ fn = FusionNetModel(3, 2, 'fusionnet18_batch_norm', [4, 8, 8, 8, 8, 8],
                     'multiscale_batch_norm', 1, [8, 8, 8, 8, 8, 8],
                     device='cpu')
 TwoStagePipeline(rn, fn, 64, 96, device='cpu')
+TwoStagePipeline(rn, fn, 64, 96, optimize=True, device='cpu')
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'rcfd_tpu', 'PIL',
                                     'torchvision'))
@@ -100,7 +111,8 @@ def test_kernel_source_names_what_it_replaces():
 
 @pytest.mark.parametrize('source,replaces', [
     ('fused_skip_gather_add.cu', 'rcfd_tpu/ops/fused_skip.py::_fused_pallas'),
-    ('column_crop.cu', 'rcfd_tpu/ops/crop_pallas.py::_kernel')])
+    ('column_crop.cu', 'rcfd_tpu/ops/crop_pallas.py::_kernel'),
+    ('fused_skip_variants.cu', 'tools/fusepall_exp.py::variant_kernel')])
 def test_kernel_sources_name_the_tpu_kernels_they_replace(source, replaces):
     with open(os.path.join(PACKAGE, 'csrc', source)) as f:
         text = f.read()
