@@ -207,11 +207,14 @@ def scatter_kernel_check(device, patch):
     return args, err
 
 
-def phase_kernel_scatter(device, record):
+def scatter_times(device, patch):
+    """The scatter kernel at ``patch``, checked against its plain version,
+    then timed: (max abs err, kernel ms (median of 20), plain ms (of 5),
+    scatter_reduce_ ms (of 20), bound ms, bytes)."""
     from rcfd_tpu_torch.ops import scatter_cuda as sc
 
-    ph, pw = PATCH
-    args, err = scatter_kernel_check(device, PATCH)
+    ph, pw = patch
+    args, err = scatter_kernel_check(device, patch)
     crops, xs, zs, valid = args[:4]
     ms = device_ms(lambda: sc.scatter_quasi_dense(*args), 20)
     plain_ms = device_ms(lambda: sc.scatter_quasi_dense_plain(*args), 5, 1)
@@ -229,12 +232,16 @@ def phase_kernel_scatter(device, record):
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     log('scatter at K={} crops {}x{} w={}, device time: kernel {:.4f} ms '
         '(median of 20), plain {:.4f} ms, scatter_reduce_ {:.4f} ms, bound '
-        '{:.4f} ms '
-        '({} bytes at {:.3g} B/s)'.format(K, ph, pw, W, ms, plain_ms,
-                                          library_ms, bound_ms, nbytes,
-                                          HBM_BYTES_PER_S))
+        '{:.4f} ms ({} bytes at {:.3g} B/s), {:.1f}% of the bound'.format(
+            K, ph, pw, W, ms, plain_ms, library_ms, bound_ms, nbytes,
+            HBM_BYTES_PER_S, 100 * bound_ms / ms))
+    return err, ms, plain_ms, library_ms, bound_ms, nbytes
+
+
+def phase_kernel_scatter(device, record):
+    err, ms, plain_ms, library_ms, bound_ms, _ = scatter_times(device, PATCH)
     # the variable-bin path serves 300-wide crops
-    scatter_kernel_check(device, WIDE_PATCH)
+    scatter_times(device, WIDE_PATCH)
     record['scatter_quasi_dense'] = dict(
         name='scatter_quasi_dense', route='cuda',
         source='rcfd_tpu_torch/csrc/scatter_quasi_dense.cu',

@@ -1,5 +1,5 @@
 // Quasi-dense scatter of K per-point response crops into (ph, w) depth and
-// response maps, for Hopper (sm_90a).
+// response maps, for Hopper (sm_90a): a one-wave row-strip kernel.
 //
 // Replaces the TPU kernel rcfd_tpu/ops/scatter_pallas.py::_kernel (launched
 // by _call, driven by scatter_quasi_dense_pallas) and computes its function.
@@ -8,37 +8,69 @@
 //     key = (min(trunc(v * 2^14), 2^14) << 16) | (65535 - k),
 //     v   = crop >= threshold ? crop : 0.
 // Point k covers padded columns x_start[k] .. x_start[k] + pw - 1, and pixel
-// column c sits at padded column c + pw. The same thread then unpacks the
-// key into the 14-bit response and the winning point (the first index wins
-// ties inside one 2^-14 step) and runs the legacy rewrite cascade of
-// rcfd_tpu/ops/scatter.py::_legacy_rewrite: m = winner (0 where the response
-// is 0), then for p = 0 .. K-1, if valid[p] and m == p, m = trunc(z[p]).
+// column c sits at padded column c + pw. The key is then unpacked into the
+// 14-bit response and the winning point (the first index wins ties inside
+// one 2^-14 step), and the legacy rewrite cascade of
+// rcfd_tpu/ops/scatter.py::_legacy_rewrite turns the winner into depth:
+// m = winner (0 where the response is 0), then for p = 0 .. K-1, if
+// valid[p] and m == p, m = trunc(z[p]).
 //
-// What bounds it on the card: memory. Each crop element is read at most once
-// for a few integer operations, and each output pixel is written once. At
-// K = 64, 900 x 288 crops and w = 1600 that is about 66 MB read and 11.5 MB
-// written: about 23 us at the 3.35 TB/s of the H100 SXM data sheet.
+// What bounds it on the card: memory. Each crop element that lands in the
+// frame is read once for a few integer operations, and each output pixel is
+// written once. At K = 64 (4 of them padding), 900 x 288 crops and w = 1600
+// that is 71,413,968 bytes: 21.3 us at the 3.35 TB/s of the H100 SXM data
+// sheet.
 //
-// What the design does about it: the Pallas kernel walks the points in order
-// and keeps the whole map in VMEM, which Hopper has no counterpart for. Here
-// it is a gather instead. A block owns kThreads columns of kRows rows, and a
-// thread owns one column of those rows. The block first lists, in shared
-// memory, the valid points whose window meets its columns, computing each
-// point's window start from its x in the same pass; its threads then walk
-// that list only, kPoints points at a time with all their loads issued
-// before any max, so each thread keeps kPoints * kRows loads in flight. The
-// threads of a warp own neighbouring columns, so they read neighbouring crop
-// elements and the reads coalesce. Points that do not cover a pixel, and
-// invalid points, are not read at all. The max needs no atomics: each
-// pixel's max is taken by one thread, so the result does not depend on order
-// and equals the plain PyTorch version bit for bit.
+// The Pallas kernel walks the points in order and keeps the whole map in
+// VMEM, which Hopper has no counterpart for. Here a block owns a strip of
+// kRows whole rows of the crop region. Against what held back the earlier
+// form of this kernel (a block of 64 columns x 4 rows, a thread a column,
+// scalar loads at arbitrary offsets, 5,625 blocks in two waves):
 //
-// The rewrite cascade is a chain walk, not a loop over all K points: from
-// m = winner, while valid[m], m becomes trunc(z[m]), and the walk goes on
-// only if that lands on a later point index (m < new m < K), since the
-// sequential loop only meets indices above the current one. That is the
-// sequential loop's result in as many steps as the chain is long (one or
-// two for real depths).
+// - One wave. The grid is ceil(ph / kRows) blocks of kThreads = 256
+//   threads. kRows = 1 gives 900 blocks at the serving shapes;
+//   __launch_bounds__ holds a thread to 32 registers so that
+//   kBlocksPerSm = 8 blocks fit on an SM (2,048 threads, about 21 KB of
+//   shared memory each): 1,056 slots on 132 SMs, so every block is resident
+//   at once and there is no tail wave. Strips of 2 rows (450 blocks, 4 an
+//   SM) or more keep fewer warps on an SM and measured slower on an H100.
+// - A key map in shared memory with an apron. The block keeps its rows of
+//   packed keys as int32, w + 2 pw words a row (rounded up to a multiple of
+//   4), zeroed as the plain version zeroes its map. A window at any clipped
+//   start in [0, w + pw] lands inside a row, so no write needs a bounds
+//   test; the plain version uses the same layout.
+// - Aligned 16-byte loads of crop rows. A crop row is contiguous, pw * 4
+//   bytes, 16-byte aligned when pw % 4 == 0 and the crops are. A work item
+//   is one float4 of one row of one listed point; the items are spread over
+//   all 256 threads, consecutive threads on consecutive float4 of a row, so
+//   a warp reads 512 contiguous bytes. Each thread issues the loads of
+//   kUnroll items, without branches, before its first max, and 8 blocks an
+//   SM keep 2,048 threads' loads in flight. Otherwise (pw % 4 != 0, or
+//   crops that are not 16-byte aligned) the same kernel takes the scalar
+//   branch (V = 1): one float an item, still coalesced. Vectors that fall
+//   wholly in the apron are not read.
+// - The max by shared-memory atomicMax on int32. The max does not depend on
+//   order, so the result equals the plain PyTorch version bit for bit
+//   whatever order the points are listed and read in. A thread puts the
+//   four keys of its float4 into columns s + 4j + q, and in pass q lane i
+//   writes word (q + i / 8) % 4: the 32 lanes of a warp then hit 32
+//   distinct banks at any window start.
+// - The point list is built once per block: the valid points whose window
+//   meets the map, with their window starts, in shared memory, in chunks of
+//   up to kChunk points (K goes up to 65,535). Invalid points are never
+//   listed and never read, and no thread walks a point that misses its row.
+// - The epilogue, after one barrier: the block's threads walk the w columns
+//   of each row, unpack the key, and write the response and depth rows with
+//   coalesced stores. The rewrite cascade is a chain walk, not a loop over
+//   all K points: from m = winner, while valid[m], m becomes trunc(z[m]),
+//   and the walk goes on only if that lands on a later point index
+//   (m < new m < K), since the sequential loop only meets indices above the
+//   current one. That is the sequential loop's result in as many steps as
+//   the chain is long. A block walks the chain once for each of the first
+//   kDepths points, into a table in shared memory, which the epilogue reads;
+//   a winner beyond the table walks its chain there.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -47,10 +79,15 @@ namespace {
 constexpr int kIdxBits = 16;
 constexpr int kMaxPoints = (1 << kIdxBits) - 1;
 constexpr float kQScale = 16384.0f;  // 2^14, the response PNG codec scale
-constexpr int kThreads = 64;         // columns of a block, one per thread
-constexpr int kRows = 4;             // rows of a block
-constexpr int kPoints = 2;           // listed points loaded per step
+constexpr int kThreads = 256;        // threads of a block
+constexpr int kBlocksPerSm = 8;      // resident blocks an SM must hold
+constexpr int kRows = 1;             // rows of a strip, one strip a block
+constexpr int kUnroll = 2;           // work items a thread loads before a max
 constexpr int kChunk = 1024;         // points listed in shared memory at a time
+constexpr int kDepths = 1024;        // winners whose depth a block tables
+constexpr int kStaticSmem =
+    kChunk * sizeof(int2) + kDepths * sizeof(float) + sizeof(int);
+constexpr int kDefaultSmem = 48 * 1024;  // a block's shared memory without opt-in
 
 __device__ __forceinline__ int window_start(float x, int pw, int w) {
   // first padded column of the point's window, clipped as in
@@ -59,98 +96,157 @@ __device__ __forceinline__ int window_start(float x, int pw, int w) {
   return min(max(s, 0), w + pw);
 }
 
-__global__ void __launch_bounds__(kThreads)
-scatter_quasi_dense_kernel(const float* __restrict__ crops,
-                           const float* __restrict__ x_positions,
-                           const float* __restrict__ z_values,
-                           const unsigned char* __restrict__ valid,
-                           int k, int ph, int pw, int w, float threshold,
-                           float* __restrict__ depth,
-                           float* __restrict__ response) {
-  __shared__ int s_point[kChunk];
-  __shared__ int s_start[kChunk];
+__device__ __forceinline__ int packed_key(float v, float threshold, int idx) {
+  const float x = v < threshold ? 0.0f : v;
+  const int q = (int)fminf(x * kQScale, kQScale);
+  return (q << kIdxBits) | idx;
+}
+
+// the legacy rewrite of winner m, as a chain walk
+__device__ __forceinline__ int chain_walk(int m, int k,
+                                          const float* __restrict__ z_values,
+                                          const unsigned char* __restrict__ valid) {
+  while (m < k && __ldg(valid + m)) {
+    const int next = __float2int_rz(__ldg(z_values + m));
+    const bool later = next > m && next < k;
+    m = next;
+    if (!later) break;
+  }
+  return m;
+}
+
+// key map row length in words: the row and both aprons, a multiple of 4 so
+// that every row starts 16-byte aligned
+__host__ __device__ __forceinline__ int map_stride(int w, int pw) {
+  return (w + 2 * pw + 3) & ~3;
+}
+
+// V = 4: a work item is one float4 of a crop row (pw % 4 == 0, crops 16-byte
+// aligned); V = 1: one float.
+template <int V>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+scatter_strip_kernel(const float* __restrict__ crops,
+                     const float* __restrict__ x_positions,
+                     const float* __restrict__ z_values,
+                     const unsigned char* __restrict__ valid,
+                     int k, int ph, int pw, int w, float threshold,
+                     float* __restrict__ depth,
+                     float* __restrict__ response) {
+  extern __shared__ int4 s_map4[];
+  __shared__ int2 s_list[kChunk];     // (point, window start)
+  __shared__ float s_depth[kDepths];  // rewritten depth of winner m
   __shared__ int s_count;
+  int* const s_map = reinterpret_cast<int*>(s_map4);
 
-  const int c0 = blockIdx.x * kThreads;
-  const int c = c0 + threadIdx.x;
-  const int r0 = blockIdx.y * kRows;
-  const bool active = c < w;
-  const int col = c + pw;  // padded column of this thread's pixels
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * kRows;
+  const int rows = min(kRows, ph - r0);  // the last strip may be ragged
+  const int stride = map_stride(w, pw);
+  for (int i = tid; i < kRows * stride / 4; i += kThreads)
+    s_map4[i] = make_int4(0, 0, 0, 0);
+  for (int m = tid; m < min(k, kDepths); m += kThreads)
+    s_depth[m] = (float)chain_walk(m, k, z_values, valid);
 
-  int best[kRows];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) best[rr] = 0;
+  // work item j = (i * kRows + r) * nv + v is vector v of row r of listed
+  // point i; thread tid takes items tid, tid + kThreads, ...
+  const int nv = pw / V;
+  const int step_rows = kThreads / nv, step_cols = kThreads % nv;
+  // lane i's word order (V = 4): pass q writes word (q + rot) % 4
+  const int rot = (tid >> 3) & 3;
+  const bool rot1 = rot & 1, rot2 = rot & 2;
 
-  // packed max over the points; every thread joins the block barriers
   for (int base = 0; base < k; base += kChunk) {
     const int n = min(kChunk, k - base);
     __syncthreads();
-    if (threadIdx.x == 0) s_count = 0;
+    if (tid == 0) s_count = 0;
     __syncthreads();
-    for (int i = threadIdx.x; i < n; i += kThreads) {
+    for (int i = tid; i < n; i += kThreads) {
       const int p = base + i;
-      const int s = window_start(x_positions[p], pw, w);
+      const int s = window_start(__ldg(x_positions + p), pw, w);
       // pixel columns of the window: [s - pw, s)
-      if (valid[p] && s > c0 && s - pw < c0 + kThreads) {
+      if (__ldg(valid + p) && s > 0 && s < w + pw) {
         const int slot = atomicAdd(&s_count, 1);
-        s_point[slot] = p;
-        s_start[slot] = s;
+        s_list[slot] = make_int2(p, s);
       }
     }
     __syncthreads();
-    const int listed = s_count;
-    if (!active) continue;
-    for (int t = 0; t < listed; t += kPoints) {
-      float v[kPoints][kRows];
-      int idx[kPoints];
+    const int items = s_count * kRows;  // (listed point, strip row) pairs
+    int g = tid / nv, v = tid - g * nv;
+    while (g < items) {
+      // all loads first, without branches: an idle slot reads the crops'
+      // first vector, which is cached, and writes nothing
+      float val[kUnroll][V];
+      int at[kUnroll];  // key map word of the vector's first element
+      int idx[kUnroll];
+      bool on[kUnroll];
 #pragma unroll
-      for (int u = 0; u < kPoints; ++u) {
-        int p = 0, j = 0;
-        bool covers = false;
-        if (t + u < listed) {
-          p = s_point[t + u];
-          j = col - s_start[t + u];
-          covers = j >= 0 && j < pw;
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool live = g < items;
+        const int i = live ? g / kRows : 0, r = live ? g % kRows : 0;
+        const int2 pt = s_list[i];
+        const int col = pt.y + v * V;  // padded column of the first element
+        at[u] = r * stride + col;
+        idx[u] = kMaxPoints - pt.x;
+        on[u] = live && r < rows && col + V > pw && col < w + pw;
+        const float* src =
+            on[u] ? crops + ((size_t)pt.x * ph + r0 + r) * pw + (size_t)v * V
+                  : crops;
+        if constexpr (V == 4) {
+          const float4 f = __ldg(reinterpret_cast<const float4*>(src));
+          val[u][0] = f.x;
+          val[u][1] = f.y;
+          val[u][2] = f.z;
+          val[u][3] = f.w;
+        } else {
+          val[u][0] = __ldg(src);
         }
-        idx[u] = covers ? kMaxPoints - p : -1;
-        const float* src = crops + ((size_t)p * ph + r0) * pw + (covers ? j : 0);
-#pragma unroll
-        for (int rr = 0; rr < kRows; ++rr)
-          v[u][rr] = covers && r0 + rr < ph ? __ldg(src + (size_t)rr * pw)
-                                            : 0.0f;
+        v += step_cols;
+        g += step_rows;
+        if (v >= nv) {
+          v -= nv;
+          ++g;
+        }
       }
 #pragma unroll
-      for (int u = 0; u < kPoints; ++u) {
+      for (int u = 0; u < kUnroll; ++u) {
+        if (!on[u]) continue;
+        int* const word = s_map + at[u];
+        if constexpr (V == 4) {
+          // pass q writes word (q + rot) % 4, so takes element (q + rot) % 4
+          const float a0 = rot1 ? val[u][1] : val[u][0];
+          const float a1 = rot1 ? val[u][2] : val[u][1];
+          const float a2 = rot1 ? val[u][3] : val[u][2];
+          const float a3 = rot1 ? val[u][0] : val[u][3];
+          const float b[4] = {rot2 ? a2 : a0, rot2 ? a3 : a1, rot2 ? a0 : a2,
+                              rot2 ? a1 : a3};
 #pragma unroll
-        for (int rr = 0; rr < kRows; ++rr) {
-          const float x = v[u][rr] < threshold ? 0.0f : v[u][rr];
-          const int q = (int)fminf(x * kQScale, kQScale);
-          best[rr] = max(best[rr], idx[u] >= 0 ? (q << kIdxBits) | idx[u] : 0);
+          for (int q = 0; q < 4; ++q)
+            atomicMax(word + ((q + rot) & 3),
+                      packed_key(b[q], threshold, idx[u]));
+        } else {
+          atomicMax(word, packed_key(val[u][0], threshold, idx[u]));
         }
       }
     }
   }
-  if (!active) return;
+  __syncthreads();
 
-  // unpack, then the legacy rewrite as a chain walk from the winner
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    if (r0 + rr >= ph) break;
-    const float resp = (float)(best[rr] >> kIdxBits) / kQScale;
-    float d = 0.0f;
-    if (resp > 0.0f) {
-      int m = min(kMaxPoints - (best[rr] & kMaxPoints), k);
-      while (m < k && valid[m]) {
-        const int next = __float2int_rz(z_values[m]);
-        const bool later = next > m && next < k;
-        m = next;
-        if (!later) break;
+  // unpack, then the legacy rewrite from the table or by a chain walk
+  for (int r = 0; r < rows; ++r) {
+    const int* keys = s_map + r * stride + pw;
+    const size_t o = (size_t)(r0 + r) * w;
+    for (int c = tid; c < w; c += kThreads) {
+      const int best = keys[c];
+      const float resp = (float)(best >> kIdxBits) / kQScale;
+      float d = 0.0f;
+      if (resp > 0.0f) {
+        const int m = min(kMaxPoints - (best & kMaxPoints), k);
+        d = m < kDepths && m < k ? s_depth[m]
+                                 : (float)chain_walk(m, k, z_values, valid);
       }
-      d = (float)m;
+      response[o + c] = resp;
+      depth[o + c] = d;
     }
-    const size_t o = (size_t)(r0 + rr) * w + c;
-    response[o] = resp;
-    depth[o] = d;
   }
 }
 
@@ -159,7 +255,8 @@ scatter_quasi_dense_kernel(const float* __restrict__ crops,
 // crops (k, ph, pw) f32; x_positions and z_values (k,) f32; valid (k,) bool
 // bytes; depth and response point at row 0 of (ph, w) f32 maps with row
 // stride w. Launches on `stream` and returns cudaGetLastError() of the
-// launch.
+// launch (or the error of raising the block's shared-memory limit, for a w
+// whose key map rows do not fit).
 extern "C" int rcfd_scatter_quasi_dense(const void* crops,
                                         const void* x_positions,
                                         const void* z_values,
@@ -167,8 +264,19 @@ extern "C" int rcfd_scatter_quasi_dense(const void* crops,
                                         int pw, int w, float threshold,
                                         void* depth, void* response,
                                         void* stream) {
-  const dim3 grid((w + kThreads - 1) / kThreads, (ph + kRows - 1) / kRows);
-  scatter_quasi_dense_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  const bool vec = pw % 4 == 0 && reinterpret_cast<uintptr_t>(crops) % 16 == 0;
+  auto kernel = vec ? scatter_strip_kernel<4> : scatter_strip_kernel<1>;
+  const int smem = kRows * map_stride(w, pw) * (int)sizeof(int);
+  if (smem + kStaticSmem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it, so that no later check meets it
+      return static_cast<int>(err);
+    }
+  }
+  const int grid = (ph + kRows - 1) / kRows;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(crops),
       static_cast<const float*>(x_positions),
       static_cast<const float*>(z_values),

@@ -45,6 +45,54 @@ def test_kernel_matches_plain_on_card(cuda_device, rng):
         assert torch.equal(d, d_p) and torch.equal(r, r_p), name
 
 
+def _strip_inputs(rng, device, k, pw, w, offset, ph=23):
+    """Scatter inputs for the edges of the row-strip kernel: an odd number of
+    rows (a ragged last strip), windows at both aprons (x at the first and
+    last column and clipped beyond both), pairs of points inside one 2^-14
+    step in overlapping windows (one pair across the 1,024-point list
+    chunk when k > 1,024), values of exactly 0.5 and just below, invalid
+    points, and integer depths equal to later indices. The crops start
+    ``offset`` floats past an allocation, so offset 1 is not 16-byte
+    aligned."""
+    crops = rng.random((k, ph, pw), dtype=np.float32)
+    x = rng.integers(0, w, k).astype(np.float32)
+    x[:4] = [0, w - 1, -pw - 40, w + pw + 40]
+    first = list(range(4, k - 1, 5)) + ([1023] if k > 1024 else [])
+    for i in first:
+        x[i + 1] = x[i] + i % 3
+        crops[i + 1] = np.nextafter(crops[i], np.float32(1))
+    crops[4, :, : pw // 2] = 0.5
+    crops[5, :, pw // 2:] = np.float32(0.5) - np.float32(1e-7)
+    z = (rng.random(k, dtype=np.float32) * 79 + 1).astype(np.float32)
+    z[[0, 2, 4]] = [3.0, 6.5, 8.0]
+    valid = rng.random(k) > 0.1
+    valid[-2:] = False
+    flat = torch.empty(k * ph * pw + offset, device=device)
+    crops_t = flat[offset:].view(k, ph, pw)
+    crops_t.copy_(torch.from_numpy(crops))
+    return (crops_t,) + tuple(torch.from_numpy(a).to(device)
+                              for a in (x + pw // 2, z, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('k, w', [(9, 640), (1100, 640), (9, 12000)])
+@pytest.mark.parametrize('pw', [16, 30, 288])
+def test_scatter_strip_edges_on_card(cuda_device, rng, pw, k, w, offset):
+    """pw 16 and 288 take the 16-byte branch (with aligned crops), pw 30 and
+    offset 1 the scalar one; w 12000 needs more than 48 KB of shared memory
+    a block."""
+    args = _strip_inputs(rng, cuda_device, k, pw, w, offset)
+    h, patch = 27, tuple(args[0].shape[1:])
+    before = sc.scatter_quasi_dense.launches
+    d, r = sc.scatter_quasi_dense(*args, h, w, patch)
+    d_p, r_p = sc.scatter_quasi_dense_plain(*args, h, w, patch)
+    torch.cuda.synchronize()
+    assert sc.scatter_quasi_dense.launches == before + 1
+    assert torch.equal(d, d_p) and torch.equal(r, r_p)
+    assert bool((r > 0).any()) and bool((d > 0).any())
+
+
 @pytest.mark.cuda
 def test_kernel_wrapper_refuses_bad_cuda_tensors(cuda_device, rng):
     crops, x, z, valid, h, w, patch = scatter_case('random', rng)

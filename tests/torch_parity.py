@@ -85,6 +85,11 @@ def scatter_case(name, rng):
     """(crops, x in padded coordinates, z, valid, h, w, patch) for one
     named case of the scatter tests."""
     h, w, ph, pw = 40, 64, 24, 16
+    if name == 'odd_width':
+        # rows of 30 floats (not a whole number of 16-byte vectors: the CUDA
+        # kernel's scalar branch) and an odd number of rows (a ragged last
+        # strip of rows)
+        ph, pw = 23, 30
     pad = pw // 2
     k = 8
     crops = rng.random((k, ph, pw), dtype=np.float32)
@@ -110,4 +115,5 @@ def scatter_case(name, rng):
     return crops, x + pad, z, valid, h, w, (ph, pw)
 
 
-SCATTER_CASES = ['random', 'padding', 'ties', 'edges', 'full_height']
+SCATTER_CASES = ['random', 'padding', 'ties', 'edges', 'full_height',
+                 'odd_width']
