@@ -10,7 +10,8 @@ Phases, each printed as it starts and ends:
   kernel     hold each kernel against its plain PyTorch version on the card
              at the shapes of the serving paths, bit for bit, and time the
              kernel, the plain version and the nearest one-call PyTorch
-             operator
+             operator; the scatter also over a batch of 16 frames in one
+             launch, beside 16 single-frame launches
   variants   the fused skip gather-add's variants (K3 and four that split
              its time: rcfd_tpu_torch.tools.fusepall_exp) at deconv1's and
              deconv2's shapes, in float32 and bf16, each against its plain
@@ -36,11 +37,23 @@ Phases, each printed as it starts and ends:
              its convolution (TwoStagePipeline(optimize=True)): launches,
              the deviation from the unfolded paths, and ms/frame of
              interleaved, paired requests against the slice
+  batched    TwoStagePipeline.forward_batched on the slice's weights: B = 8
+             (one decode chunk) and 16 (two), B = 16 with optimize=True, and
+             B = 2 in two decode chunks with the deferred pools (fused) and
+             at the 900x300 patch (wide); each frame against __call__ of
+             the same frame; ms per request, frames/s and peak memory;
+             paired rounds of one B = 8 request against 8 single-frame
+             requests; then FusionNet alone at the benchmark config with
+             batch norm folded, float32, at b = 1, 8 and 32, from integer
+             transport inputs
 
-Each path phase sets every kernel's launch count to 0 before its counted
-requests, reads them after, and fails unless each kernel of its path was
-launched as often as its requests need and every other kernel not at
-all.
+Each path phase (and each configuration of the batched phase) sets every
+kernel's launch count to 0 before its counted requests, reads them after,
+and fails unless each kernel of its path was launched as often as its
+requests need and every other kernel not at all. A kernel's entry of the
+kernels line sums the counts read after each path that launched it
+(``launches_by_path``); the scatter has one count for its two entries,
+one frame a launch (slice) and a batch a launch (batched).
 
 Then a line with the card's name and power limit, a line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
@@ -239,7 +252,8 @@ def scatter_times(device, patch):
 
 
 def phase_kernel_scatter(device, record):
-    err, ms, plain_ms, library_ms, bound_ms, _ = scatter_times(device, PATCH)
+    err, ms, plain_ms, library_ms, bound_ms, nbytes = scatter_times(device,
+                                                                    PATCH)
     # the variable-bin path serves 300-wide crops
     scatter_times(device, WIDE_PATCH)
     record['scatter_quasi_dense'] = dict(
@@ -247,7 +261,86 @@ def phase_kernel_scatter(device, record):
         source='rcfd_tpu_torch/csrc/scatter_quasi_dense.cu',
         replaces='rcfd_tpu/ops/scatter_pallas.py:42',
         launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by='bytes', library_ms=library_ms)
+        bound_ms=bound_ms, bound_by='bytes', library_ms=library_ms,
+        batched=scatter_batched_times(device, nbytes))
+
+
+BATCH_K1 = 16
+
+
+def scatter_batched_times(device, single_bytes):
+    """The scatter over BATCH_K1 frames at PATCH in one launch: frame 0 the
+    single-frame timing's inputs, frames 1 .. B-2 scatter_inputs' hard
+    cases from other seeds, the last frame the hard cases with every point
+    invalid. Held against its batched plain version and against the
+    single-frame kernel frame by frame, bit for bit, then timed (median of
+    20) beside B single-frame launches, the batched plain version, one
+    batched scatter_reduce_ on precomputed keys and the bound of this
+    data's bytes."""
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+
+    ph, pw = PATCH
+    frames = [scatter_inputs(np.random.default_rng(
+        SEED if f == 0 else SEED + 10 + f), device) for f in range(BATCH_K1)]
+    frames[-1] = frames[-1][:3] + (torch.zeros_like(frames[-1][3]),)
+    crops, xs, zs, valid = [torch.stack([f[i] for f in frames])
+                            for i in range(4)]
+    del frames
+    args = (crops, xs, zs, valid, H, W, PATCH)
+    d_k, r_k = sc.scatter_quasi_dense_batched(*args)
+    d_p, r_p = sc.scatter_quasi_dense_batched_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((d_k - d_p).abs().max()), float((r_k - r_p).abs().max()))
+    check(torch.equal(d_k, d_p) and torch.equal(r_k, r_p),
+          'batched scatter kernel differs from its plain version: max abs '
+          'err {}'.format(err))
+    del d_p, r_p
+    singles = [(crops[f], xs[f], zs[f], valid[f], H, W, PATCH)
+               for f in range(BATCH_K1)]
+    for f, single in enumerate(singles):
+        d_f, r_f = sc.scatter_quasi_dense(*single)
+        check(torch.equal(d_k[f], d_f) and torch.equal(r_k[f], r_f),
+              'batched scatter frame {} differs from the single-frame '
+              'kernel'.format(f))
+    check(int((r_k[-1] > 0).sum()) == 0 and int((r_k[0] > 0).sum()) > 0,
+          'batched scatter: the all-invalid frame is not empty, or frame 0 '
+          'is')
+    log('batched scatter at B={} K={} crops {}x{} w={}: kernel == batched '
+        'plain version, bit for bit (tolerance 0), and == the single-frame '
+        'kernel in every frame; frame {} has no valid point'.format(
+            BATCH_K1, K, ph, pw, W, BATCH_K1 - 1))
+    del d_k, r_k
+    ms = device_ms(lambda: sc.scatter_quasi_dense_batched(*args), 20)
+    singles_ms = device_ms(
+        lambda: [sc.scatter_quasi_dense(*single) for single in singles], 20)
+    plain_ms = device_ms(
+        lambda: sc.scatter_quasi_dense_batched_plain(*args), 5, 1)
+    x_start, valid_i, _ = sc.point_tables(xs, zs, valid, pw, W)
+    keys = sc.packed_keys(crops, valid_i).permute(0, 2, 1, 3).reshape(
+        BATCH_K1, ph, -1)
+    cols = sc.window_columns(x_start, pw).reshape(BATCH_K1, 1, -1).expand(
+        -1, ph, -1).contiguous()
+    packed = torch.zeros((BATCH_K1, ph, W + 2 * pw), dtype=torch.int32,
+                         device=device)
+    library_ms = device_ms(
+        lambda: packed.scatter_reduce_(2, cols, keys, 'amax'), 20)
+    del keys, cols, packed
+    x_start, valid_i = x_start.cpu().numpy(), valid_i.cpu().numpy()
+    nbytes = sum(scatter_bound_bytes(x_start[f], valid_i[f], ph, pw, W)
+                 for f in range(BATCH_K1))
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    all_valid_ms = BATCH_K1 * single_bytes / HBM_BYTES_PER_S * 1e3
+    log('batched scatter at B={} K={} crops {}x{} w={}, device time: one '
+        'launch {:.4f} ms (median of 20), {} single-frame launches {:.4f} '
+        'ms, batched plain {:.4f} ms, batched scatter_reduce_ {:.4f} ms; '
+        'bound {:.4f} ms ({} bytes of this data at {:.3g} B/s; {:.4f} ms '
+        'for {} frames of the single-frame bytes), {:.1f}% of the bound'
+        .format(BATCH_K1, K, ph, pw, W, ms, BATCH_K1, singles_ms, plain_ms,
+                library_ms, bound_ms, nbytes, HBM_BYTES_PER_S, all_valid_ms,
+                BATCH_K1, 100 * bound_ms / ms))
+    return dict(frames=BATCH_K1, max_abs_err=err, ms=ms,
+                single_frame_launches_ms=singles_ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes)
 
 
 def encoder_maps(rn, patch, device):
@@ -493,6 +586,15 @@ def read_launches():
             for name, wrapper in launch_counters().items()}
 
 
+def count_launches(record, path, launches, kernels):
+    """Record the launches of ``kernels`` that ``path``'s run read, and sum
+    each kernel's over the paths that launched it."""
+    for kernel in kernels:
+        entry = record[kernel]
+        entry.setdefault('launches_by_path', {})[path] = launches[kernel]
+        entry['launches'] = sum(entry['launches_by_path'].values())
+
+
 def phase_reference(device):
     """Small configurations on the card against the port on the CPU, stage
     by stage, on the same weights and inputs: the canonical one in full;
@@ -571,13 +673,15 @@ def phase_reference(device):
                 label, err, kernel, launches))
 
 
-def serve_path(name, pipe, reqs, device, expect):
+def serve_path(name, pipe, reqs, device, expect, batched=False):
     """Serve the warm-up request, then the counted ones with every launch
-    count set to 0 just before and read just after. ``expect`` maps each
-    kernel of the path to the launches it must make; every other kernel
-    must make none. Checks the outputs;
-    returns (outs, ms per request, peak memory bytes, launches)."""
-    pipe(*reqs[0])  # warm-up request: cuDNN chooses its algorithms
+    count set to 0 just before and read just after, through ``__call__``
+    or, with ``batched``, ``forward_batched``. ``expect`` maps each kernel
+    of the path to the launches it must make; every other kernel must make
+    none. Checks the outputs; returns (outs, ms per request, peak memory
+    bytes, launches)."""
+    serve = pipe.forward_batched if batched else pipe
+    serve(*reqs[0])  # warm-up request: cuDNN chooses its algorithms
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     resident = torch.cuda.memory_allocated(device)
@@ -585,7 +689,7 @@ def serve_path(name, pipe, reqs, device, expect):
     outs, times = [], []
     for req in reqs[1:]:
         t0 = time.perf_counter()
-        out = pipe(*req)
+        out = serve(*req)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         outs.append(out)
@@ -597,10 +701,12 @@ def serve_path(name, pipe, reqs, device, expect):
               'requests, expected {}'.format(name, kernel, launches[kernel],
                                              len(reqs) - 1, n))
     h, w = pipe.image_height, pipe.image_width
+    b = reqs[0][0].shape[0]
+    shape = (b, h, w) if batched else (h, w)
     for dense, quasi, response in outs:
         for label, t in (('dense', dense), ('quasi', quasi),
                          ('response', response)):
-            check(tuple(t.shape) == (h, w), '{}: {} has shape {}'.format(
+            check(tuple(t.shape) == shape, '{}: {} has shape {}'.format(
                 name, label, tuple(t.shape)))
             check(bool(torch.isfinite(t).all()), '{}: {} is not finite'
                   .format(name, label))
@@ -608,28 +714,30 @@ def serve_path(name, pipe, reqs, device, expect):
               '{}: dense depth outside [1, 100] m'.format(name))
         check(float(response.min()) >= 0.0 and float(response.max()) <= 1.0,
               '{}: response outside [0, 1]'.format(name))
-        check(int((response > 0).sum()) > 0,
-              '{}: empty quasi-dense map'.format(name))
-    log('{}: {} requests at {}x{}, K={} ({} padding): ms/frame {} (median '
-        '{:.2f}); peak memory {} bytes ({} above the {} resident before '
-        'the requests); launches {}'.format(
-            name, len(outs), h, w, K, N_INVALID,
-            ', '.join('{:.2f}'.format(t) for t in times),
-            float(np.median(times)), peak, peak - resident, resident,
-            launches))
+        check(bool((response.reshape(b, -1) > 0).any(1).all()),
+              '{}: a frame with an empty quasi-dense map'.format(name))
+    ms = float(np.median(times))
+    log('{}: {} requests of {} frame{} at {}x{}, K={} ({} padding): ms per '
+        'request {} (median {:.2f}; {:.2f} ms/frame, {:.2f} frames/s); '
+        'peak memory {} bytes ({} above the {} resident before the '
+        'requests); launches {}'.format(
+            name, len(outs), b, 's' if b > 1 else '', h, w, K, N_INVALID,
+            ', '.join('{:.2f}'.format(t) for t in times), ms, ms / b,
+            b * 1e3 / ms, peak, peak - resident, resident, launches))
     log('{}: covered quasi-dense pixels per request: {}'.format(
         name, [int((o[2] > 0).sum()) for o in outs]))
     return outs, times, peak, launches
 
 
-def check_plain_route(name, pipe, req, out, module, attr, plain):
-    """The same request through the same pipeline with one kernel's
-    wrapper replaced by its plain version, where the path looks it up: the
-    quasi and response maps must be equal bit for bit."""
+def check_plain_route(name, serve, req, out, module, attr, plain):
+    """The same request through the same serving callable (a pipeline's
+    ``__call__`` or ``forward_batched``) with one kernel's wrapper replaced
+    by its plain version, where the path looks it up: the quasi and
+    response maps must be equal bit for bit."""
     kernel = getattr(module, attr)
     setattr(module, attr, plain)
     try:
-        dense_p, quasi_p, response_p = pipe(*req)
+        dense_p, quasi_p, response_p = serve(*req)
     finally:
         setattr(module, attr, kernel)
     dense, quasi, response = out
@@ -695,8 +803,7 @@ def phase_slice(device, record, rn, fn, reqs):
         'slice', pipe, reqs, device,
         {'scatter_quasi_dense': N_REQUESTS, 'fused_skip_gather_add': 0,
          'column_crop': 0})
-    record['scatter_quasi_dense']['launches'] = \
-        launches['scatter_quasi_dense']
+    count_launches(record, 'slice', launches, ['scatter_quasi_dense'])
     check_plain_route('slice', pipe, reqs[1], outs[0], pipe, 'scatter',
                       sc.scatter_quasi_dense_plain)
     check_codec_encode(rn, fn, reqs[1], outs[0], device)
@@ -743,8 +850,8 @@ def phase_fused(device, record, slice_pipe, reqs):
         'fused', pipe, reqs, device,
         {'scatter_quasi_dense': N_REQUESTS,
          'fused_skip_gather_add': 2 * N_REQUESTS, 'column_crop': 0})
-    record['fused_skip_gather_add']['launches'] = \
-        launches['fused_skip_gather_add']
+    count_launches(record, 'fused', launches,
+                   ['scatter_quasi_dense', 'fused_skip_gather_add'])
     check_plain_route('fused', pipe, reqs[1], outs[0], fs,
                       'fused_skip_gather_add',
                       fs.fused_skip_gather_add_plain)
@@ -773,7 +880,8 @@ def phase_wide(device, record, slice_pipe, reqs):
         'wide', pipe, reqs, device,
         {'scatter_quasi_dense': N_REQUESTS, 'fused_skip_gather_add': 0,
          'column_crop': 3 * N_REQUESTS})
-    record['column_crop']['launches'] = launches['column_crop']
+    count_launches(record, 'wide', launches,
+                   ['scatter_quasi_dense', 'column_crop'])
     check_plain_route('wide', pipe, reqs[1], outs[0], roi_pool,
                       'batch_column_crop', cc.batch_column_crop_plain)
     stage_times('wide', pipe, reqs[1], device)
@@ -795,23 +903,39 @@ def radarnet_outputs(pipe, req):
     return crops, xs
 
 
+def top_responses(crops, xs, valid, pixels):
+    """For each pixel (row, col) of ``pixels``: (row, col, the crop values
+    of the valid points whose windows cover it, largest first)."""
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+
+    k, ph, pw = crops.shape
+    x_start = sc.point_tables(torch.as_tensor(xs), torch.zeros(k),
+                              torch.as_tensor(valid), pw, W)[0].numpy()
+    for r, c in pixels:
+        j = c + pw - x_start
+        hit = np.flatnonzero(valid & (j >= 0) & (j < pw))
+        yield r, c, np.sort(crops[hit, r - (H - ph), j[hit]].astype(
+            np.float64))[::-1]
+
+
+def off_threshold(crops, xs, valid, pixels, tol):
+    """The pixels (row, col) of ``pixels`` whose top response is farther
+    than ``tol`` from the 0.5 threshold: a perturbation of the crops by at
+    most ``tol`` cannot switch their response between 0 and 0.5 or
+    more."""
+    return [(int(r), int(c))
+            for r, c, vals in top_responses(crops, xs, valid, pixels)
+            if not (len(vals) and abs(vals[0] - 0.5) <= tol)]
+
+
 def unexplained_quasi(crops, xs, valid, pixels, tol):
     """The pixels (row, col) of ``pixels`` whose quasi depth a perturbation
     of the crops by at most ``tol`` cannot change: the top response there
     is farther than ``tol`` from the 0.5 threshold, and the top two are
     farther apart than one 2^-14 step plus 2 * tol (so K1's 14-bit max
     keeps its winner)."""
-    from rcfd_tpu_torch.ops import scatter_cuda as sc
-
-    k, ph, pw = crops.shape
-    x_start = sc.point_tables(torch.as_tensor(xs), torch.zeros(k),
-                              torch.as_tensor(valid), pw, W)[0].numpy()
     out = []
-    for r, c in pixels:
-        j = c + pw - x_start
-        hit = np.flatnonzero(valid & (j >= 0) & (j < pw))
-        vals = np.sort(crops[hit, r - (H - ph), j[hit]].astype(
-            np.float64))[::-1]
+    for r, c, vals in top_responses(crops, xs, valid, pixels):
         near_threshold = len(vals) and abs(vals[0] - 0.5) <= tol
         tie = len(vals) > 1 and vals[0] - vals[1] <= 2.0 ** -14 + 2 * tol
         if not (near_threshold or tie):
@@ -847,10 +971,11 @@ def fold_deviation(name, pipe, ref_pipe, req):
             float(diff.max()), float(diff.median())))
 
 
-def paired_times(pipes, reqs, rounds):
-    """Serve every pipeline of ``pipes`` the same request in each round, in
+def paired_times(pipes, reqs, rounds, frames=1):
+    """Serve every callable of ``pipes`` the same request in each round, in
     an order that rotates from round to round; print each one's median
-    ms/frame and the median of its per-round difference from the first,
+    ms per request of ``frames`` frames (and frames/s when there are more
+    than one) and the median of its per-round difference from the first,
     and its largest peak of device memory above what was allocated before
     the request."""
     names = list(pipes)
@@ -869,10 +994,16 @@ def paired_times(pipes, reqs, rounds):
                               torch.cuda.max_memory_allocated() - resident)
     base = names[0]
     for name in names:
-        line = ('paired: {} ms/frame median {:.2f} over {} rounds ({}); '
-                'request peak {} bytes above resident').format(
-            name, float(np.median(times[name])), rounds,
-            ', '.join('{:.2f}'.format(t) for t in times[name]),
+        ms = float(np.median(times[name]))
+        if frames == 1:
+            line = 'paired: {} ms/frame median {:.2f}'.format(name, ms)
+        else:
+            line = ('paired: {} ms per request of {} frames median {:.2f} '
+                    '({:.2f} frames/s)').format(name, frames, ms,
+                                                frames * 1e3 / ms)
+        line += (' over {} rounds ({}); request peak {} bytes above '
+                 'resident').format(
+            rounds, ', '.join('{:.2f}'.format(t) for t in times[name]),
             peaks[name])
         if name != base:
             d = np.subtract(times[name], times[base])
@@ -905,7 +1036,7 @@ def with_batch_norm_statistics(model, seed):
     return model
 
 
-def phase_optimize(device, slice_pipe, reqs):
+def phase_optimize(device, record, slice_pipe, reqs):
     """The slice and fused paths with batch norm folded
     (TwoStagePipeline(optimize=True)), from the slice's weights with batch
     norm statistics drawn near the identity: launches, outputs and the
@@ -941,15 +1072,18 @@ def phase_optimize(device, slice_pipe, reqs):
           "caller's models")
     log('optimize: {} batch norms folded into their convolutions; the '
         "caller's models keep theirs".format(n_bn))
-    outs, _, _, _ = serve_path('optimize', opt, reqs, device,
-                               {'scatter_quasi_dense': N_REQUESTS})
+    outs, _, _, launches = serve_path('optimize', opt, reqs, device,
+                                      {'scatter_quasi_dense': N_REQUESTS})
+    count_launches(record, 'optimize', launches, ['scatter_quasi_dense'])
     check_plain_route('optimize', opt, reqs[1], outs[0], opt, 'scatter',
                       sc.scatter_quasi_dense_plain)
     stage_times('optimize', opt, reqs[1], device)
-    outs, _, _, _ = serve_path(
+    outs, _, _, launches = serve_path(
         'optimize+fused', opt_fused, reqs, device,
         {'scatter_quasi_dense': N_REQUESTS,
          'fused_skip_gather_add': 2 * N_REQUESTS})
+    count_launches(record, 'optimize+fused', launches,
+                   ['scatter_quasi_dense', 'fused_skip_gather_add'])
     check_plain_route('optimize+fused', opt_fused, reqs[1], outs[0], fs,
                       'fused_skip_gather_add',
                       fs.fused_skip_gather_add_plain)
@@ -960,6 +1094,233 @@ def phase_optimize(device, slice_pipe, reqs):
     fold_deviation('optimize+fused', opt_fused, fused, reqs[1])
     paired_times({'slice': base, 'optimize': opt, 'fused': fused,
                   'optimize+fused': opt_fused}, reqs[1:], PAIRED_ROUNDS)
+    return opt
+
+
+# batched requests: counted requests of each configuration (after one
+# warm-up request), and paired rounds of one B = 8 request against 8
+# single-frame requests
+N_BATCHED = 2
+BATCHED_PAIRED_ROUNDS = 5
+# FusionNet alone (bench.py): batch sizes, and requests timed at each
+FUSIONNET_BATCHES = (1, 8, 32)
+# per-frame agreement of the batched path with __call__: dense depth, m
+BATCHED_DENSE_TOL = 1e-3
+
+
+def batched_requests(rng, n, b):
+    """n requests of b frames each: (images (b, H, W, 3) uint8, points
+    (b, K, 3), valid (b, K))."""
+    out = []
+    for _ in range(n):
+        images, points, valid = zip(*requests(rng, b, H, W, K, N_INVALID))
+        out.append((np.concatenate(images), np.stack(points),
+                    np.stack(valid)))
+    return out
+
+
+def check_frames(name, pipe, batch, out, frames):
+    """Frames ``frames`` of a batched request against __call__ of the same
+    frame on the same pipeline. cuDNN may choose other algorithms at
+    another batch size, so RadarNet's crops of each frame in the batched
+    path must lie within FOLD_TOL of __call__'s; then every pixel whose
+    quasi depth differs must be explained by a 14-bit tie or a top
+    response within FOLD_TOL of the threshold, and the response must lie
+    within FOLD_TOL + 2^-14 (what a perturbation of the crops by FOLD_TOL
+    can do to the 14-bit max) except at pixels whose top response is
+    within FOLD_TOL of the threshold. Dense depth within BATCHED_DENSE_TOL
+    of FusionNet run on the frame alone with the batched path's own maps of
+    that frame (so that a FusionNet batch of B is held to its batch of
+    one), and within BATCHED_DENSE_TOL of __call__'s wherever the frame's
+    maps equal __call__'s."""
+    from rcfd_tpu_torch.pipeline import decode_chunk_count, serving_numerics
+
+    images, points, valid = batch
+    n_chunks = decode_chunk_count(points.shape[0], points.shape[1],
+                                  pipe.radarnet.perf.decode_chunks)
+    with torch.inference_mode(), serving_numerics():
+        crops_b = pipe.radarnet_stage_batched(images, points, n_chunks)[1]
+    n_quasi, n_response, crops_err, dense_err, call_err = 0, 0, 0.0, 0.0, []
+    for f in frames:
+        req = (images[f:f + 1], points[f], valid[f])
+        crops_r, xs = radarnet_outputs(pipe, req)
+        err = float((crops_b[f] - crops_r).abs().max())
+        check(err <= FOLD_TOL, '{}: frame {}: RadarNet crops differ from '
+              '__call__\'s by {} > {}'.format(name, f, err, FOLD_TOL))
+        crops_err = max(crops_err, err)
+        dense_r, quasi_r, resp_r = pipe(*req)
+        dense, quasi, resp = (o[f] for o in out)
+        quasi_px = torch.nonzero(quasi != quasi_r).cpu().numpy()
+        step = (resp - resp_r).abs()
+        resp_px = torch.nonzero(step > FOLD_TOL + 2.0 ** -14).cpu().numpy()
+        if len(quasi_px) or len(resp_px):
+            crops, xs_np = crops_r.cpu().numpy(), xs.cpu().numpy()
+            bad = unexplained_quasi(crops, xs_np, valid[f], quasi_px,
+                                    FOLD_TOL)
+            check(not bad, '{}: frame {}: quasi depth differs from __call__ '
+                  'at {} pixels that no tie or threshold explains: {}'
+                  .format(name, f, len(bad), bad[:10]))
+            bad = off_threshold(crops, xs_np, valid[f], resp_px, FOLD_TOL)
+            check(not bad, '{}: frame {}: response differs from __call__ by '
+                  'more than {:g} at {} pixels away from the threshold: {}'
+                  .format(name, f, FOLD_TOL + 2.0 ** -14, len(bad),
+                          bad[:10]))
+        n_quasi += len(quasi_px)
+        n_response += int((step > 0).sum())
+        with torch.inference_mode(), serving_numerics():
+            image_t = pipe.radarnet_stage(*req[:2])[0]
+            dense_1 = pipe.fusionnet(image_t, pipe.bridge(quasi, resp)[2])
+        err = float((dense - dense_1[0, 0]).abs().max())
+        check(err <= BATCHED_DENSE_TOL, '{}: frame {}: dense differs from '
+              'FusionNet on the frame alone by {} m > {} m'.format(
+                  name, f, err, BATCHED_DENSE_TOL))
+        dense_err = max(dense_err, err)
+        err = float((dense - dense_r).abs().max())
+        if not (int((step > 0).sum()) or len(quasi_px)):
+            check(err <= BATCHED_DENSE_TOL, '{}: frame {}: dense differs '
+                  'from __call__ by {} m > {} m with the same maps'.format(
+                      name, f, err, BATCHED_DENSE_TOL))
+        call_err.append(err)
+    log('{}: frames {} against __call__ of the same frame: RadarNet crops '
+        'max abs diff {:.3g} (tolerance {:g}); {} quasi pixels differ, each '
+        'at a 14-bit tie or within {:g} of the 0.5 threshold; {} response '
+        'pixels differ, by at most {:g} or at the threshold; dense against '
+        'FusionNet on each frame alone: max abs diff {:.3g} m (tolerance '
+        '{:g} m); dense against __call__: max abs diff per frame {} m ({:g} '
+        'm where the maps are equal)'.format(
+            name, list(frames), crops_err, FOLD_TOL, n_quasi, FOLD_TOL,
+            n_response, FOLD_TOL + 2.0 ** -14, dense_err, BATCHED_DENSE_TOL,
+            ', '.join('{:.3g}'.format(e) for e in call_err),
+            BATCHED_DENSE_TOL))
+
+
+def phase_batched(device, record, slice_pipe, opt_pipe):
+    """forward_batched at full width on the slice's weights (and, with
+    optimize=True, on the optimize phase's): B = 8 and 16, B = 16 folded,
+    and B = 2 in two decode chunks with the deferred pools and at the
+    900x300 patch; each with its kernels held to their plain versions on
+    the same request; then paired rounds at B = 8."""
+    from rcfd_tpu_torch.nn.perf import PerfConfig
+    from rcfd_tpu_torch.ops import crop_cuda as cc
+    from rcfd_tpu_torch.ops import fused_skip as fs
+    from rcfd_tpu_torch.ops import roi_pool
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline, decode_chunk_count
+
+    rng = np.random.default_rng(SEED + 5)
+    batches = {b: batched_requests(rng, N_BATCHED + 1, b) for b in (8, 16)}
+    for b in (8, 16):
+        chunks = decode_chunk_count(b, K, None)
+        check(chunks == b // 8, 'batched: {} decode chunks at B={}'.format(
+            chunks, b))
+        name = 'batched B={} ({} decode chunk{})'.format(
+            b, chunks, 's' if chunks > 1 else '')
+        outs, _, _, launches = serve_path(
+            name, slice_pipe, batches[b], device,
+            {'scatter_quasi_dense': N_BATCHED}, batched=True)
+        count_launches(record, 'batched B={}'.format(b), launches,
+                       ['scatter_quasi_dense'])
+        check_plain_route(name, slice_pipe.forward_batched, batches[b][1],
+                          outs[0], slice_pipe, 'scatter_batched',
+                          sc.scatter_quasi_dense_batched_plain)
+        check_frames(name, slice_pipe, batches[b][1], outs[0], range(b))
+        del outs
+        torch.cuda.empty_cache()
+    outs, _, _, launches = serve_path(
+        'batched+optimize B=16', opt_pipe, batches[16], device,
+        {'scatter_quasi_dense': N_BATCHED}, batched=True)
+    count_launches(record, 'batched+optimize B=16', launches,
+                   ['scatter_quasi_dense'])
+    check_frames('batched+optimize B=16', opt_pipe, batches[16][1], outs[0],
+                 (0, 15))
+    del outs
+    torch.cuda.empty_cache()
+    small = batched_requests(rng, N_BATCHED + 1, 2)
+    for name, kw, kernel, per_chunk, module, attr, plain in (
+            ('batched fused B=2', dict(perf=PerfConfig(
+                fused_pool2=True, fused_pool4=True, decode_chunks=2)),
+             'fused_skip_gather_add', 2, fs, 'fused_skip_gather_add',
+             fs.fused_skip_gather_add_plain),
+            ('batched wide B=2', dict(input_patch_size_image=WIDE_PATCH,
+                                      perf=PerfConfig(decode_chunks=2)),
+             'column_crop', 3, roi_pool, 'batch_column_crop',
+             cc.batch_column_crop_plain)):
+        rn = radarnet_like(slice_pipe.radarnet, device, **kw)
+        pipe = TwoStagePipeline(rn, slice_pipe.fusionnet, H, W,
+                                device=device)
+        outs, _, _, launches = serve_path(
+            name, pipe, small, device,
+            {'scatter_quasi_dense': N_BATCHED,
+             kernel: 2 * per_chunk * N_BATCHED}, batched=True)
+        count_launches(record, name, launches,
+                       ['scatter_quasi_dense', kernel])
+        check_plain_route(name, pipe.forward_batched, small[1], outs[0],
+                          module, attr, plain)
+        check_frames(name, pipe, small[1], outs[0], (0, 1))
+        del outs, pipe, rn
+    torch.cuda.empty_cache()
+    images, points, valid = batches[8][1]
+
+    def one_frame_a_request(*batch):
+        for f in range(images.shape[0]):
+            slice_pipe(images[f:f + 1], points[f], valid[f])
+
+    paired_times({'forward_batched': slice_pipe.forward_batched,
+                  '__call__ per frame': one_frame_a_request},
+                 [batches[8][1]], BATCHED_PAIRED_ROUNDS, frames=8)
+
+
+def phase_fusionnet_alone(device, fn):
+    """FusionNet alone at the benchmark config (bench.py), batch norm folded
+    (as bench.py folds it), float32 under serving_numerics, from integer
+    transport inputs on the card (uint8 frames, uint16 x256-codec depth
+    and response, bench.py's _inputs) decoded in each request: frames/s and
+    peak memory at each batch size of FUSIONNET_BATCHES."""
+    from rcfd_tpu_torch.data import transport
+    from rcfd_tpu_torch.nn.optimize import fold_batch_norm
+    from rcfd_tpu_torch.pipeline import serving_numerics
+
+    model = fold_batch_norm(fn).to(device).eval()
+    rng = np.random.default_rng(SEED + 6)
+    for b in FUSIONNET_BATCHES:
+        image = torch.from_numpy(rng.integers(
+            0, 256, (b, H, W, 3), dtype=np.uint8)).to(device)
+        depth = torch.from_numpy(rng.integers(
+            0, 80 * 256, (b, H, W, 1), dtype=np.uint16)).to(device)
+        response = torch.from_numpy(rng.integers(
+            0, 256, (b, H, W, 1), dtype=np.uint16)).to(device)
+
+        def forward():
+            img = transport.decode(image) / 255.0
+            inp = torch.cat([transport.decode(depth),
+                             transport.decode(response)], -1)
+            return model(img.permute(0, 3, 1, 2), inp.permute(0, 3, 1, 2))
+
+        n = max(3, 16 // b)
+        with torch.inference_mode(), serving_numerics():
+            out = forward()  # warm-up: cuDNN chooses its algorithms
+            torch.cuda.synchronize()
+            check(tuple(out.shape) == (b, 1, H, W) and
+                  bool(torch.isfinite(out).all()) and
+                  float(out.min()) >= 1.0 and float(out.max()) <= 100.0,
+                  'FusionNet alone at b={}: output {} not finite in '
+                  '[1, 100] m'.format(b, tuple(out.shape)))
+            del out
+            torch.cuda.reset_peak_memory_stats(device)
+            resident = torch.cuda.memory_allocated(device)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                out = forward()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device)
+        log('FusionNet alone (bench.py CONFIG, batch norm folded, float32, '
+            'integer transport) at b={}: {} requests in {:.3f} s, {:.2f} '
+            'frames/s, {:.2f} ms/frame; peak memory {} bytes ({} above the '
+            '{} resident)'.format(b, n, dt, b * n / dt, dt * 1e3 / (b * n),
+                                  peak, peak - resident, resident))
+        del image, depth, response, out
+        torch.cuda.empty_cache()
 
 
 def profile_request(name, pipe, req):
@@ -1047,7 +1408,11 @@ def main():
     with Phase('wide'):
         phase_wide(device, record, slice_pipe, reqs)
     with Phase('optimize'):
-        phase_optimize(device, slice_pipe, reqs)
+        opt_pipe = phase_optimize(device, record, slice_pipe, reqs)
+    torch.cuda.empty_cache()
+    with Phase('batched'):
+        phase_batched(device, record, slice_pipe, opt_pipe)
+        phase_fusionnet_alone(device, slice_pipe.fusionnet)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

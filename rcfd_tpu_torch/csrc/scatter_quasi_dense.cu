@@ -1,5 +1,6 @@
 // Quasi-dense scatter of K per-point response crops into (ph, w) depth and
-// response maps, for Hopper (sm_90a): a one-wave row-strip kernel.
+// response maps, for Hopper (sm_90a): a row-strip kernel, one wave a frame,
+// over one frame or a batch of frames in one launch.
 //
 // Replaces the TPU kernel rcfd_tpu/ops/scatter_pallas.py::_kernel (launched
 // by _call, driven by scatter_quasi_dense_pallas) and computes its function.
@@ -27,8 +28,8 @@
 // form of this kernel (a block of 64 columns x 4 rows, a thread a column,
 // scalar loads at arbitrary offsets, 5,625 blocks in two waves):
 //
-// - One wave. The grid is ceil(ph / kRows) blocks of kThreads = 256
-//   threads. kRows = 1 gives 900 blocks at the serving shapes;
+// - One wave a frame. The grid is ceil(ph / kRows) blocks of kThreads = 256
+//   threads a frame. kRows = 1 gives 900 blocks at the serving shapes;
 //   __launch_bounds__ holds a thread to 32 registers so that
 //   kBlocksPerSm = 8 blocks fit on an SM (2,048 threads, about 21 KB of
 //   shared memory each): 1,056 slots on 132 SMs, so every block is resident
@@ -69,6 +70,18 @@
 //   the chain is long. A block walks the chain once for each of the first
 //   kDepths points, into a table in shared memory, which the epilogue reads;
 //   a winner beyond the table walks its chain there.
+// - A batch of B frames is one launch: the grid's second dimension runs over
+//   the frames (blockIdx.y), and a block offsets its crops, point tables and
+//   map rows by its frame. One frame is one wave; at B frames the blocks of
+//   later frames fill the SMs as those of earlier frames reach their
+//   epilogue, so the map writes of one frame overlap the crop reads of the
+//   next. Each frame's crops start k * ph * pw floats after the last, so
+//   with pw % 4 == 0 and an aligned base every frame's rows stay 16-byte
+//   aligned. A block computes its frame's offsets where it uses them
+//   rather than keeping six offset pointers: at 32 registers a thread
+//   those spilled to the stack and cost the single frame 12% of its time.
+//   One frame launches the kBatched = false instance, where every offset
+//   is 0 at compile time.
 
 #include <cstdint>
 
@@ -115,6 +128,13 @@ __device__ __forceinline__ int chain_walk(int m, int k,
   return m;
 }
 
+// this block's frame's first entry in arrays of per_frame entries a frame
+// (the point tables, the crops' points, the maps); 0 for one frame
+template <bool kBatched>
+__device__ __forceinline__ size_t frame_offset(long long per_frame) {
+  return kBatched ? (size_t)blockIdx.y * (size_t)per_frame : 0;
+}
+
 // key map row length in words: the row and both aprons, a multiple of 4 so
 // that every row starts 16-byte aligned
 __host__ __device__ __forceinline__ int map_stride(int w, int pw) {
@@ -122,8 +142,9 @@ __host__ __device__ __forceinline__ int map_stride(int w, int pw) {
 }
 
 // V = 4: a work item is one float4 of a crop row (pw % 4 == 0, crops 16-byte
-// aligned); V = 1: one float.
-template <int V>
+// aligned); V = 1: one float. kBatched: the grid's second dimension runs
+// over frames.
+template <int V, bool kBatched>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
 scatter_strip_kernel(const float* __restrict__ crops,
                      const float* __restrict__ x_positions,
@@ -131,7 +152,8 @@ scatter_strip_kernel(const float* __restrict__ crops,
                      const unsigned char* __restrict__ valid,
                      int k, int ph, int pw, int w, float threshold,
                      float* __restrict__ depth,
-                     float* __restrict__ response) {
+                     float* __restrict__ response,
+                     long long map_frame_stride) {
   extern __shared__ int4 s_map4[];
   __shared__ int2 s_list[kChunk];     // (point, window start)
   __shared__ float s_depth[kDepths];  // rewritten depth of winner m
@@ -145,7 +167,9 @@ scatter_strip_kernel(const float* __restrict__ crops,
   for (int i = tid; i < kRows * stride / 4; i += kThreads)
     s_map4[i] = make_int4(0, 0, 0, 0);
   for (int m = tid; m < min(k, kDepths); m += kThreads)
-    s_depth[m] = (float)chain_walk(m, k, z_values, valid);
+    s_depth[m] = (float)chain_walk(m, k,
+                                   z_values + frame_offset<kBatched>(k),
+                                   valid + frame_offset<kBatched>(k));
 
   // work item j = (i * kRows + r) * nv + v is vector v of row r of listed
   // point i; thread tid takes items tid, tid + kThreads, ...
@@ -162,9 +186,10 @@ scatter_strip_kernel(const float* __restrict__ crops,
     __syncthreads();
     for (int i = tid; i < n; i += kThreads) {
       const int p = base + i;
-      const int s = window_start(__ldg(x_positions + p), pw, w);
+      const size_t q = frame_offset<kBatched>(k) + p;
+      const int s = window_start(__ldg(x_positions + q), pw, w);
       // pixel columns of the window: [s - pw, s)
-      if (__ldg(valid + p) && s > 0 && s < w + pw) {
+      if (__ldg(valid + q) && s > 0 && s < w + pw) {
         const int slot = atomicAdd(&s_count, 1);
         s_list[slot] = make_int2(p, s);
       }
@@ -189,7 +214,8 @@ scatter_strip_kernel(const float* __restrict__ crops,
         idx[u] = kMaxPoints - pt.x;
         on[u] = live && r < rows && col + V > pw && col < w + pw;
         const float* src =
-            on[u] ? crops + ((size_t)pt.x * ph + r0 + r) * pw + (size_t)v * V
+            on[u] ? crops + ((frame_offset<kBatched>(k) + pt.x) * ph + r0 +
+                             r) * pw + (size_t)v * V
                   : crops;
         if constexpr (V == 4) {
           const float4 f = __ldg(reinterpret_cast<const float4*>(src));
@@ -234,7 +260,8 @@ scatter_strip_kernel(const float* __restrict__ crops,
   // unpack, then the legacy rewrite from the table or by a chain walk
   for (int r = 0; r < rows; ++r) {
     const int* keys = s_map + r * stride + pw;
-    const size_t o = (size_t)(r0 + r) * w;
+    const size_t o =
+        frame_offset<kBatched>(map_frame_stride) + (size_t)(r0 + r) * w;
     for (int c = tid; c < w; c += kThreads) {
       const int best = keys[c];
       const float resp = (float)(best >> kIdxBits) / kQScale;
@@ -242,7 +269,10 @@ scatter_strip_kernel(const float* __restrict__ crops,
       if (resp > 0.0f) {
         const int m = min(kMaxPoints - (best & kMaxPoints), k);
         d = m < kDepths && m < k ? s_depth[m]
-                                 : (float)chain_walk(m, k, z_values, valid);
+                                 : (float)chain_walk(
+                                       m, k,
+                                       z_values + frame_offset<kBatched>(k),
+                                       valid + frame_offset<kBatched>(k));
       }
       response[o + c] = resp;
       depth[o + c] = d;
@@ -252,20 +282,26 @@ scatter_strip_kernel(const float* __restrict__ crops,
 
 }  // namespace
 
-// crops (k, ph, pw) f32; x_positions and z_values (k,) f32; valid (k,) bool
-// bytes; depth and response point at row 0 of (ph, w) f32 maps with row
-// stride w. Launches on `stream` and returns cudaGetLastError() of the
-// launch (or the error of raising the block's shared-memory limit, for a w
-// whose key map rows do not fit).
+// crops (b, k, ph, pw) f32; x_positions and z_values (b, k) f32; valid
+// (b, k) bool bytes; depth and response point at row 0 of frame 0's (ph, w)
+// f32 maps with row stride w, and frame f's rows start map_frame_stride
+// floats after frame f - 1's (one frame: b = 1). Launches on `stream` and
+// returns cudaGetLastError() of the launch (or the error of raising the
+// block's shared-memory limit, for a w whose key map rows do not fit).
 extern "C" int rcfd_scatter_quasi_dense(const void* crops,
                                         const void* x_positions,
                                         const void* z_values,
-                                        const void* valid, int k, int ph,
-                                        int pw, int w, float threshold,
-                                        void* depth, void* response,
+                                        const void* valid, int b, int k,
+                                        int ph, int pw, int w,
+                                        float threshold, void* depth,
+                                        void* response,
+                                        long long map_frame_stride,
                                         void* stream) {
   const bool vec = pw % 4 == 0 && reinterpret_cast<uintptr_t>(crops) % 16 == 0;
-  auto kernel = vec ? scatter_strip_kernel<4> : scatter_strip_kernel<1>;
+  auto kernel = b == 1 ? (vec ? scatter_strip_kernel<4, false>
+                               : scatter_strip_kernel<1, false>)
+                        : (vec ? scatter_strip_kernel<4, true>
+                               : scatter_strip_kernel<1, true>);
   const int smem = kRows * map_stride(w, pw) * (int)sizeof(int);
   if (smem + kStaticSmem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -275,12 +311,13 @@ extern "C" int rcfd_scatter_quasi_dense(const void* crops,
       return static_cast<int>(err);
     }
   }
-  const int grid = (ph + kRows - 1) / kRows;
+  const dim3 grid((ph + kRows - 1) / kRows, b);
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(crops),
       static_cast<const float*>(x_positions),
       static_cast<const float*>(z_values),
       static_cast<const unsigned char*>(valid), k, ph, pw, w, threshold,
-      static_cast<float*>(depth), static_cast<float*>(response));
+      static_cast<float*>(depth), static_cast<float*>(response),
+      map_frame_stride);
   return static_cast<int>(cudaGetLastError());
 }

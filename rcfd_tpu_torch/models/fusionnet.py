@@ -9,7 +9,12 @@ import torch
 from torch import nn
 
 from .. import default_device
+from ..utils.checkpoint import restore_module
 from .networks import FusionNetEncoder, MultiScaleDecoder
+
+# the reference .pth keys of the two halves (src/fusionnet_model.py:360-368)
+PTH_KEYS = {'encoder': 'encoder_state_dict',
+            'decoder': 'decoder_state_dict'}
 
 
 class FusionNetModel(nn.Module):
@@ -79,3 +84,11 @@ class FusionNetModel(nn.Module):
         out = self.forward(image.permute(0, 3, 1, 2),
                            input_depth.permute(0, 3, 1, 2))
         return out.permute(0, 2, 3, 1)
+
+    def restore_checkpoint(self, path: str, device=None) -> int:
+        """Load the weights of a reference ``.pth`` (keys
+        ``encoder_state_dict``, ``decoder_state_dict``) or a JAX ``.npz``
+        checkpoint with ``load_state_dict(strict=True)``, and move the
+        model to ``device`` (``cuda`` unless ``device='cpu'`` is given).
+        Returns the train step."""
+        return restore_module(self, path, PTH_KEYS, device)

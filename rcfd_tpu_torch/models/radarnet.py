@@ -10,7 +10,12 @@ from torch import nn
 
 from .. import default_device
 from ..nn.perf import PerfConfig
+from ..utils.checkpoint import restore_module
 from .networks import MultiScaleDecoder, RadarNetV1Encoder
+
+# the reference .pth keys of the two halves (src/radarnet_model.py:225-233)
+PTH_KEYS = {'encoder': 'radarnet_encoder_state_dict',
+            'decoder': 'radarnet_decoder_state_dict'}
 
 
 class RadarNetModel(nn.Module):
@@ -19,8 +24,9 @@ class RadarNetModel(nn.Module):
 
     Built on ``device`` (``cuda`` unless ``device='cpu'`` is given) and put
     in eval mode; weights come from ``init_parameters`` or
-    ``load_state_dict(state_dict_from_jax(...))``. ``perf`` (a PerfConfig)
-    turns on the deferred skip pools; it adds no parameter.
+    ``load_state_dict(state_dict_from_jax(...))`` or ``restore_checkpoint``.
+    ``perf`` (a PerfConfig) turns on the deferred skip pools and sets the
+    batched path's decode chunks; it adds no parameter.
     """
 
     def __init__(self, input_channels_image: int, input_channels_depth: int,
@@ -33,6 +39,7 @@ class RadarNetModel(nn.Module):
                  perf: PerfConfig = None):
         super().__init__()
         device = default_device(device)
+        self.perf = perf if perf is not None else PerfConfig()
         self.input_patch_size_image = tuple(input_patch_size_image)
         height, width = self.input_patch_size_image
         latent_size_depth = (height // 32) * (width // 32) * \
@@ -45,7 +52,7 @@ class RadarNetModel(nn.Module):
             input_patch_size_image, n_filters_encoder_image,
             n_neurons_encoder_depth, latent_size_depth, weight_initializer,
             activation_func, use_batch_norm='batch_norm' in encoder_type,
-            perf=perf)
+            perf=self.perf)
         if 'multiscale' not in decoder_type:
             raise ValueError('Decoder type {} not supported.'.format(
                 decoder_type))
@@ -65,7 +72,10 @@ class RadarNetModel(nn.Module):
         """NCHW forward. image (B, 3, H, W_pad); points (B*K, 3); x1 (B, K)
         left box edges in padded coordinates. Returns (B*K, 1, ph, pw)
         logits, or sigmoid responses when ``return_logits`` is False."""
-        latent, skips = self.encoder(image, points, x1, box_height)
+        return self._decode(*self.encoder(image, points, x1, box_height),
+                            return_logits)
+
+    def _decode(self, latent, skips, return_logits: bool):
         logits = self.decoder(latent, skips,
                               shape=self.input_patch_size_image)[-1]
         return logits if return_logits else torch.sigmoid(logits)
@@ -77,3 +87,51 @@ class RadarNetModel(nn.Module):
         out = self.forward(image.permute(0, 3, 1, 2), points, x1,
                            box_height, return_logits)
         return out.permute(0, 2, 3, 1)
+
+    def forward_chunked(self, image, points, x1, n_chunks: int,
+                        box_height=None, return_logits: bool = True):
+        """``forward`` with the per-point half (ROI pools, MLP, patch
+        decode) run in ``n_chunks`` sequential chunks along the point axis,
+        so that the peak memory of the patch pyramids falls by n_chunks.
+        image (B, 3, H, W_pad); points (B, K, 3); x1 (B, K); n_chunks must
+        divide K. Chunk c takes points c*K/n_chunks .. (c+1)*K/n_chunks - 1
+        of every frame. Returns (B, K, 1, ph, pw), equal to ``forward``'s
+        (B*K, 1, ph, pw) reshaped."""
+        b, k = points.shape[0], points.shape[1]
+        if n_chunks < 1 or k % n_chunks:
+            raise ValueError('n_chunks={} must divide K={}'.format(n_chunks,
+                                                                  k))
+        kc = k // n_chunks
+        if box_height is None:
+            box_height = image.shape[2]
+        encoded = self.encoder.encode_image(image)
+        outs = []
+        for c in range(n_chunks):
+            chunk = slice(c * kc, (c + 1) * kc)
+            latent, skips = self.encoder.fuse_points(
+                *encoded, points[:, chunk].reshape(-1, 3),
+                x1[:, chunk].contiguous(), box_height)
+            if c == n_chunks - 1:
+                # the last decode needs no full-frame map: free them first,
+                # so that one chunk peaks where ``forward`` does
+                del encoded
+            out = self._decode(latent, skips, return_logits)
+            outs.append(out.reshape(b, kc, *out.shape[1:]))
+        return outs[0] if n_chunks == 1 else torch.cat(outs, 1)
+
+    def apply_chunked(self, image, points, x1, n_chunks: int,
+                      box_height=None, return_logits: bool = True):
+        """The JAX package's ``RadarNetModel.apply_chunked`` contract in
+        NHWC: image (B, H, W_pad, 3), points (B, K, 3), x1 (B, K) ->
+        (B, K, ph, pw, 1)."""
+        out = self.forward_chunked(image.permute(0, 3, 1, 2), points, x1,
+                                   n_chunks, box_height, return_logits)
+        return out.permute(0, 1, 3, 4, 2)
+
+    def restore_checkpoint(self, path: str, device=None) -> int:
+        """Load the weights of a reference ``.pth`` (keys
+        ``radarnet_encoder_state_dict``, ``radarnet_decoder_state_dict``)
+        or a JAX ``.npz`` checkpoint with ``load_state_dict(strict=True)``,
+        and move the model to ``device`` (``cuda`` unless ``device='cpu'``
+        is given). Returns the train step."""
+        return restore_module(self, path, PTH_KEYS, device)

@@ -10,6 +10,10 @@ defaults:
                (ops/fused_skip.py). Taken when the pooled width is at most
                256.
   fused_pool4  The same for the 1/4-scale pool and ``deconv2``.
+  decode_chunks  Chunks of the per-point patch decode of the batched
+               serving path (``TwoStagePipeline.forward_batched``); None
+               chooses one chunk per 512 patches
+               (``pipeline.decode_chunk_count``).
 
 The port reads no environment variable. The TPU layout gates of the JAX
 package (fast_decoder, packed_*, s2d_*, int8_tail, fused_upsample) are not
@@ -22,9 +26,11 @@ the route on the CPU, chosen by the device of the tensors.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 
 @dataclass(frozen=True)
 class PerfConfig:
     fused_pool2: bool = False
     fused_pool4: bool = False
+    decode_chunks: Optional[int] = None

@@ -19,6 +19,9 @@ def legacy_rewrite(idx_map, response_map, z_values, valid, n_points: int):
     The rewrites cascade: a depth written as an integer equal to a later
     point's index is rewritten again by that point. Padding points are
     skipped, as the reference loops over the real points only.
+
+    For a batch of frames the maps are (B, ph, w) and z_values and valid
+    (B, K), a table per frame.
     """
     z_int = z_values.to(torch.int32)  # truncation toward zero
     valid = valid.to(torch.bool)
@@ -26,7 +29,8 @@ def legacy_rewrite(idx_map, response_map, z_values, valid, n_points: int):
                     torch.zeros((), dtype=torch.int32,
                                 device=idx_map.device))
     for p in range(n_points):
-        m = torch.where(valid[p] & (m == p), z_int[p], m)
+        m = torch.where(valid[..., p, None, None] & (m == p),
+                        z_int[..., p, None, None], m)
     return torch.where(response_map > 0, m.to(response_map.dtype),
                        torch.zeros((), dtype=response_map.dtype,
                                    device=response_map.device))

@@ -1,6 +1,7 @@
-"""Two-stage serving pipeline, one frame: RadarNet -> quasi-dense scatter
-kernel -> FusionNet (counterpart of rcfd_tpu/pipeline.py
-``TwoStagePipeline.__call__``).
+"""Two-stage serving pipeline: RadarNet -> quasi-dense scatter kernel ->
+FusionNet, one frame a call (``__call__``) or a batch of frames
+(``forward_batched``); counterpart of rcfd_tpu/pipeline.py
+``TwoStagePipeline``.
 
 The reference composes the stages through 16-bit PNGs: the bridge writes
 responses with save_response (x2^14) but FusionNet reads them back with
@@ -11,6 +12,7 @@ load_depth (x256), so the fused path scales the response by
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,11 +21,29 @@ import torch.nn.functional as F
 from . import default_device
 from .data import transport
 from .data.transforms import Transforms
+from .models import FusionNetModel, RadarNetModel
 from .nn.optimize import fold_batch_norm
 from .ops import scatter_cuda
 
 # load_depth(multiplier=256) applied to a save_response(x2^14) PNG
 RESPONSE_DECODE_SCALE = float(2 ** 14) / 256.0
+# patches the batched path decodes at once before it splits the decode into
+# chunks (rcfd_tpu/pipeline.py:263-268)
+PATCHES_PER_CHUNK = 512
+
+
+def decode_chunk_count(b: int, k: int, decode_chunks: Optional[int] = None
+                       ) -> int:
+    """Chunks of the per-point decode for b frames of k points:
+    ``decode_chunks`` when it is set, else one per 512 patches; then
+    lowered until it divides k."""
+    if decode_chunks is not None:
+        n_chunks = max(1, decode_chunks)
+    else:
+        n_chunks = max(1, (b * k) // PATCHES_PER_CHUNK)
+    while n_chunks > 1 and k % n_chunks != 0:
+        n_chunks -= 1
+    return n_chunks
 
 
 def codec_encode(dense, quasi, response):
@@ -62,7 +82,7 @@ def serving_numerics():
 
 
 class TwoStagePipeline:
-    """Camera frame + radar points -> dense depth, on ``device`` (``cuda``
+    """Camera frames + radar points -> dense depth, on ``device`` (``cuda``
     unless ``device='cpu'`` is given). The two models carry their weights;
     they are moved to the device and put in eval mode. ``optimize`` folds
     every batch norm into its convolution (nn.optimize.fold_batch_norm),
@@ -85,6 +105,7 @@ class TwoStagePipeline:
         self.quantize_bridge = quantize_bridge
         self.codec_encode = codec_encode
         self.scatter = scatter_cuda.scatter_quasi_dense
+        self.scatter_batched = scatter_cuda.scatter_quasi_dense_batched
 
     def _tensor(self, x):
         if isinstance(x, np.ndarray):
@@ -92,32 +113,47 @@ class TwoStagePipeline:
         return x.to(self.device)
 
     def radarnet_stage(self, image, points):
-        """Decode, normalize, edge-pad and run RadarNet. image (1, H, W, 3)
-        in [0, 255] (uint8 under integer transport); points (K, 3) as
-        (x, y, z). Returns (image_t (1, 3, H, W), crops (K, ph, pw),
-        xs (K,) padded x, zs (K,))."""
+        """Decode, normalize, edge-pad and run RadarNet on one frame.
+        image (1, H, W, 3) in [0, 255] (uint8 under integer transport);
+        points (K, 3) as (x, y, z). Returns (image_t (1, 3, H, W), crops
+        (K, ph, pw), xs (K,) padded x, zs (K,))."""
+        image_t, crops, xs, zs = self.radarnet_stage_batched(
+            image, self._tensor(points)[None])
+        return image_t, crops[0], xs[0], zs[0]
+
+    def radarnet_stage_batched(self, images, points, n_chunks: int = 1):
+        """``radarnet_stage`` over B frames: images (B, H, W, 3), points
+        (B, K, 3). RadarNet decodes the B*K patches in ``n_chunks`` chunks
+        of K / n_chunks points of every frame (at once for one). Returns
+        (image_t (B, 3, H, W), crops (B, K, ph, pw), xs (B, K), zs (B, K))."""
         pad = self.radarnet.input_patch_size_image[1] // 2
-        image = transport.decode(self._tensor(image))
-        image_t = self.transforms.transform(image).permute(0, 3, 1, 2)
+        images = transport.decode(self._tensor(images))
+        image_t = self.transforms.transform(images).permute(0, 3, 1, 2)
         image_pad = F.pad(image_t, (pad, pad, 0, 0), mode='replicate')
         points = self._tensor(points).float()
-        xs = points[:, 0] + pad
-        points_shifted = torch.stack([xs, points[:, 1], points[:, 2]], 1)
-        x1 = (xs - pad)[None, :]
-        responses = self.radarnet(image_pad, points_shifted, x1,
-                                  box_height=self.image_height,
-                                  return_logits=False)
-        return image_t, responses[:, 0], xs, points[:, 2].contiguous()
+        xs = points[..., 0] + pad
+        points_shifted = torch.stack([xs, points[..., 1], points[..., 2]],
+                                     -1)
+        responses = self.radarnet.forward_chunked(
+            image_pad, points_shifted, xs - pad, n_chunks,
+            box_height=self.image_height, return_logits=False)
+        return image_t, responses.squeeze(2), xs, points[..., 2].contiguous()
 
     def bridge(self, depth_map, response_map):
         """The codec bridge: optional PNG quantization, then FusionNet's
-        (1, 2, H, W) input with the response scaled by 64."""
+        (B, 2, H, W) input with the response scaled by 64, from (H, W) maps
+        (B = 1) or (B, H, W) ones."""
         if self.quantize_bridge:
             depth_map, response_map = quantize_bridge(depth_map,
                                                       response_map)
         input_depth = torch.stack(
-            [depth_map, response_map * RESPONSE_DECODE_SCALE])[None]
+            [depth_map, response_map * RESPONSE_DECODE_SCALE], -3)
+        input_depth = input_depth.reshape(-1, *input_depth.shape[-3:])
         return depth_map, response_map, input_depth
+
+    def _outputs(self, dense, depth_map, response_map):
+        outs = (dense.float(), depth_map, response_map)
+        return codec_encode(*outs) if self.codec_encode else outs
 
     @torch.inference_mode()
     def __call__(self, image, points, valid):
@@ -135,5 +171,73 @@ class TwoStagePipeline:
         depth_map, response_map, input_depth = self.bridge(depth_map,
                                                            response_map)
         dense = self.fusionnet(image_t, input_depth)[0, 0]
-        outs = (dense.float(), depth_map, response_map)
-        return codec_encode(*outs) if self.codec_encode else outs
+        return self._outputs(dense, depth_map, response_map)
+
+    @torch.inference_mode()
+    def forward_batched(self, images, points, valid):
+        """The batched serving path (fps = B / t). images (B, H, W, 3) in
+        [0, 255]; points (B, K, 3); valid (B, K). RadarNet's patch decode
+        runs in ``decode_chunk_count(B, K, radarnet.perf.decode_chunks)``
+        chunks; the scatter kernel runs once over the B frames. Returns
+        (dense, quasi, response), each (B, H, W); frame b equals
+        ``__call__`` of frame b."""
+        with serving_numerics():
+            points = self._tensor(points)
+            b, k = points.shape[0], points.shape[1]
+            n_chunks = decode_chunk_count(b, k,
+                                          self.radarnet.perf.decode_chunks)
+            image_t, crops, xs, zs = self.radarnet_stage_batched(
+                images, points, n_chunks)
+            depth_map, response_map = self.scatter_batched(
+                crops, xs, zs, self._tensor(valid).to(torch.bool),
+                image_height=self.image_height,
+                image_width=self.image_width,
+                patch_size=self.radarnet.input_patch_size_image)
+            depth_map, response_map, input_depth = self.bridge(
+                depth_map, response_map)
+            dense = self.fusionnet(image_t, input_depth)[:, 0]
+            return self._outputs(dense, depth_map, response_map)
+
+    @classmethod
+    def from_checkpoints(cls, radarnet_restore_path: str,
+                         fusionnet_restore_path: str,
+                         image_height: int = 900, image_width: int = 1600,
+                         patch_size=(900, 288),
+                         radarnet_kwargs: Optional[dict] = None,
+                         fusionnet_kwargs: Optional[dict] = None,
+                         device=None, **kwargs):
+        """Build from the reference's canonical configurations (those of
+        rcfd_tpu/pipeline.py ``from_checkpoints``), updated by
+        ``radarnet_kwargs`` / ``fusionnet_kwargs``, and two checkpoint
+        files (reference ``.pth`` or JAX ``.npz``), on ``device``. Other
+        keyword arguments go to the constructor."""
+        device = default_device(device)
+        rn_kwargs = dict(
+            input_channels_image=3,
+            input_channels_depth=3,
+            input_patch_size_image=tuple(patch_size),
+            encoder_type='radarnetv1_batch_norm',
+            n_filters_encoder_image=[32, 64, 128, 128, 128],
+            n_neurons_encoder_depth=[32, 64, 128, 128, 128],
+            decoder_type='multiscale_batch_norm',
+            n_filters_decoder=[256, 128, 64, 32, 16])
+        rn_kwargs.update(radarnet_kwargs or {})
+        fn_kwargs = dict(
+            input_channels_image=3,
+            input_channels_depth=2,
+            encoder_type='fusionnet18_batch_norm',
+            n_filters_encoder_image=[32, 64, 128, 256, 256, 256],
+            n_filters_encoder_depth=[16, 32, 64, 128, 128, 128],
+            fusion_type='weight_and_project',
+            decoder_type='multiscale_batch_norm',
+            n_resolution_decoder=1,
+            n_filters_decoder=[256, 256, 128, 64, 64, 32],
+            min_predict_depth=1.0,
+            max_predict_depth=100.0)
+        fn_kwargs.update(fusionnet_kwargs or {})
+        radarnet = RadarNetModel(**rn_kwargs, device=device)
+        fusionnet = FusionNetModel(**fn_kwargs, device=device)
+        radarnet.restore_checkpoint(radarnet_restore_path, device=device)
+        fusionnet.restore_checkpoint(fusionnet_restore_path, device=device)
+        return cls(radarnet, fusionnet, image_height, image_width,
+                   device=device, **kwargs)

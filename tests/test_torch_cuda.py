@@ -5,18 +5,24 @@ no JAX, so they run on a machine without it:
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 """
 
+import copy
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip('torch')
 
 from rcfd_tpu_torch import pipeline  # noqa: E402
+from rcfd_tpu_torch.models import FusionNetModel, RadarNetModel  # noqa: E402
+from rcfd_tpu_torch.nn import PerfConfig, init_parameters  # noqa: E402
 from rcfd_tpu_torch.ops import crop_cuda as cc  # noqa: E402
 from rcfd_tpu_torch.ops import fused_skip as fs  # noqa: E402
 from rcfd_tpu_torch.ops import fused_skip_variants as fv  # noqa: E402
 from rcfd_tpu_torch.ops import scatter_cuda as sc  # noqa: E402
 
-from torch_parity import SCATTER_CASES, scatter_case  # noqa: E402
+from torch_parity import (FUSIONNET_TINY, H, RADARNET_TINY,  # noqa: E402
+                          RADARNET_WIDE, SCATTER_CASES, W, frame_and_points,
+                          scatter_case)
 
 
 @pytest.fixture
@@ -260,3 +266,143 @@ def test_codec_encode_on_card(cuda_device, rng):
         np.testing.assert_array_equal(codes, r.numpy().astype(np.int64))
         np.testing.assert_array_equal(
             codes, np.floor(x.astype(np.float64) * m).astype(np.int64))
+
+
+def _batched_scatter_inputs(rng, device, b, k, pw, offset, ph=23, w=640):
+    """Inputs of the batched scatter: B frames of K points with windows at
+    and beyond both aprons, a pair of points inside one 2^-14 step in one
+    window, values of exactly 0.5, integer depths that cascade through the
+    legacy rewrite, random padding, and (B > 1) a last frame with no valid
+    point. The crops start ``offset`` floats past an allocation, so offset
+    1 is not 16-byte aligned (the scalar branch)."""
+    crops = rng.random((b, k, ph, pw), dtype=np.float32)
+    x = rng.integers(-pw - 40, w + pw + 40, (b, k)).astype(np.float32)
+    x[:, 0] = rng.integers(0, w, b)  # point 0 lands in the frame
+    z = (rng.random((b, k), dtype=np.float32) * 79 + 1).astype(np.float32)
+    if k > 1:
+        x[:, 1] = x[:, 0]
+        crops[:, 1] = np.nextafter(crops[:, 0], np.float32(1))
+        z[:, 0] = 1.0  # point 0's depth is point 1's index
+    crops[:, 0, :, :pw // 2] = 0.5
+    valid = rng.random((b, k)) > 0.1
+    valid[:, 0] = True
+    if b > 1:
+        valid[-1] = False
+    flat = torch.empty(b * k * ph * pw + offset, device=device)
+    crops_t = flat[offset:].view(b, k, ph, pw)
+    crops_t.copy_(torch.from_numpy(crops))
+    return (crops_t,) + tuple(torch.from_numpy(a).to(device)
+                              for a in (x + pw // 2, z, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('pw', [288, 30])
+@pytest.mark.parametrize('k', [1, 64])
+@pytest.mark.parametrize('b', [1, 3, 16])
+def test_batched_scatter_matches_plain_on_card(cuda_device, rng, b, k, pw,
+                                               offset):
+    """One launch over B frames against the batched plain version and
+    against the single-frame kernel frame by frame, bit for bit."""
+    args = _batched_scatter_inputs(rng, cuda_device, b, k, pw, offset)
+    h, w, patch = 27, 640, tuple(args[0].shape[2:])
+    before = sc.scatter_quasi_dense.launches
+    d, r = sc.scatter_quasi_dense_batched(*args, h, w, patch)
+    d_p, r_p = sc.scatter_quasi_dense_batched_plain(*args, h, w, patch)
+    torch.cuda.synchronize()
+    assert sc.scatter_quasi_dense.launches == before + 1
+    assert tuple(d.shape) == (b, h, w)
+    assert torch.equal(d, d_p) and torch.equal(r, r_p)
+    for f in range(b):
+        d_f, r_f = sc.scatter_quasi_dense(
+            *[t[f].contiguous() for t in args], h, w, patch)
+        assert torch.equal(d[f], d_f) and torch.equal(r[f], r_f)
+    assert bool((r[0] > 0).any())
+    if b > 1:
+        assert not bool((r[-1] > 0).any())
+
+
+@pytest.mark.cuda
+def test_batched_scatter_wrapper_refuses_bad_cuda_tensors(cuda_device,
+                                                          rng):
+    c, xs, zs, v = _batched_scatter_inputs(rng, cuda_device, 3, 8, 16, 0)
+    h, w, patch = 27, 640, tuple(c.shape[2:])
+    with pytest.raises(NotImplementedError):
+        sc.scatter_quasi_dense_batched(c.to(torch.bfloat16), xs, zs, v, h,
+                                       w, patch)
+    with pytest.raises(ValueError, match='contiguous'):
+        sc.scatter_quasi_dense_batched(
+            c.transpose(2, 3).contiguous().transpose(2, 3), xs, zs, v, h, w,
+            patch)
+    with pytest.raises(ValueError, match='contiguous'):
+        sc.scatter_quasi_dense_batched(c, xs.t().contiguous().t(), zs, v,
+                                       h, w, patch)
+    with pytest.raises(ValueError, match='must be'):
+        sc.scatter_quasi_dense_batched(c, xs[:, :7].contiguous(), zs, v,
+                                       h, w, patch)
+    with pytest.raises(ValueError, match='must be'):
+        sc.scatter_quasi_dense_batched(c[:2], xs, zs, v, h, w, patch)
+    with pytest.raises(ValueError):
+        sc.scatter_quasi_dense_batched(c, xs.cpu(), zs, v, h, w, patch)
+
+
+# tiny batched pipelines on the card: (RadarNet config, perf, kernel,
+# launches of that kernel a chunk)
+BATCHED_PATHS = {
+    'fused': (RADARNET_TINY, PerfConfig(fused_pool2=True, fused_pool4=True,
+                                        decode_chunks=2),
+              fs.fused_skip_gather_add, 2),
+    # patch 64x40: the 1/16 and 1/32 pools are variable-bin
+    'wide': (RADARNET_WIDE, PerfConfig(decode_chunks=2),
+             cc.batch_column_crop, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('path', sorted(BATCHED_PATHS))
+def test_batched_pipeline_on_card_matches_cpu(cuda_device, path):
+    """forward_batched of a tiny fused or wide pipeline in two decode
+    chunks on the card: its kernels launched as the chunks need and the
+    scatter once; the card's crops within 1e-4 of the CPU's, the scatter
+    of the CPU's crops equal on both, and FusionNet's depth from the same
+    input within 1e-3 m."""
+    radarnet_kw, perf, wrapper, per_chunk = BATCHED_PATHS[path]
+    gen = torch.Generator().manual_seed(5)
+    rn = RadarNetModel(**radarnet_kw, device='cpu', perf=perf)
+    fn = FusionNetModel(**FUSIONNET_TINY, device='cpu')
+    init_parameters(rn, gen)
+    init_parameters(fn, gen)
+    cpu = pipeline.TwoStagePipeline(rn, fn, H, W, device='cpu')
+    card = pipeline.TwoStagePipeline(copy.deepcopy(rn), copy.deepcopy(fn),
+                                     H, W, device=cuda_device)
+    rng = np.random.default_rng(6)
+    frames = [frame_and_points(rng, k=8, n_invalid=i) for i in (2, 5)]
+    images = np.concatenate([f[0] for f in frames])
+    points = np.stack([f[1] for f in frames])
+    valid = np.stack([f[2] for f in frames])
+    before = wrapper.launches, sc.scatter_quasi_dense.launches
+    dense_g, quasi_g, resp_g = card.forward_batched(images, points, valid)
+    torch.cuda.synchronize()
+    assert (wrapper.launches - before[0],
+            sc.scatter_quasi_dense.launches - before[1]) == \
+        (2 * per_chunk, 1)
+    assert tuple(dense_g.shape) == (2, H, W)
+    assert bool(torch.isfinite(dense_g).all())
+    with torch.inference_mode(), pipeline.serving_numerics():
+        image_c, crops_c, xs, zs = cpu.radarnet_stage_batched(images, points,
+                                                              2)
+        crops_g = card.radarnet_stage_batched(images, points, 2)[1]
+        assert float((crops_g.cpu() - crops_c).abs().max()) <= 1e-4
+        v = torch.from_numpy(valid)
+        patch = rn.input_patch_size_image
+        maps_c = sc.scatter_quasi_dense_batched(crops_c, xs, zs, v, H, W,
+                                                patch)
+        maps_g = sc.scatter_quasi_dense_batched(
+            crops_c.to(cuda_device), xs.to(cuda_device), zs.to(cuda_device),
+            v.to(cuda_device), H, W, patch)
+        assert all(torch.equal(g.cpu(), c) for g, c in zip(maps_g, maps_c))
+        _, _, input_depth = cpu.bridge(*maps_c)
+        dense_c = cpu.fusionnet(image_c, input_depth)
+        dense_g = card.fusionnet(image_c.to(cuda_device),
+                                 input_depth.to(cuda_device))
+        assert float((dense_g.cpu() - dense_c).abs().max()) <= 1e-3

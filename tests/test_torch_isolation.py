@@ -51,9 +51,9 @@ def test_source_imports_nothing_forbidden(path):
 
 
 def test_import_and_build_pipeline_without_jax():
-    """A fresh interpreter imports every module of the port and builds the
-    pipeline on the CPU; no JAX, rcfd_tpu, Pillow or torchvision module is
-    loaded."""
+    """A fresh interpreter imports every module of the port, builds the
+    pipeline on the CPU, serves a batch and restores a pipeline from .pth
+    files; no JAX, rcfd_tpu, Pillow or torchvision module is loaded."""
     code = r'''
 import importlib, pkgutil, sys
 import rcfd_tpu_torch
@@ -70,6 +70,29 @@ fn = FusionNetModel(3, 2, 'fusionnet18_batch_norm', [4, 8, 8, 8, 8, 8],
                     device='cpu')
 TwoStagePipeline(rn, fn, 64, 96, device='cpu')
 TwoStagePipeline(rn, fn, 64, 96, optimize=True, device='cpu')
+# the batched path and the checkpoint restore load nothing forbidden either
+import os, tempfile, numpy as np, torch
+pipe = TwoStagePipeline(rn, fn, 64, 96, device='cpu')
+points = np.zeros((2, 4, 3), np.float32)
+points[..., 0], points[..., 2] = 40, 9
+pipe.forward_batched(np.zeros((2, 64, 96, 3), np.uint8), points,
+                     np.ones((2, 4), bool))
+paths = []
+for model, keys in ((rn, ('radarnet_encoder_state_dict',
+                          'radarnet_decoder_state_dict')),
+                    (fn, ('encoder_state_dict', 'decoder_state_dict'))):
+    paths.append(os.path.join(tempfile.mkdtemp(), 'model.pth'))
+    torch.save({key: getattr(model, part).state_dict() for key, part in
+                zip(keys, ('encoder', 'decoder'))}, paths[-1])
+TwoStagePipeline.from_checkpoints(
+    *paths, image_height=64, image_width=96, patch_size=(32, 32),
+    radarnet_kwargs=dict(n_filters_encoder_image=[4, 8, 8, 8, 8],
+                         n_neurons_encoder_depth=[4, 8, 8, 8, 8],
+                         n_filters_decoder=[8, 8, 8, 8, 8]),
+    fusionnet_kwargs=dict(n_filters_encoder_image=[4, 8, 8, 8, 8, 8],
+                          n_filters_encoder_depth=[4, 4, 8, 8, 8, 8],
+                          n_filters_decoder=[8, 8, 8, 8, 8, 8]),
+    device='cpu')
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'rcfd_tpu', 'PIL',
                                     'torchvision'))
