@@ -11,7 +11,8 @@ Phases, each printed as it starts and ends:
              at the shapes of the serving paths, bit for bit, and time the
              kernel, the plain version and the nearest one-call PyTorch
              operator; the scatter also over a batch of 16 frames in one
-             launch, beside 16 single-frame launches
+             launch, beside 16 single-frame launches; then the same for the
+             bf16 instances of the three serving kernels (bf16 serving)
   variants   the fused skip gather-add's variants (K3 and four that split
              its time: rcfd_tpu_torch.tools.fusepall_exp) at deconv1's and
              deconv2's shapes, in float32 and bf16, each against its plain
@@ -19,7 +20,7 @@ Phases, each printed as it starts and ends:
   reference  small configurations on the card against the same port on
              the CPU, stage by stage (the canonical one, one with RadarNet's
              deferred skip pools, one at a patch width that is not a
-             multiple of 32)
+             multiple of 32), in float32 and in bf16
   slice      the two-stage serving path at full width (RadarNet at its
              900x288 patch, FusionNet at the benchmark config, 900x1600
              frames, 64 radar points) with seeded random weights, serving a
@@ -46,6 +47,13 @@ Phases, each printed as it starts and ends:
              requests; then FusionNet alone at the benchmark config with
              batch norm folded, float32, at b = 1, 8 and 32, from integer
              transport inputs
+  bf16       TwoStagePipeline(compute_dtype=torch.bfloat16) on the same
+             weights: the slice, fused and wide paths (only the kernels'
+             bf16 instances launched), each held to the kernels' plain
+             versions and its deviation from the float32 path of the same
+             requests printed; forward_batched at B = 8 and, folded, at
+             B = 16, each frame against __call__; paired rounds of bf16
+             against float32 slice requests; FusionNet alone in bf16
 
 Each path phase (and each configuration of the batched phase) sets every
 kernel's launch count to 0 before its counted requests, reads them after,
@@ -63,7 +71,8 @@ It imports torch, numpy and rcfd_tpu_torch only.
 
 The models run under the pipeline's own numerics
 (rcfd_tpu_torch.pipeline.serving_numerics: float32 with TF32 off, cuDNN
-algorithms autotuned among deterministic ones), as a caller gets them;
+algorithms autotuned among deterministic ones; bf16 where the bf16 phase
+asks for it with compute_dtype), as a caller gets them;
 the script sets no backend flag of its own. With --profile each path
 phase also traces one request with torch.profiler and prints the device
 time by kernel.
@@ -71,6 +80,7 @@ time by kernel.
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -188,46 +198,56 @@ def scatter_inputs(rng, device, patch=PATCH):
     return t(crops), t(x + pad), t(z), t(valid)
 
 
-def scatter_bound_bytes(x_start, valid, ph, pw, w):
+def scatter_bound_bytes(x_start, valid, ph, pw, w, crop_bytes=4):
     """Bytes the scatter must move for these inputs: the crop elements that
-    land in the frame for the valid points (read once), the three (K,)
-    int32 tables, and the two (ph, w) float32 maps (written once)."""
+    land in the frame for the valid points (read once, ``crop_bytes``
+    each), the three (K,) int32 tables, and the two (ph, w) float32 maps
+    (written once)."""
     lo = np.maximum(x_start - pw, 0)
     hi = np.minimum(x_start, w)
     cols = np.where(valid > 0, np.maximum(hi - lo, 0), 0)
-    return 4 * ph * int(cols.sum()) + 3 * 4 * len(x_start) + 2 * 4 * ph * w
+    return crop_bytes * ph * int(cols.sum()) + 3 * 4 * len(x_start) + \
+        2 * 4 * ph * w
 
 
-def scatter_kernel_check(device, patch):
-    """The scatter kernel against its plain version at ``patch``, bit for
-    bit: (args, max abs err)."""
+def dtype_label(dtype):
+    """'' for float32, ' bf16' for bf16: the suffix of a kernel instance's
+    name in the kernels line."""
+    return ' bf16' if dtype == torch.bfloat16 else ''
+
+
+def scatter_kernel_check(device, patch, dtype=torch.float32):
+    """The scatter kernel's instance for crops of ``dtype`` against its
+    plain version at ``patch``, bit for bit: (args, max abs err)."""
     from rcfd_tpu_torch.ops import scatter_cuda as sc
 
     crops, xs, zs, valid = scatter_inputs(np.random.default_rng(SEED),
                                           device, patch)
-    args = (crops, xs, zs, valid, H, W, patch)
+    args = (crops.to(dtype), xs, zs, valid, H, W, patch)
     d_k, r_k = sc.scatter_quasi_dense(*args)
     d_p, r_p = sc.scatter_quasi_dense_plain(*args)
     torch.cuda.synchronize()
     err = max(float((d_k - d_p).abs().max()), float((r_k - r_p).abs().max()))
+    label = 'scatter{}'.format(dtype_label(dtype))
     check(torch.equal(d_k, d_p) and torch.equal(r_k, r_p),
-          'scatter kernel differs from its plain version at patch {}: max '
-          'abs err {}'.format(patch, err))
+          '{} kernel differs from its plain version at patch {}: max abs '
+          'err {}'.format(label, patch, err))
     check(int((r_k > 0).sum()) > 0, 'scatter produced an empty map')
-    log('scatter kernel == plain version at patch {}x{}, bit for bit '
-        '(tolerance 0); {} covered pixels'.format(patch[0], patch[1],
-                                                  int((r_k > 0).sum())))
+    log('{} kernel == plain version at patch {}x{}, bit for bit (tolerance '
+        '0); {} covered pixels'.format(label, patch[0], patch[1],
+                                       int((r_k > 0).sum())))
     return args, err
 
 
-def scatter_times(device, patch):
-    """The scatter kernel at ``patch``, checked against its plain version,
-    then timed: (max abs err, kernel ms (median of 20), plain ms (of 5),
-    scatter_reduce_ ms (of 20), bound ms, bytes)."""
+def scatter_times(device, patch, dtype=torch.float32):
+    """The scatter kernel's instance for ``dtype`` crops at ``patch``,
+    checked against its plain version, then timed: (max abs err, kernel ms
+    (median of 20), plain ms (of 5), scatter_reduce_ ms (of 20), bound ms,
+    bytes)."""
     from rcfd_tpu_torch.ops import scatter_cuda as sc
 
     ph, pw = patch
-    args, err = scatter_kernel_check(device, patch)
+    args, err = scatter_kernel_check(device, patch, dtype)
     crops, xs, zs, valid = args[:4]
     ms = device_ms(lambda: sc.scatter_quasi_dense(*args), 20)
     plain_ms = device_ms(lambda: sc.scatter_quasi_dense_plain(*args), 5, 1)
@@ -241,42 +261,46 @@ def scatter_times(device, patch):
     library_ms = device_ms(
         lambda: packed.scatter_reduce_(1, cols, keys, 'amax'), 20)
     nbytes = scatter_bound_bytes(x_start.cpu().numpy(), valid_i.cpu().numpy(),
-                                 ph, pw, W)
+                                 ph, pw, W, crops.element_size())
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log('scatter at K={} crops {}x{} w={}, device time: kernel {:.4f} ms '
+    log('scatter{} at K={} crops {}x{} w={}, device time: kernel {:.4f} ms '
         '(median of 20), plain {:.4f} ms, scatter_reduce_ {:.4f} ms, bound '
         '{:.4f} ms ({} bytes at {:.3g} B/s), {:.1f}% of the bound'.format(
-            K, ph, pw, W, ms, plain_ms, library_ms, bound_ms, nbytes,
-            HBM_BYTES_PER_S, 100 * bound_ms / ms))
+            dtype_label(dtype), K, ph, pw, W, ms, plain_ms, library_ms,
+            bound_ms, nbytes, HBM_BYTES_PER_S, 100 * bound_ms / ms))
     return err, ms, plain_ms, library_ms, bound_ms, nbytes
 
 
-def phase_kernel_scatter(device, record):
-    err, ms, plain_ms, library_ms, bound_ms, nbytes = scatter_times(device,
-                                                                    PATCH)
+def phase_kernel_scatter(device, record, dtype=torch.float32):
+    err, ms, plain_ms, library_ms, bound_ms, nbytes = scatter_times(
+        device, PATCH, dtype)
     # the variable-bin path serves 300-wide crops
-    scatter_times(device, WIDE_PATCH)
-    record['scatter_quasi_dense'] = dict(
-        name='scatter_quasi_dense', route='cuda',
+    wide = scatter_times(device, WIDE_PATCH, dtype)
+    name = 'scatter_quasi_dense' + dtype_label(dtype)
+    record[name] = dict(
+        name=name, route='cuda',
         source='rcfd_tpu_torch/csrc/scatter_quasi_dense.cu',
         replaces='rcfd_tpu/ops/scatter_pallas.py:42',
-        launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by='bytes', library_ms=library_ms,
-        batched=scatter_batched_times(device, nbytes))
+        launches=None, max_abs_err=max(err, wide[0]), ms=ms,
+        plain_ms=plain_ms, bound_ms=bound_ms, bound_by='bytes',
+        library_ms=library_ms,
+        wide=dict(zip(('max_abs_err', 'ms', 'plain_ms', 'library_ms',
+                       'bound_ms', 'bytes'), wide)),
+        batched=scatter_batched_times(device, nbytes, dtype))
 
 
 BATCH_K1 = 16
 
 
-def scatter_batched_times(device, single_bytes):
-    """The scatter over BATCH_K1 frames at PATCH in one launch: frame 0 the
-    single-frame timing's inputs, frames 1 .. B-2 scatter_inputs' hard
-    cases from other seeds, the last frame the hard cases with every point
-    invalid. Held against its batched plain version and against the
-    single-frame kernel frame by frame, bit for bit, then timed (median of
-    20) beside B single-frame launches, the batched plain version, one
-    batched scatter_reduce_ on precomputed keys and the bound of this
-    data's bytes."""
+def scatter_batched_times(device, single_bytes, dtype=torch.float32):
+    """The scatter over BATCH_K1 frames at PATCH in one launch, crops of
+    ``dtype``: frame 0 the single-frame timing's inputs, frames 1 .. B-2
+    scatter_inputs' hard cases from other seeds, the last frame the hard
+    cases with every point invalid. Held against its batched plain version
+    and against the single-frame kernel frame by frame, bit for bit, then
+    timed (median of 20) beside B single-frame launches, the batched plain
+    version, one batched scatter_reduce_ on precomputed keys and the bound
+    of this data's bytes."""
     from rcfd_tpu_torch.ops import scatter_cuda as sc
 
     ph, pw = PATCH
@@ -285,30 +309,32 @@ def scatter_batched_times(device, single_bytes):
     frames[-1] = frames[-1][:3] + (torch.zeros_like(frames[-1][3]),)
     crops, xs, zs, valid = [torch.stack([f[i] for f in frames])
                             for i in range(4)]
+    crops = crops.to(dtype)
     del frames
     args = (crops, xs, zs, valid, H, W, PATCH)
     d_k, r_k = sc.scatter_quasi_dense_batched(*args)
     d_p, r_p = sc.scatter_quasi_dense_batched_plain(*args)
     torch.cuda.synchronize()
     err = max(float((d_k - d_p).abs().max()), float((r_k - r_p).abs().max()))
+    label = 'batched scatter{}'.format(dtype_label(dtype))
     check(torch.equal(d_k, d_p) and torch.equal(r_k, r_p),
-          'batched scatter kernel differs from its plain version: max abs '
-          'err {}'.format(err))
+          '{} kernel differs from its plain version: max abs err {}'.format(
+              label, err))
     del d_p, r_p
     singles = [(crops[f], xs[f], zs[f], valid[f], H, W, PATCH)
                for f in range(BATCH_K1)]
     for f, single in enumerate(singles):
         d_f, r_f = sc.scatter_quasi_dense(*single)
         check(torch.equal(d_k[f], d_f) and torch.equal(r_k[f], r_f),
-              'batched scatter frame {} differs from the single-frame '
-              'kernel'.format(f))
+              '{} frame {} differs from the single-frame kernel'.format(
+                  label, f))
     check(int((r_k[-1] > 0).sum()) == 0 and int((r_k[0] > 0).sum()) > 0,
-          'batched scatter: the all-invalid frame is not empty, or frame 0 '
-          'is')
-    log('batched scatter at B={} K={} crops {}x{} w={}: kernel == batched '
-        'plain version, bit for bit (tolerance 0), and == the single-frame '
-        'kernel in every frame; frame {} has no valid point'.format(
-            BATCH_K1, K, ph, pw, W, BATCH_K1 - 1))
+          '{}: the all-invalid frame is not empty, or frame 0 is'.format(
+              label))
+    log('{} at B={} K={} crops {}x{} w={}: kernel == batched plain version, '
+        'bit for bit (tolerance 0), and == the single-frame kernel in every '
+        'frame; frame {} has no valid point'.format(
+            label, BATCH_K1, K, ph, pw, W, BATCH_K1 - 1))
     del d_k, r_k
     ms = device_ms(lambda: sc.scatter_quasi_dense_batched(*args), 20)
     singles_ms = device_ms(
@@ -326,18 +352,19 @@ def scatter_batched_times(device, single_bytes):
         lambda: packed.scatter_reduce_(2, cols, keys, 'amax'), 20)
     del keys, cols, packed
     x_start, valid_i = x_start.cpu().numpy(), valid_i.cpu().numpy()
-    nbytes = sum(scatter_bound_bytes(x_start[f], valid_i[f], ph, pw, W)
+    nbytes = sum(scatter_bound_bytes(x_start[f], valid_i[f], ph, pw, W,
+                                     crops.element_size())
                  for f in range(BATCH_K1))
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     all_valid_ms = BATCH_K1 * single_bytes / HBM_BYTES_PER_S * 1e3
-    log('batched scatter at B={} K={} crops {}x{} w={}, device time: one '
-        'launch {:.4f} ms (median of 20), {} single-frame launches {:.4f} '
-        'ms, batched plain {:.4f} ms, batched scatter_reduce_ {:.4f} ms; '
-        'bound {:.4f} ms ({} bytes of this data at {:.3g} B/s; {:.4f} ms '
-        'for {} frames of the single-frame bytes), {:.1f}% of the bound'
-        .format(BATCH_K1, K, ph, pw, W, ms, BATCH_K1, singles_ms, plain_ms,
-                library_ms, bound_ms, nbytes, HBM_BYTES_PER_S, all_valid_ms,
-                BATCH_K1, 100 * bound_ms / ms))
+    log('{} at B={} K={} crops {}x{} w={}, device time: one launch {:.4f} '
+        'ms (median of 20), {} single-frame launches {:.4f} ms, batched '
+        'plain {:.4f} ms, batched scatter_reduce_ {:.4f} ms; bound {:.4f} '
+        'ms ({} bytes of this data at {:.3g} B/s; {:.4f} ms for {} frames '
+        'of the single-frame bytes), {:.1f}% of the bound'.format(
+            label, BATCH_K1, K, ph, pw, W, ms, BATCH_K1, singles_ms,
+            plain_ms, library_ms, bound_ms, nbytes, HBM_BYTES_PER_S,
+            all_valid_ms, BATCH_K1, 100 * bound_ms / ms))
     return dict(frames=BATCH_K1, max_abs_err=err, ms=ms,
                 single_frame_launches_ms=singles_ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bytes=nbytes)
@@ -380,76 +407,84 @@ def fused_skip_shapes(rn, device):
     return out
 
 
-def phase_kernel_fused_skip(device, record, rn):
-    """The fused skip gather-add at deconv1's and deconv2's shapes of the
+def phase_kernel_fused_skip(device, record, rn, dtype=torch.float32):
+    """The fused skip gather-add's instance for ``dtype`` (a and cg; the
+    corrections are float32) at deconv1's and deconv2's shapes of the
     900x288 patch (64 windows of one frame), against its plain version."""
     from rcfd_tpu_torch.ops import fused_skip as fs
 
     rng = np.random.default_rng(SEED + 2)
-    t = lambda a: torch.from_numpy(a).to(device)
+    t = lambda a, d=dtype: torch.from_numpy(a).to(device, d)  # noqa: E731
+    label = 'fused skip{}'.format(dtype_label(dtype))
     parts = []
     for block, co, ph, pw, wg in fused_skip_shapes(rn, device):
         a = t(rng.standard_normal((K, co, ph, pw), dtype=np.float32))
         cg = t(rng.standard_normal((1, co, ph, wg), dtype=np.float32))
         starts = rng.integers(0, wg - pw + 1, (1, K)).astype(np.int32)
         starts[0, :2] = [0, wg - pw]
-        corr_l = t(rng.standard_normal((K, co, ph), dtype=np.float32))
-        corr_r = t(rng.standard_normal((K, co, ph), dtype=np.float32))
-        args = (a, cg, t(starts), corr_l, corr_r)
+        corr_l = t(rng.standard_normal((K, co, ph), dtype=np.float32),
+                   torch.float32)
+        corr_r = t(rng.standard_normal((K, co, ph), dtype=np.float32),
+                   torch.float32)
+        args = (a, cg, t(starts, torch.int32), corr_l, corr_r)
         out = fs.fused_skip_gather_add(*args)
         ref = fs.fused_skip_gather_add_plain(*args)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        check(torch.equal(out, ref), 'fused skip kernel differs from its '
-              'plain version at {}: max abs err {}'.format(block, err))
+        err = float((out.float() - ref.float()).abs().max())
+        check(torch.equal(out, ref), '{} kernel differs from its plain '
+              'version at {}: max abs err {}'.format(label, block, err))
         del out, ref
         ms = device_ms(lambda: fs.fused_skip_gather_add(*args), 20)
         plain_ms = device_ms(lambda: fs.fused_skip_gather_add_plain(*args),
                              5, 1)
-        nbytes = 4 * (2 * a.numel() + cg.numel() + 2 * corr_l.numel() + K)
+        nbytes = a.element_size() * (2 * a.numel() + cg.numel()) + \
+            4 * (2 * corr_l.numel() + K)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log('fused skip at {}: a {} cg {}, kernel == plain version, bit for '
-            'bit (tolerance 0); device time: kernel {:.4f} ms (median of '
-            '20), plain {:.4f} ms, bound {:.4f} ms ({} bytes at {:.3g} B/s); '
+        log('{} at {}: a {} cg {}, kernel == plain version, bit for bit '
+            '(tolerance 0); device time: kernel {:.4f} ms (median of 20), '
+            'plain {:.4f} ms, bound {:.4f} ms ({} bytes at {:.3g} B/s); '
             'one-call PyTorch yardstick: none (no one call adds windows of '
             'one tensor with the boundary corrections)'.format(
-                block, tuple(a.shape), tuple(cg.shape), ms, plain_ms,
-                bound_ms, nbytes, HBM_BYTES_PER_S))
+                label, block, tuple(a.shape), tuple(cg.shape), ms,
+                plain_ms, bound_ms, nbytes, HBM_BYTES_PER_S))
         parts.append(dict(shape=block, a=list(a.shape), cg=list(cg.shape),
                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bytes=nbytes))
         del args, a, cg, corr_l, corr_r
-    record['fused_skip_gather_add'] = kernel_entry(
-        'fused_skip_gather_add', 'rcfd_tpu_torch/csrc/fused_skip_gather_add.cu',
+    name = 'fused_skip_gather_add' + dtype_label(dtype)
+    record[name] = kernel_entry(
+        name, 'rcfd_tpu_torch/csrc/fused_skip_gather_add.cu',
         'rcfd_tpu/ops/fused_skip.py:174', parts, library=False)
 
 
-def phase_kernel_column_crop(device, record, rn):
-    """The column crop at the 1/8, 1/16 and 1/32 pools of the 900x300 patch
-    (the variable-bin ones; 64 windows of one frame), against its plain
-    version, with torch.gather on the padded rows as the yardstick."""
+def phase_kernel_column_crop(device, record, rn, dtype=torch.float32):
+    """The column crop's instance for ``dtype`` rows at the 1/8, 1/16 and
+    1/32 pools of the 900x300 patch (the variable-bin ones; 64 windows of
+    one frame), against its plain version, with torch.gather on the padded
+    rows as the yardstick."""
     from rcfd_tpu_torch.ops import crop_cuda as cc
     from rcfd_tpu_torch.ops.roi_pool import variable_bin_window
 
     maps = encoder_maps(rn, WIDE_PATCH, device)
     rng = np.random.default_rng(SEED + 3)
+    label = 'column crop{}'.format(dtype_label(dtype))
     parts = []
     for i in (2, 3, 4):
         c, w_f = maps[i][1], maps[i][3]
         ph, pw = int(H * SCALES[i]), int(WIDE_PATCH[1] * SCALES[i])
         _, win = variable_bin_window(WIDE_PATCH[1], SCALES[i], pw)
         rows = torch.from_numpy(rng.standard_normal(
-            (1, c, ph, w_f), dtype=np.float32)).to(device)
+            (1, c, ph, w_f), dtype=np.float32)).to(device, dtype)
         starts = rng.integers(0, w_f + 1, (1, K)).astype(np.int32)
         starts[0, :2] = [0, w_f]  # the first column, and wholly past W
         starts = torch.from_numpy(starts).to(device)
         out = cc.batch_column_crop(rows, starts, win)
         ref = cc.batch_column_crop_plain(rows, starts, win)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        check(torch.equal(out, ref), 'column crop kernel differs from its '
-              'plain version at 1/{}: max abs err {}'.format(
-                  int(1 / SCALES[i]), err))
+        err = float((out.float() - ref.float()).abs().max())
+        check(torch.equal(out, ref), '{} kernel differs from its plain '
+              'version at 1/{}: max abs err {}'.format(
+                  label, int(1 / SCALES[i]), err))
         ms = device_ms(lambda: cc.batch_column_crop(rows, starts, win), 20)
         plain_ms = device_ms(
             lambda: cc.batch_column_crop_plain(rows, starts, win), 5, 1)
@@ -462,21 +497,22 @@ def phase_kernel_column_crop(device, record, rn):
         check(torch.equal(torch.gather(rows_p, 3, index), out),
               'the torch.gather yardstick differs from the kernel')
         library_ms = device_ms(lambda: torch.gather(rows_p, 3, index), 20)
-        nbytes = 4 * (out.numel() + rows.numel() + K)
+        nbytes = rows.element_size() * (out.numel() + rows.numel()) + 4 * K
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log('column crop at 1/{}: rows {} -> {} windows of {}, kernel == '
-            'plain version, bit for bit (tolerance 0); device time: kernel '
-            '{:.4f} ms (median of 20), plain {:.4f} ms, torch.gather {:.4f} '
-            'ms, bound {:.4f} ms ({} bytes at {:.3g} B/s)'.format(
-                int(1 / SCALES[i]), tuple(rows.shape), K, win, ms, plain_ms,
-                library_ms, bound_ms, nbytes, HBM_BYTES_PER_S))
+        log('{} at 1/{}: rows {} -> {} windows of {}, kernel == plain '
+            'version, bit for bit (tolerance 0); device time: kernel {:.4f} '
+            'ms (median of 20), plain {:.4f} ms, torch.gather {:.4f} ms, '
+            'bound {:.4f} ms ({} bytes at {:.3g} B/s)'.format(
+                label, int(1 / SCALES[i]), tuple(rows.shape), K, win, ms,
+                plain_ms, library_ms, bound_ms, nbytes, HBM_BYTES_PER_S))
         parts.append(dict(shape='1/{}'.format(int(1 / SCALES[i])),
                           rows=list(rows.shape), win=win, max_abs_err=err,
                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           library_ms=library_ms, bytes=nbytes))
         del out, ref, rows_p, index
-    record['column_crop'] = kernel_entry(
-        'column_crop', 'rcfd_tpu_torch/csrc/column_crop.cu',
+    name = 'column_crop' + dtype_label(dtype)
+    record[name] = kernel_entry(
+        name, 'rcfd_tpu_torch/csrc/column_crop.cu',
         'rcfd_tpu/ops/crop_pallas.py:29', parts, library=True)
 
 
@@ -563,27 +599,44 @@ def requests(rng, n, h, w, k, n_invalid):
     return out
 
 
+# bf16 RadarNet crops of one request served two ways (on the card against
+# the CPU in phase reference; a frame of a batched request against __call__
+# in phase bf16): within two bf16 steps in [0.5, 1), since cuDNN rounds
+# bf16 convolutions at other places than the CPU, and may choose other
+# algorithms at another batch size (2^-9 measured on an H100)
+BF16_CROP_TOL = 2.0 ** -7
+# bf16 FusionNet on the card against the CPU from the same input (phase
+# reference): MAE in m (1.2e-4 m measured; the JAX package's bf16 bound,
+# tests/test_bf16_serving.py, is 0.25 m)
+BF16_DENSE_MAE = 0.01
+
+
 def launch_counters():
+    """Every launch count: name -> (wrapper, attribute). The serving
+    kernels count their float32 and bf16 instances apart."""
     from rcfd_tpu_torch.ops import crop_cuda as cc
     from rcfd_tpu_torch.ops import fused_skip as fs
     from rcfd_tpu_torch.ops import fused_skip_variants as fv
     from rcfd_tpu_torch.ops import scatter_cuda as sc
-    counters = {'scatter_quasi_dense': sc.scatter_quasi_dense,
-                'fused_skip_gather_add': fs.fused_skip_gather_add,
-                'column_crop': cc.batch_column_crop}
+    counters = {}
+    for name, wrapper in (('scatter_quasi_dense', sc.scatter_quasi_dense),
+                          ('fused_skip_gather_add', fs.fused_skip_gather_add),
+                          ('column_crop', cc.batch_column_crop)):
+        counters[name] = (wrapper, 'launches')
+        counters[name + ' bf16'] = (wrapper, 'launches_bf16')
     for variant, wrapper in fv.WRAPPERS.items():
-        counters['fused_skip_variants.' + variant] = wrapper
+        counters['fused_skip_variants.' + variant] = (wrapper, 'launches')
     return counters
 
 
 def reset_launches():
-    for wrapper in launch_counters().values():
-        wrapper.launches = 0
+    for wrapper, attr in launch_counters().values():
+        setattr(wrapper, attr, 0)
 
 
 def read_launches():
-    return {name: wrapper.launches
-            for name, wrapper in launch_counters().items()}
+    return {name: getattr(wrapper, attr)
+            for name, (wrapper, attr) in launch_counters().items()}
 
 
 def count_launches(record, path, launches, kernels):
@@ -671,6 +724,60 @@ def phase_reference(device):
         log('reference, {}: RadarNet crops card vs CPU max abs err {:.3g} '
             '(tolerance 1e-4); {} launched {} times'.format(
                 label, err, kernel, launches))
+
+    # the same three configurations in bf16 (compute_dtype), card against
+    # CPU: crops, the bf16 scatter of the CPU's crops, FusionNet's depth
+    # from the same input; only the bf16 instances launched
+    for label, kw, expect in (
+            ('bf16', {}, {'scatter_quasi_dense bf16': 1}),
+            ('bf16 deferred pools', dict(perf=PerfConfig(fused_pool2=True,
+                                                         fused_pool4=True)),
+             {'scatter_quasi_dense bf16': 1, 'fused_skip_gather_add bf16': 2}),
+            ('bf16 patch 96x76', dict(input_patch_size_image=(96, 76)),
+             {'scatter_quasi_dense bf16': 1, 'column_crop bf16': 3})):
+        rn_c = RadarNetModel(**dict(rn_kw, **kw), device='cpu')
+        rn_c.load_state_dict(rn.state_dict(), strict=True)
+        pipes = [TwoStagePipeline(rn_c, fn, h, w, device=d,
+                                  compute_dtype=torch.bfloat16)
+                 for d in ('cpu', device)]
+        p = pipes[0].radarnet.input_patch_size_image
+        with torch.inference_mode(), serving_numerics():
+            image_c, crops_c, xs, zs = pipes[0].radarnet_stage(image, points)
+            reset_launches()
+            crops_g = pipes[1].radarnet_stage(image, points)[1]
+            v = torch.from_numpy(valid)
+            maps_c = sc.scatter_quasi_dense(crops_c, xs, zs, v, h, w, p)
+            maps_g = sc.scatter_quasi_dense(crops_c.to(device),
+                                            xs.to(device), zs.to(device),
+                                            v.to(device), h, w, p)
+            launches = read_launches()
+            _, _, input_depth = pipes[0].bridge(*maps_c)
+            dense_c = pipes[0].fusionnet(image_c, input_depth).float()
+            dense_g = pipes[1].fusionnet(image_c.to(device),
+                                         input_depth.to(device)).float()
+        for kernel, n in launches.items():
+            check(n == expect.get(kernel, 0), 'reference, {}: {} launched {} '
+                  'times, expected {}'.format(label, kernel, n,
+                                              expect.get(kernel, 0)))
+        check(crops_g.dtype == torch.bfloat16 and all(
+            torch.equal(a.cpu(), b) for a, b in zip(maps_g, maps_c)),
+              'reference, {}: the bf16 scatter on the card differs from the '
+              'CPU path'.format(label))
+        crop_err = float((crops_g.cpu().float() - crops_c.float()).abs()
+                         .max())
+        check(crop_err <= BF16_CROP_TOL, 'reference, {}: RadarNet crops '
+              'card vs CPU max abs err {} > {}'.format(label, crop_err,
+                                                       BF16_CROP_TOL))
+        mae = float((dense_g.cpu() - dense_c).abs().mean())
+        check(mae <= BF16_DENSE_MAE, 'reference, {}: FusionNet depth card vs '
+              'CPU MAE {} m > {} m'.format(label, mae, BF16_DENSE_MAE))
+        log('reference, {}: RadarNet crops card vs CPU max abs err {:.3g} '
+            '(tolerance {:g}); bf16 scatter on the card == CPU path, bit for '
+            'bit; FusionNet depth from the same input card vs CPU MAE {:.3g} '
+            'm, max abs {:.3g} m (tolerance MAE {:g} m); launches {}'.format(
+                label, crop_err, BF16_CROP_TOL, mae,
+                float((dense_g.cpu() - dense_c).abs().max()), BF16_DENSE_MAE,
+                {k: n for k, n in launches.items() if n}))
 
 
 def serve_path(name, pipe, reqs, device, expect, batched=False):
@@ -864,6 +971,7 @@ def phase_fused(device, record, slice_pipe, reqs):
     log('fused: RadarNet crops vs the slice\'s (pools not deferred): max abs '
         'err {:.3g} (tolerance 5e-4)'.format(err))
     stage_times('fused', pipe, reqs[1], device)
+    return pipe
 
 
 def phase_wide(device, record, slice_pipe, reqs):
@@ -885,6 +993,7 @@ def phase_wide(device, record, slice_pipe, reqs):
     check_plain_route('wide', pipe, reqs[1], outs[0], roi_pool,
                       'batch_column_crop', cc.batch_column_crop_plain)
     stage_times('wide', pipe, reqs[1], device)
+    return pipe
 
 
 # the JAX package's tolerance for the fold (tests/test_optimize.py): float32
@@ -1102,8 +1211,11 @@ def phase_optimize(device, record, slice_pipe, reqs):
 # single-frame requests
 N_BATCHED = 2
 BATCHED_PAIRED_ROUNDS = 5
-# FusionNet alone (bench.py): batch sizes, and requests timed at each
+# FusionNet alone (bench.py): batch sizes, and the window timed at each,
+# at least this many seconds: chunks of as many requests as one timed
+# request says fill it (at least 3), until it is filled
 FUSIONNET_BATCHES = (1, 8, 32)
+FUSIONNET_WINDOW_S = 1.0
 # per-frame agreement of the batched path with __call__: dense depth, m
 BATCHED_DENSE_TOL = 1e-3
 
@@ -1119,79 +1231,92 @@ def batched_requests(rng, n, b):
     return out
 
 
-def check_frames(name, pipe, batch, out, frames):
+def check_frames(name, pipe, batch, out, frames, crop_tol=FOLD_TOL,
+                 dense_atol=BATCHED_DENSE_TOL, dense_rtol=0.0):
     """Frames ``frames`` of a batched request against __call__ of the same
     frame on the same pipeline. cuDNN may choose other algorithms at
     another batch size, so RadarNet's crops of each frame in the batched
-    path must lie within FOLD_TOL of __call__'s; then every pixel whose
-    quasi depth differs must be explained by a 14-bit tie or a top
-    response within FOLD_TOL of the threshold, and the response must lie
-    within FOLD_TOL + 2^-14 (what a perturbation of the crops by FOLD_TOL
-    can do to the 14-bit max) except at pixels whose top response is
-    within FOLD_TOL of the threshold. Dense depth within BATCHED_DENSE_TOL
-    of FusionNet run on the frame alone with the batched path's own maps of
-    that frame (so that a FusionNet batch of B is held to its batch of
-    one), and within BATCHED_DENSE_TOL of __call__'s wherever the frame's
-    maps equal __call__'s."""
+    path must lie within ``crop_tol`` (FOLD_TOL) of __call__'s; then every
+    pixel whose quasi depth differs must be explained by a 14-bit tie or a
+    top response within ``crop_tol`` of the threshold, and the response
+    must lie within crop_tol + 2^-14 (what a perturbation of the crops by
+    crop_tol can do to the 14-bit max) except at pixels whose top response
+    is within crop_tol of the threshold. Dense depth within ``dense_atol``
+    m plus ``dense_rtol`` of the depth (BATCHED_DENSE_TOL m) of FusionNet
+    run on the frame alone with the batched path's own maps of that frame
+    (so that a FusionNet batch of B is held to its batch of one), and
+    within the same of __call__'s wherever the frame's maps equal
+    __call__'s."""
     from rcfd_tpu_torch.pipeline import decode_chunk_count, serving_numerics
+
+    def dense_err(dense, ref):
+        """(max |dense - ref| in m, its max as a share of ref, whether
+        every pixel lies within dense_atol + dense_rtol * ref)"""
+        diff = (dense - ref).abs()
+        return (float(diff.max()), float((diff / ref).max()),
+                bool((diff <= dense_atol + dense_rtol * ref).all()))
+
+    bound = '{:g} m + {:g} of the depth'.format(dense_atol, dense_rtol)
 
     images, points, valid = batch
     n_chunks = decode_chunk_count(points.shape[0], points.shape[1],
                                   pipe.radarnet.perf.decode_chunks)
     with torch.inference_mode(), serving_numerics():
         crops_b = pipe.radarnet_stage_batched(images, points, n_chunks)[1]
-    n_quasi, n_response, crops_err, dense_err, call_err = 0, 0, 0.0, 0.0, []
+    n_quasi, n_response, crops_err, call_err = 0, 0, 0.0, []
+    dense_max = (0.0, 0.0)
     for f in frames:
         req = (images[f:f + 1], points[f], valid[f])
         crops_r, xs = radarnet_outputs(pipe, req)
-        err = float((crops_b[f] - crops_r).abs().max())
-        check(err <= FOLD_TOL, '{}: frame {}: RadarNet crops differ from '
-              '__call__\'s by {} > {}'.format(name, f, err, FOLD_TOL))
+        err = float((crops_b[f].float() - crops_r.float()).abs().max())
+        check(err <= crop_tol, '{}: frame {}: RadarNet crops differ from '
+              '__call__\'s by {} > {}'.format(name, f, err, crop_tol))
         crops_err = max(crops_err, err)
         dense_r, quasi_r, resp_r = pipe(*req)
         dense, quasi, resp = (o[f] for o in out)
         quasi_px = torch.nonzero(quasi != quasi_r).cpu().numpy()
         step = (resp - resp_r).abs()
-        resp_px = torch.nonzero(step > FOLD_TOL + 2.0 ** -14).cpu().numpy()
+        resp_px = torch.nonzero(step > crop_tol + 2.0 ** -14).cpu().numpy()
         if len(quasi_px) or len(resp_px):
-            crops, xs_np = crops_r.cpu().numpy(), xs.cpu().numpy()
+            crops, xs_np = crops_r.float().cpu().numpy(), xs.cpu().numpy()
             bad = unexplained_quasi(crops, xs_np, valid[f], quasi_px,
-                                    FOLD_TOL)
+                                    crop_tol)
             check(not bad, '{}: frame {}: quasi depth differs from __call__ '
                   'at {} pixels that no tie or threshold explains: {}'
                   .format(name, f, len(bad), bad[:10]))
-            bad = off_threshold(crops, xs_np, valid[f], resp_px, FOLD_TOL)
+            bad = off_threshold(crops, xs_np, valid[f], resp_px, crop_tol)
             check(not bad, '{}: frame {}: response differs from __call__ by '
                   'more than {:g} at {} pixels away from the threshold: {}'
-                  .format(name, f, FOLD_TOL + 2.0 ** -14, len(bad),
+                  .format(name, f, crop_tol + 2.0 ** -14, len(bad),
                           bad[:10]))
         n_quasi += len(quasi_px)
         n_response += int((step > 0).sum())
         with torch.inference_mode(), serving_numerics():
             image_t = pipe.radarnet_stage(*req[:2])[0]
             dense_1 = pipe.fusionnet(image_t, pipe.bridge(quasi, resp)[2])
-        err = float((dense - dense_1[0, 0]).abs().max())
-        check(err <= BATCHED_DENSE_TOL, '{}: frame {}: dense differs from '
-              'FusionNet on the frame alone by {} m > {} m'.format(
-                  name, f, err, BATCHED_DENSE_TOL))
-        dense_err = max(dense_err, err)
-        err = float((dense - dense_r).abs().max())
+        *err, ok = dense_err(dense, dense_1[0, 0].float())
+        check(ok, '{}: frame {}: dense differs from FusionNet on the frame '
+              'alone by {} m, {} of the depth, beyond {}'.format(
+                  name, f, *err, bound))
+        dense_max = tuple(map(max, dense_max, err))
+        *err, ok = dense_err(dense, dense_r)
         if not (int((step > 0).sum()) or len(quasi_px)):
-            check(err <= BATCHED_DENSE_TOL, '{}: frame {}: dense differs '
-                  'from __call__ by {} m > {} m with the same maps'.format(
-                      name, f, err, BATCHED_DENSE_TOL))
+            check(ok, '{}: frame {}: dense differs from __call__ by {} m, {} '
+                  'of the depth, beyond {} with the same maps'.format(
+                      name, f, *err, bound))
         call_err.append(err)
     log('{}: frames {} against __call__ of the same frame: RadarNet crops '
         'max abs diff {:.3g} (tolerance {:g}); {} quasi pixels differ, each '
         'at a 14-bit tie or within {:g} of the 0.5 threshold; {} response '
         'pixels differ, by at most {:g} or at the threshold; dense against '
-        'FusionNet on each frame alone: max abs diff {:.3g} m (tolerance '
-        '{:g} m); dense against __call__: max abs diff per frame {} m ({:g} '
-        'm where the maps are equal)'.format(
-            name, list(frames), crops_err, FOLD_TOL, n_quasi, FOLD_TOL,
-            n_response, FOLD_TOL + 2.0 ** -14, dense_err, BATCHED_DENSE_TOL,
-            ', '.join('{:.3g}'.format(e) for e in call_err),
-            BATCHED_DENSE_TOL))
+        'FusionNet on each frame alone: max diff {:.3g} m, {:.3g} of the '
+        'depth (tolerance {}); dense against __call__: max diff per frame '
+        '{} (m, share of the depth; tolerance {} where the maps are '
+        'equal)'.format(
+            name, list(frames), crops_err, crop_tol, n_quasi, crop_tol,
+            n_response, crop_tol + 2.0 ** -14, *dense_max, bound,
+            ', '.join('{:.3g}/{:.3g}'.format(*e) for e in call_err),
+            bound))
 
 
 def phase_batched(device, record, slice_pipe, opt_pipe):
@@ -1270,17 +1395,21 @@ def phase_batched(device, record, slice_pipe, opt_pipe):
                  [batches[8][1]], BATCHED_PAIRED_ROUNDS, frames=8)
 
 
-def phase_fusionnet_alone(device, fn):
+def phase_fusionnet_alone(device, fn, dtype=torch.float32):
     """FusionNet alone at the benchmark config (bench.py), batch norm folded
-    (as bench.py folds it), float32 under serving_numerics, from integer
-    transport inputs on the card (uint8 frames, uint16 x256-codec depth
-    and response, bench.py's _inputs) decoded in each request: frames/s and
-    peak memory at each batch size of FUSIONNET_BATCHES."""
+    (as bench.py folds it), in ``dtype`` (float32, or bf16 as bench.py
+    serves by default) under serving_numerics, from integer transport
+    inputs on the card (uint8 frames, uint16 x256-codec depth and
+    response, bench.py's _inputs) decoded in float32 in each request and
+    cast to ``dtype``, as the pipeline casts them: frames/s and peak memory
+    at each batch size of FUSIONNET_BATCHES, over a window of at least
+    FUSIONNET_WINDOW_S seconds."""
     from rcfd_tpu_torch.data import transport
     from rcfd_tpu_torch.nn.optimize import fold_batch_norm
     from rcfd_tpu_torch.pipeline import serving_numerics
 
-    model = fold_batch_norm(fn).to(device).eval()
+    model = fold_batch_norm(fn).to(device, dtype).eval()
+    label = 'float32' if dtype == torch.float32 else 'bf16'
     rng = np.random.default_rng(SEED + 6)
     for b in FUSIONNET_BATCHES:
         image = torch.from_numpy(rng.integers(
@@ -1294,9 +1423,9 @@ def phase_fusionnet_alone(device, fn):
             img = transport.decode(image) / 255.0
             inp = torch.cat([transport.decode(depth),
                              transport.decode(response)], -1)
-            return model(img.permute(0, 3, 1, 2), inp.permute(0, 3, 1, 2))
+            return model(img.permute(0, 3, 1, 2).to(dtype),
+                         inp.permute(0, 3, 1, 2).to(dtype))
 
-        n = max(3, 16 // b)
         with torch.inference_mode(), serving_numerics():
             out = forward()  # warm-up: cuDNN chooses its algorithms
             torch.cuda.synchronize()
@@ -1306,21 +1435,125 @@ def phase_fusionnet_alone(device, fn):
                   'FusionNet alone at b={}: output {} not finite in '
                   '[1, 100] m'.format(b, tuple(out.shape)))
             del out
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            chunk = max(3, math.ceil(FUSIONNET_WINDOW_S /
+                                     (time.perf_counter() - t0)))
             torch.cuda.reset_peak_memory_stats(device)
             resident = torch.cuda.memory_allocated(device)
-            t0 = time.perf_counter()
-            for _ in range(n):
-                out = forward()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+            n, dt, t0 = 0, 0.0, time.perf_counter()
+            while dt < FUSIONNET_WINDOW_S:
+                for _ in range(chunk):
+                    out = forward()
+                torch.cuda.synchronize()
+                n, dt = n + chunk, time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(device)
-        log('FusionNet alone (bench.py CONFIG, batch norm folded, float32, '
+        log('FusionNet alone (bench.py CONFIG, batch norm folded, {}, '
             'integer transport) at b={}: {} requests in {:.3f} s, {:.2f} '
             'frames/s, {:.2f} ms/frame; peak memory {} bytes ({} above the '
-            '{} resident)'.format(b, n, dt, b * n / dt, dt * 1e3 / (b * n),
-                                  peak, peak - resident, resident))
+            '{} resident)'.format(label, b, n, dt, b * n / dt,
+                                  dt * 1e3 / (b * n), peak, peak - resident,
+                                  resident))
         del image, depth, response, out
         torch.cuda.empty_cache()
+
+
+# bf16 serving (phase bf16), each frame of a batched request against
+# __call__: dense depth within two bf16 steps, as a share of the depth
+BF16_DENSE_RTOL = 2.0 ** -6
+
+
+def bf16_deviation(name, pipe, ref_pipe, reqs):
+    """The bf16 path against the float32 path of the same weights on the
+    same requests, printed and not gated (the weights are seeded random,
+    so no accuracy target exists): dense MAE and 99th-percentile relative
+    error, the share of quasi pixels that differ, the largest difference
+    of RadarNet's crops."""
+    maes, p99s, n_quasi, crop_err = [], [], 0, 0.0
+    for req in reqs:
+        crops = radarnet_outputs(pipe, req)[0].float()
+        crop_err = max(crop_err, float(
+            (crops - radarnet_outputs(ref_pipe, req)[0]).abs().max()))
+        dense, quasi, _ = pipe(*req)
+        dense_ref, quasi_ref, _ = ref_pipe(*req)
+        diff = (dense - dense_ref).abs().cpu().numpy()
+        maes.append(float(diff.mean()))
+        p99s.append(float(np.percentile(
+            diff / np.maximum(dense_ref.cpu().numpy(), 1.0), 99)))
+        n_quasi += int((quasi != quasi_ref).sum())
+    n_px = len(reqs) * H * W
+    log('{}: deviation from the float32 path on the same {} requests '
+        '(printed, not gated): dense MAE {} m, 99th-percentile relative '
+        'error {}; quasi pixels that differ {} of {} ({:.3g}%); RadarNet '
+        'crops max abs diff {:.3g}'.format(
+            name, len(reqs), ', '.join('{:.4g}'.format(m) for m in maes),
+            ', '.join('{:.4g}'.format(p) for p in p99s), n_quasi, n_px,
+            100.0 * n_quasi / n_px, crop_err))
+
+
+def phase_bf16(device, record, pipes, opt_pipe, reqs):
+    """TwoStagePipeline(compute_dtype=torch.bfloat16) on the weights of the
+    float32 paths ``pipes`` (slice, fused, wide) and of ``opt_pipe``: each
+    path's requests launch only the bf16 instances, held to their plain
+    versions and compared with the float32 path; forward_batched at B = 8
+    and, folded, at B = 16, each frame against __call__; paired rounds
+    against float32; FusionNet alone in bf16."""
+    from rcfd_tpu_torch.ops import crop_cuda as cc
+    from rcfd_tpu_torch.ops import fused_skip as fs
+    from rcfd_tpu_torch.ops import roi_pool
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline
+
+    bf16 = torch.bfloat16
+    k1 = {'scatter_quasi_dense bf16': N_REQUESTS}
+    served = {}
+    for path, expect, route in (
+            ('slice', k1, (None, 'scatter', sc.scatter_quasi_dense_plain)),
+            ('fused', dict(k1, **{'fused_skip_gather_add bf16':
+                                  2 * N_REQUESTS}),
+             (fs, 'fused_skip_gather_add', fs.fused_skip_gather_add_plain)),
+            ('wide', dict(k1, **{'column_crop bf16': 3 * N_REQUESTS}),
+             (roi_pool, 'batch_column_crop', cc.batch_column_crop_plain))):
+        name = path + ' bf16'
+        ref = pipes[path]
+        pipe = TwoStagePipeline(ref.radarnet, ref.fusionnet, H, W,
+                                compute_dtype=bf16, device=device)
+        outs, _, _, launches = serve_path(name, pipe, reqs, device, expect)
+        count_launches(record, name, launches, list(expect))
+        module, attr, plain = route
+        check_plain_route(name, pipe, reqs[1], outs[0], module or pipe, attr,
+                          plain)
+        bf16_deviation(name, pipe, ref, reqs[1:])
+        stage_times(name, pipe, reqs[1], device)
+        served[path] = pipe
+        del outs
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 5)  # phase batched's requests
+    batches = {b: batched_requests(rng, N_BATCHED + 1, b) for b in (8, 16)}
+    opt16 = TwoStagePipeline(opt_pipe.radarnet, opt_pipe.fusionnet, H, W,
+                             optimize=True, compute_dtype=bf16,
+                             device=device)
+    for b, pipe, name, frames in (
+            (8, served['slice'], 'batched bf16 B=8', range(8)),
+            (16, opt16, 'batched+optimize bf16 B=16', (0, 15))):
+        outs, _, _, launches = serve_path(
+            name, pipe, batches[b], device,
+            {'scatter_quasi_dense bf16': N_BATCHED}, batched=True)
+        count_launches(record, name, launches, ['scatter_quasi_dense bf16'])
+        check_plain_route(name, pipe.forward_batched, batches[b][1], outs[0],
+                          pipe, 'scatter_batched',
+                          sc.scatter_quasi_dense_batched_plain)
+        check_frames(name, pipe, batches[b][1], outs[0], frames,
+                     crop_tol=BF16_CROP_TOL, dense_atol=0.0,
+                     dense_rtol=BF16_DENSE_RTOL)
+        del outs
+        torch.cuda.empty_cache()
+    del batches
+    paired_times({'slice': pipes['slice'], 'slice bf16': served['slice']},
+                 reqs[1:], PAIRED_ROUNDS)
+    phase_fusionnet_alone(device, pipes['slice'].fusionnet, bf16)
 
 
 def profile_request(name, pipe, req):
@@ -1392,10 +1625,11 @@ def main():
     reqs = requests(np.random.default_rng(SEED), N_REQUESTS + 1, H, W, K,
                     N_INVALID)
     with Phase('kernel'):
-        phase_kernel_scatter(device, record)
-        phase_kernel_fused_skip(device, record, rn)
-        phase_kernel_column_crop(device, record, rn)
-        torch.cuda.empty_cache()
+        for dtype in (torch.float32, torch.bfloat16):
+            phase_kernel_scatter(device, record, dtype)
+            phase_kernel_fused_skip(device, record, rn, dtype)
+            phase_kernel_column_crop(device, record, rn, dtype)
+            torch.cuda.empty_cache()
     with Phase('variants'):
         phase_variants(device, record, rn)
         torch.cuda.empty_cache()
@@ -1404,15 +1638,19 @@ def main():
     with Phase('slice'):
         slice_pipe = phase_slice(device, record, rn, fn, reqs)
     with Phase('fused'):
-        phase_fused(device, record, slice_pipe, reqs)
+        fused_pipe = phase_fused(device, record, slice_pipe, reqs)
     with Phase('wide'):
-        phase_wide(device, record, slice_pipe, reqs)
+        wide_pipe = phase_wide(device, record, slice_pipe, reqs)
     with Phase('optimize'):
         opt_pipe = phase_optimize(device, record, slice_pipe, reqs)
     torch.cuda.empty_cache()
     with Phase('batched'):
         phase_batched(device, record, slice_pipe, opt_pipe)
         phase_fusionnet_alone(device, slice_pipe.fusionnet)
+    torch.cuda.empty_cache()
+    with Phase('bf16'):
+        phase_bf16(device, record, {'slice': slice_pipe, 'fused': fused_pipe,
+                                    'wide': wide_pipe}, opt_pipe, reqs)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

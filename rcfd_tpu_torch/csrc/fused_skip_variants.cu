@@ -10,9 +10,9 @@
 // and s^_k = s_k - s_k mod A, every variant computes a defined function:
 //
 //   full      K3's function: out = a + window(cg, s_k), then the first
-//             column minus corr_l and the last minus corr_r. bf16 only here
-//             (a scalar kernel with K3's structure); the float32 `full` is K3
-//             itself, fused_skip_gather_add.cu. `a + window` is added in the
+//             column minus corr_l and the last minus corr_r. It is K3
+//             itself, in either dtype (fused_skip_gather_add.cu), so this
+//             file has no kernel for it. `a + window` is added in the
 //             element type; the two edge columns are corrected in float32
 //             and then rounded to bf16, as the TPU variant's emit does.
 //   align16   the same function; `a` read and `out` written as 16-byte
@@ -27,11 +27,9 @@
 //   nodma     out = a * 2, vectors: the streaming floor of this access
 //             pattern.
 //
-// Every element is computed with round-to-nearest adds and subtracts in the
-// order of rcfd_tpu_torch/ops/fused_skip_variants.py's plain versions, so
-// each variant equals its plain version bit for bit. In bf16 the sum of two
-// bf16 values rounded once (__hadd) equals the float32 sum rounded to bf16,
-// which is how PyTorch on the CPU and XLA compute it.
+// Every element is computed with K3's arithmetic (gather_add_math.cuh), in
+// the order of rcfd_tpu_torch/ops/fused_skip_variants.py's plain versions,
+// so each variant equals its plain version bit for bit.
 //
 // What bounds them on the card: memory, as for K3. At the tool's default
 // shapes (64 windows of 32 x 450 x 144, cg 1 x 32 x 450 x 1088) K3 moves
@@ -48,33 +46,16 @@
 #include <cuda_runtime.h>
 
 #include <cstring>
-#include <type_traits>
+
+#include "gather_add_math.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPerThread = 8;     // scalar kernel: elements per thread
-constexpr int kVecPerThread = 2;  // vector kernels: vectors per thread
+constexpr int kVecPerThread = 2;  // vectors per thread
 
 enum Mode { kFull = 0, kAlign16 = 1, kNoSelect = 2, kDmaOnly = 3, kNoDma = 4 };
 enum DType { kFloat32 = 0, kBFloat16 = 1 };
-
-__device__ __forceinline__ float add(float x, float y) {
-  return __fadd_rn(x, y);
-}
-__device__ __forceinline__ __nv_bfloat16 add(__nv_bfloat16 x,
-                                             __nv_bfloat16 y) {
-  return __hadd(x, y);
-}
-
-// x minus a float32 correction, in float32, rounded to the element type
-__device__ __forceinline__ float corrected(float x, float c) {
-  return __fsub_rn(x, c);
-}
-__device__ __forceinline__ __nv_bfloat16 corrected(__nv_bfloat16 x,
-                                                   float c) {
-  return __float2bfloat16_rn(__fsub_rn(__bfloat162float(x), c));
-}
 
 __device__ __forceinline__ float twice(float x) { return __fmul_rn(x, 2.f); }
 __device__ __forceinline__ __nv_bfloat16 twice(__nv_bfloat16 x) {
@@ -127,44 +108,6 @@ __device__ __forceinline__ Vec<T> pick(const Vec<T>& lo, const Vec<T>& hi,
     case 6: return shifted<T, 6>(lo, hi);
     case 7: return shifted<T, 7>(lo, hi);
     default: return lo;
-  }
-}
-
-// `full` with K3's structure (fused_skip_gather_add.cu): one window per
-// block row, consecutive threads on consecutive elements, (row, column)
-// stepped with the grid stride.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-full_kernel(const T* __restrict__ a, const T* __restrict__ cg,
-            const int* __restrict__ starts, const float* __restrict__ corr_l,
-            const float* __restrict__ corr_r, int k_per_image, int rows,
-            int pw, int wg, T* __restrict__ out) {
-  const int win = blockIdx.y;
-  const int n = win / k_per_image;
-  const int s = min(max(starts[win], 0), wg - pw);
-  const unsigned elems = (unsigned)rows * pw;
-  const T* a_w = a + (size_t)win * elems;
-  T* out_w = out + (size_t)win * elems;
-  const T* cg_w = cg + (size_t)n * rows * wg + s;
-  const float* cl = corr_l + (size_t)win * rows;
-  const float* cr = corr_r + (size_t)win * rows;
-
-  const unsigned stride = gridDim.x * kThreads;
-  unsigned e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= elems) return;
-  unsigned q = e / pw, j = e - q * pw;
-  const unsigned dq = stride / pw, dj = stride - dq * pw;
-  for (; e < elems; e += stride) {
-    T v = add(a_w[e], cg_w[(size_t)q * wg + j]);
-    if (j == 0) v = corrected(v, cl[q]);
-    if (j == (unsigned)pw - 1) v = corrected(v, cr[q]);
-    out_w[e] = v;
-    q += dq;
-    j += dj;
-    if (j >= (unsigned)pw) {
-      j -= pw;
-      ++q;
-    }
   }
 }
 
@@ -278,18 +221,6 @@ int launch(int mode, const void* a_, const void* cg_, const void* starts_,
   const float* corr_l = static_cast<const float*>(corr_l_);
   const float* corr_r = static_cast<const float*>(corr_r_);
   T* out = static_cast<T*>(out_);
-  if (mode == kFull) {
-    if constexpr (std::is_same<T, float>::value) {
-      return static_cast<int>(cudaErrorInvalidValue);  // K3 itself
-    } else {
-      const unsigned elems = (unsigned)rows * pw;
-      const unsigned per_block = kThreads * kPerThread;
-      const dim3 grid((elems + per_block - 1) / per_block, nk);
-      full_kernel<T><<<grid, kThreads, 0, stream>>>(
-          a, cg, starts, corr_l, corr_r, k_per_image, rows, pw, wg, out);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
   const unsigned vecs = (unsigned)rows * (pw / Vec<T>::kN);
   const unsigned per_block = kThreads * kVecPerThread;
   const dim3 grid((vecs + per_block - 1) / per_block, nk);
@@ -317,14 +248,13 @@ int launch(int mode, const void* a_, const void* cg_, const void* starts_,
 
 }  // namespace
 
-// mode: 0 full (bf16 only: the float32 `full` is fused_skip_gather_add.cu),
-// 1 align16, 2 noselect, 3 dmaonly, 4 nodma; dtype: 0 float32, 1 bf16.
+// mode: 1 align16, 2 noselect, 3 dmaonly, 4 nodma; dtype: 0 float32, 1 bf16.
 // a and out (nk, rows, pw) with rows = channels * ph; cg (nk / k_per_image,
-// rows, wg); starts (nk,) int32; corr_l and corr_r (nk, rows) float32. The
-// vector modes need pw and wg multiples of 16 / sizeof(element) and 16-byte
+// rows, wg); starts (nk,) int32; corr_l and corr_r (nk, rows) float32. Every
+// mode needs pw and wg multiples of 16 / sizeof(element) and 16-byte
 // aligned a, cg and out. Launches on `stream` and returns
 // cudaGetLastError() of the launch, or cudaErrorInvalidValue for a mode or
-// dtype it does not take.
+// dtype it does not take (mode 0, full, is K3: fused_skip_gather_add.cu).
 extern "C" int rcfd_fused_skip_variant(int mode, int dtype, const void* a,
                                        const void* cg, const void* starts,
                                        const void* corr_l,

@@ -252,6 +252,9 @@ class RadarNetV1Encoder(nn.Module):
         # is NCHW as it stands
         latent_depth = latent_depth.reshape(
             points.shape[0], self.n_neuron_latent_depth, -1, latent_width)
+        # the MLP runs in the points' float32; its features join the image
+        # branch in the image's dtype (bf16 under compute_dtype)
+        latent_depth = latent_depth.to(latent_pooled.dtype)
         latent = torch.cat([latent_pooled, latent_depth], dim=1)
         return latent, skips_pooled
 

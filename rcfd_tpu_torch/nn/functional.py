@@ -11,7 +11,8 @@ Semantics kept from the JAX package:
   source row at ratios such as 57 -> 113 or 112 -> 225. At integer
   factors it repeats each pixel by a broadcast, as the JAX package does;
 - batch norm (inference) computes ``x * scale + shift`` with
-  ``scale = w * rsqrt(var + eps)``, as the JAX package does.
+  ``scale = w * rsqrt(var + eps)`` in float32, rounded to x's dtype, as
+  the JAX package does.
 """
 
 from __future__ import annotations
@@ -121,10 +122,17 @@ def max_pool2d(x, kernel_size: int = 3, stride: int = 2, padding: int = 1):
 
 
 def batch_norm_apply(x, weight, bias, mean, var, eps: float = 1e-5):
-    """Inference batch norm of NCHW x with per-channel statistics."""
+    """Inference batch norm of NCHW x with per-channel statistics. The
+    statistics' math runs in at least float32 (wider if the parameters
+    are), and ``scale`` and ``shift`` are rounded to x's dtype, as in the
+    JAX package: bf16 parameters give bf16 ``scale`` and ``shift`` computed
+    from their float32 values."""
+    stat_dtype = torch.promote_types(torch.float32, weight.dtype)
+    weight, bias, mean, var = (t.to(stat_dtype)
+                               for t in (weight, bias, mean, var))
     inv = torch.rsqrt(var + eps)
-    scale = weight * inv
-    shift = bias - mean * weight * inv
+    scale = (weight * inv).to(x.dtype)
+    shift = (bias - mean * weight * inv).to(x.dtype)
     return x * scale[:, None, None] + shift[:, None, None]
 
 

@@ -61,7 +61,9 @@ class BatchNorm2d(nn.Module):
 class Conv2d(nn.Module):
     """Conv (+ batch norm) (+ activation). src/net_utils.py:29-91. The conv
     has no bias until ``nn.optimize.fold_batch_norm`` folds the batch norm
-    into its weight and a bias (``conv.bias``)."""
+    into its weight and a bias (``conv.bias``). As in the JAX package, the
+    weight is taken in the input's dtype and the bias is added to the
+    convolution's output in the output's dtype."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
                  stride=1, weight_initializer: str = 'kaiming_uniform',
@@ -80,7 +82,17 @@ class Conv2d(nn.Module):
             else None
 
     def forward(self, x):
-        return self.finish(self.conv(x))
+        return self.finish(self._convolve(x))
+
+    def _convolve(self, x):
+        """The convolution and its folded bias, if any. The bias is added in
+        place, as torch adds a convolution's own bias after cuDNN's
+        convolution, so that no second map of the output's size is held."""
+        conv = self.conv
+        y = F.conv2d(x, conv.weight.to(x.dtype), stride=self.stride)
+        if conv.bias is not None:
+            y.add_(conv.bias.to(y.dtype)[:, None, None])
+        return y
 
     def finish(self, y):
         """Batch norm and activation of the convolution's output, whose
@@ -111,7 +123,8 @@ class UpConv2d(nn.Module):
 
 class FullyConnected(nn.Module):
     """Linear (+ activation). src/net_utils.py:201-247 (no dropout at
-    inference)."""
+    inference). The weight and bias are taken in the input's dtype, as in
+    the JAX package: bf16 parameters serve float32 points in float32."""
 
     def __init__(self, in_features: int, out_features: int,
                  weight_initializer: str = 'kaiming_uniform',
@@ -122,7 +135,9 @@ class FullyConnected(nn.Module):
         self.fully_connected = nn.Linear(in_features, out_features)
 
     def forward(self, x):
-        y = self.fully_connected(x)
+        fc = self.fully_connected
+        y = torch.nn.functional.linear(x, fc.weight.to(x.dtype),
+                                       fc.bias.to(x.dtype))
         if self.activation is not None:
             y = self.activation(y)
         return y
@@ -190,7 +205,7 @@ class DecoderBlock(nn.Module):
             co = y.shape[1]
             y = fused_skip_conv_add(y, w[:, :co], skip, w[:, co:])
             if b is not None:  # a folded batch norm, added after the sum
-                y = y + b[:, None, None]
+                y = y + b.to(y.dtype)[:, None, None]
             return self.conv.finish(y)
         if self.skip_channels > 0:
             y = torch.cat([y, skip], dim=1)

@@ -3,18 +3,24 @@ library, and load them with ctypes.
 
 No PyTorch headers and no ``torch.utils.cpp_extension``: a source with a
 plain C interface compiles in seconds. The library goes into
-``rcfd_tpu_torch/_build/`` at first use, named after a hash of the source
-and the flags, so a changed source is rebuilt.
+``rcfd_tpu_torch/_build/`` at first use, named after a hash of the source,
+the headers of ``csrc/`` and the flags, so a changed source or header is
+rebuilt. ``bind`` returns one C entry point with its ctypes signature, and
+``count_launch`` counts a wrapper's launch under its dtype's attribute.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import time
+
+import torch
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
@@ -50,11 +56,13 @@ def find_nvcc() -> str:
 
 def _target(source: str):
     """(source path, library path) of ``csrc/<source>``, the library named
-    after a hash of the source and the flags."""
+    after a hash of the source, the headers of ``csrc/`` and the flags."""
     path = os.path.join(CSRC_DIR, source)
-    with open(path, 'rb') as f:
-        digest = hashlib.sha256(
-            f.read() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for name in [path] + sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh'))):
+        with open(name, 'rb') as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:16]
     stem = os.path.splitext(source)[0]
     return path, os.path.join(BUILD_DIR, 'lib{}-{}.so'.format(stem, digest))
 
@@ -100,3 +108,24 @@ def load_libraries(sources) -> list:
 def load_library(source: str) -> ctypes.CDLL:
     """Compile ``csrc/<source>`` (once per content) and load it."""
     return load_libraries([source])[0]
+
+
+@functools.lru_cache(maxsize=None)
+def bind(source: str, entry: str, argtypes: tuple):
+    """The C entry point ``entry`` of ``csrc/<source>`` (built at first
+    use), taking ``argtypes`` and returning a CUDA error code (int)."""
+    fn = getattr(load_library(source), entry)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# the attribute of a serving kernel's wrapper that counts the launches of
+# its instance for each dtype
+LAUNCH_COUNTS = {torch.float32: 'launches', torch.bfloat16: 'launches_bf16'}
+
+
+def count_launch(wrapper, dtype):
+    """Add one launch of ``dtype``'s instance to ``wrapper``'s count."""
+    attr = LAUNCH_COUNTS[dtype]
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)

@@ -7,10 +7,12 @@ k, the contiguous window ``rows[n, :, :, s_k : s_k + win]`` of the
 row-pooled feature map of its image, with starts clipped to [0, W] and
 zeros past W, and then its bin maxima over that window.
 
-``batch_column_crop`` is the wrapper. On a CUDA tensor it launches the
-kernel of ``csrc/column_crop.cu`` (built with nvcc at first use) or raises;
-on a CPU tensor, and only there, it runs ``batch_column_crop_plain``.
-``batch_column_crop.launches`` counts the kernel's launches.
+``batch_column_crop`` is the wrapper, for float32 or bf16 rows. On a CUDA
+tensor it launches the kernel of ``csrc/column_crop.cu`` (built with nvcc
+at first use) in the rows' dtype or raises; on a CPU tensor, and only
+there, it runs ``batch_column_crop_plain``. ``batch_column_crop.launches``
+counts the float32 instance's launches, ``batch_column_crop.launches_bf16``
+the bf16 instance's.
 """
 
 from __future__ import annotations
@@ -20,24 +22,22 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from . import _build
 from .fused_skip import MAX_WINDOW_ELEMS, MAX_WINDOWS, gather_windows
 
 SOURCE = 'column_crop.cu'
 
-_fn = None
+# the C entry point of the kernel's instance for each dtype of the rows
+ENTRIES = {torch.float32: 'rcfd_column_crop',
+           torch.bfloat16: 'rcfd_column_crop_bf16'}
+ARGTYPES = (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 5 + \
+    (ctypes.c_void_p,) * 2
 
 
-def _kernel():
-    """The ctypes entry point of the kernel, built and bound at first use."""
-    global _fn
-    if _fn is None:
-        from ._build import load_library
-        fn = load_library(SOURCE).rcfd_column_crop
-        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 +
-                       [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def _kernel(dtype=torch.float32):
+    """The ctypes entry point of the kernel's instance for ``dtype``, built
+    and bound at first use."""
+    return _build.bind(SOURCE, ENTRIES[dtype], ARGTYPES)
 
 
 def batch_column_crop_plain(rows, starts, win: int):
@@ -57,7 +57,8 @@ def batch_column_crop(rows, starts, win: int):
         starts : (N, K) window starts, clipped to [0, W]; columns past W
             read as zeros
         win : window width
-        On CUDA: float32 rows and int32 starts, contiguous, on one device.
+        On CUDA: float32 or bf16 rows and int32 starts, contiguous, on one
+        device.
     Returns:
         (N * K, C, ph, win) windows, image-major:
         ``out[n * K + k] == rows[n, :, :, s_k : s_k + win]``, zero past W.
@@ -73,15 +74,15 @@ def batch_column_crop(rows, starts, win: int):
     if device.type != 'cuda':
         raise ValueError('batch_column_crop runs on CUDA or CPU tensors, got '
                          '{}'.format(device))
-    for name, t, dtype in (('rows', rows, torch.float32),
-                           ('starts', starts, torch.int32)):
+    for name, t, dtypes in (('rows', rows, tuple(ENTRIES)),
+                            ('starts', starts, (torch.int32,))):
         if t.device != device:
             raise ValueError('{} is on {}, rows on {}'.format(
                 name, t.device, device))
-        if t.dtype != dtype:
+        if t.dtype not in dtypes:
             raise NotImplementedError(
-                'the column crop kernel takes {} {}, got {} (bf16 is in the '
-                'port queue of ROADMAP.md)'.format(dtype, name, t.dtype))
+                'the column crop kernel takes {} {}, got {}'.format(
+                    ' or '.join(map(str, dtypes)), name, t.dtype))
         if not t.is_contiguous():
             raise ValueError('the column crop kernel needs a contiguous '
                              '{}'.format(name))
@@ -93,7 +94,7 @@ def batch_column_crop(rows, starts, win: int):
                              MAX_WINDOW_ELEMS))
 
     out = torch.empty((nk, c, ph, win), dtype=rows.dtype, device=device)
-    fn = _kernel()
+    fn = _kernel(rows.dtype)
     with torch.cuda.device(device):
         err = fn(rows.data_ptr(), starts.data_ptr(), nk, starts.shape[1],
                  c * ph, w, win, out.data_ptr(),
@@ -101,8 +102,9 @@ def batch_column_crop(rows, starts, win: int):
     if err != 0:
         raise RuntimeError('column crop kernel launch failed: CUDA error '
                            '{}'.format(err))
-    batch_column_crop.launches += 1
+    _build.count_launch(batch_column_crop, rows.dtype)
     return out
 
 
 batch_column_crop.launches = 0
+batch_column_crop.launches_bf16 = 0

@@ -12,12 +12,14 @@ neighbouring columns; one column of the skip conv's left (right) taps over
 Convolving G once instead of K windows of it, and never writing the pooled
 windows, is the point of the fusion.
 
-``fused_skip_gather_add`` is the wrapper of the kernel. On a CUDA tensor it
-launches the kernel of ``csrc/fused_skip_gather_add.cu`` (built with nvcc
-at first use) or raises; on a CPU tensor, and only there, it runs
-``fused_skip_gather_add_plain``. ``fused_skip_gather_add.launches`` counts
-the kernel's launches. The convolutions around it are plain PyTorch (cuDNN
-on the card).
+``fused_skip_gather_add`` is the wrapper of the kernel, in float32 or in
+bf16 (``a`` and ``cg`` of one dtype; the corrections stay float32). On a
+CUDA tensor it launches the kernel of ``csrc/fused_skip_gather_add.cu``
+(built with nvcc at first use) in the tensors' dtype or raises; on a CPU
+tensor, and only there, it runs ``fused_skip_gather_add_plain``.
+``fused_skip_gather_add.launches`` counts the float32 instance's launches,
+``fused_skip_gather_add.launches_bf16`` the bf16 instance's. The
+convolutions around it are plain PyTorch (cuDNN on the card).
 """
 
 from __future__ import annotations
@@ -27,26 +29,25 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from . import _build
+
 SOURCE = 'fused_skip_gather_add.cu'
 # the kernels of this module and of crop_cuda.py index a window's elements
 # with 32-bit unsigned integers and its windows by the rows of a CUDA grid
 MAX_WINDOW_ELEMS = 2 ** 31 - 1
 MAX_WINDOWS = 65535
 
-_fn = None
+# the C entry point of the kernel's instance for each dtype of a and cg
+ENTRIES = {torch.float32: 'rcfd_fused_skip_gather_add',
+           torch.bfloat16: 'rcfd_fused_skip_gather_add_bf16'}
+ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + \
+    (ctypes.c_void_p,) * 2
 
 
-def _kernel():
-    """The ctypes entry point of the kernel, built and bound at first use."""
-    global _fn
-    if _fn is None:
-        from ._build import load_library
-        fn = load_library(SOURCE).rcfd_fused_skip_gather_add
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 +
-                       [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def _kernel(dtype=torch.float32):
+    """The ctypes entry point of the kernel's instance for ``dtype``, built
+    and bound at first use."""
+    return _build.bind(SOURCE, ENTRIES[dtype], ARGTYPES)
 
 
 def gather_windows(g, starts, width: int):
@@ -192,8 +193,8 @@ def fused_skip_gather_add(a, cg, starts, corr_l, corr_r):
         starts : (N, K) window starts in [0, Wg - pw]
         corr_l, corr_r : (N * K, Co, ph) float32 corrections of the first
             and the last column
-        On CUDA: float32 a, cg and corrections, int32 starts, all
-        contiguous and on one device.
+        On CUDA: float32 or bf16 a and cg of one dtype, float32
+        corrections, int32 starts, all contiguous and on one device.
     Returns:
         (N * K, Co, ph, pw), a.dtype
     """
@@ -201,16 +202,17 @@ def fused_skip_gather_add(a, cg, starts, corr_l, corr_r):
     device = a.device
     if device.type == 'cpu':
         return fused_skip_gather_add_plain(a, cg, starts, corr_l, corr_r)
+    dtype = a.dtype if a.dtype in ENTRIES else torch.float32
     check_cuda_tensors(
         'the fused skip kernel', device,
-        (('a', a, torch.float32), ('cg', cg, torch.float32),
+        (('a', a, dtype), ('cg', cg, dtype),
          ('starts', starts, torch.int32), ('corr_l', corr_l, torch.float32),
          ('corr_r', corr_r, torch.float32)),
-        '(bf16 is in the port queue of ROADMAP.md)')
+        '(a and cg are float32 or bf16, of one dtype)')
     nk, co, ph, pw = a.shape
     n, wg = cg.shape[0], cg.shape[3]
     out = torch.empty_like(a)
-    fn = _kernel()
+    fn = _kernel(dtype)
     with torch.cuda.device(device):
         err = fn(a.data_ptr(), cg.data_ptr(), starts.data_ptr(),
                  corr_l.data_ptr(), corr_r.data_ptr(), nk, nk // n, co * ph,
@@ -219,11 +221,12 @@ def fused_skip_gather_add(a, cg, starts, corr_l, corr_r):
     if err != 0:
         raise RuntimeError('fused skip kernel launch failed: CUDA error '
                            '{}'.format(err))
-    fused_skip_gather_add.launches += 1
+    _build.count_launch(fused_skip_gather_add, dtype)
     return out
 
 
 fused_skip_gather_add.launches = 0
+fused_skip_gather_add.launches_bf16 = 0
 
 
 def fused_skip_conv_add(y1, w_a, lazy: LazyColumnWindows, w_skip):
@@ -237,7 +240,9 @@ def fused_skip_conv_add(y1, w_a, lazy: LazyColumnWindows, w_skip):
         lazy : LazyColumnWindows of the skip
         w_skip : (Co, C, 3, 3) OIHW weight of the skip term (no bias)
     Returns:
-        (N * K, Co, ph, pw), y1.dtype
+        (N * K, Co, ph, pw), y1.dtype. The weights are taken in the dtype of
+        what they convolve, as in the JAX package; in bf16 the two
+        convolutions and their sum are bf16 and the corrections float32.
     """
     # at pooled_w == 1 the first and the last column coincide and one
     # correction would overwrite the other
@@ -246,7 +251,7 @@ def fused_skip_conv_add(y1, w_a, lazy: LazyColumnWindows, w_skip):
             'fused_skip_conv_add needs pooled_w >= 2, got {}; use '
             'lazy.materialize() and a plain conv instead'.format(
                 lazy.pooled_w))
-    a = F.conv2d(y1, w_a, padding=1).contiguous()
-    cg = F.conv2d(lazy.g, w_skip, padding=1).contiguous()
+    a = F.conv2d(y1, w_a.to(y1.dtype), padding=1).contiguous()
+    cg = F.conv2d(lazy.g, w_skip.to(lazy.g.dtype), padding=1).contiguous()
     corr_l, corr_r = _corrections(lazy, w_skip)
     return fused_skip_gather_add(a, cg, lazy.starts, corr_l, corr_r)

@@ -7,9 +7,8 @@ With ``A = 16 // element size`` (4 in float32, 8 in bf16), ``s_k`` the
 window start clipped to [0, Wg - pw] and ``s^_k = s_k - s_k % A``:
 
   full      K3's function, ``a + window(cg, s_k)`` with the two edge columns
-            corrected in float32. In float32 it is K3 as shipped
-            (``fused_skip.fused_skip_gather_add``); in bf16 a kernel of
-            ``csrc/fused_skip_variants.cu`` with K3's structure.
+            corrected in float32: K3 as shipped
+            (``fused_skip.fused_skip_gather_add``), in either dtype.
   align16   the same function over 16-byte vectors: ``a`` and ``out`` as
             vectors, cg as vectors from the aligned column s^_k, the window
             picked out on chip.
@@ -34,28 +33,21 @@ import ctypes
 
 import torch
 
+from . import _build
 from . import fused_skip as fs
 
 SOURCE = 'fused_skip_variants.cu'
 VARIANTS = ('full', 'align16', 'noselect', 'dmaonly', 'nodma')
 _MODES = {name: i for i, name in enumerate(VARIANTS)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-_fn = None
+ARGTYPES = (ctypes.c_int,) * 2 + (ctypes.c_void_p,) * 5 + \
+    (ctypes.c_int,) * 5 + (ctypes.c_void_p,) * 2
 
 
 def _kernel():
     """The ctypes entry point of the kernels, built and bound at first
     use."""
-    global _fn
-    if _fn is None:
-        from ._build import load_library
-        fn = load_library(SOURCE).rcfd_fused_skip_variant
-        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 +
-                       [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+    return _build.bind(SOURCE, 'rcfd_fused_skip_variant', ARGTYPES)
 
 
 def vector_elems(dtype) -> int:
@@ -101,7 +93,7 @@ PLAIN = {'full': full_plain, 'align16': align16_plain,
 
 def _run(variant, a, cg, starts, corr_l, corr_r):
     """Check the arguments and compute ``variant``: its plain version on the
-    CPU, K3 for the float32 ``full``, else this file's kernel. Returns
+    CPU, K3 for ``full``, else this file's kernel. Returns
     (out, whether a kernel was launched)."""
     name = 'fused skip variant {}'.format(variant)
     fs.check_shapes(name, a, cg, starts, corr_l, corr_r)
@@ -115,7 +107,7 @@ def _run(variant, a, cg, starts, corr_l, corr_r):
                 starts.dtype))
     if a.device.type == 'cpu':
         return PLAIN[variant](a, cg, starts, corr_l, corr_r), False
-    if variant == 'full' and a.dtype == torch.float32:
+    if variant == 'full':
         return fs.fused_skip_gather_add(a, cg, starts, corr_l, corr_r), True
     fs.check_cuda_tensors(
         'the ' + name + ' kernel', a.device,
@@ -125,15 +117,13 @@ def _run(variant, a, cg, starts, corr_l, corr_r):
     nk, co, ph, pw = a.shape
     n, wg = cg.shape[0], cg.shape[3]
     out = torch.empty_like(a)
-    if variant != 'full':
-        row = a.element_size()
-        for label, t, width in (('a', a, pw), ('cg', cg, wg),
-                                ('out', out, pw)):
-            if (width * row) % 16 or t.data_ptr() % 16:
-                raise ValueError(
-                    '{} reads 16-byte vectors: the rows of {} ({} elements '
-                    'of {} bytes at address {:#x}) are not 16-byte aligned'
-                    .format(name, label, width, row, t.data_ptr()))
+    row = a.element_size()
+    for label, t, width in (('a', a, pw), ('cg', cg, wg), ('out', out, pw)):
+        if (width * row) % 16 or t.data_ptr() % 16:
+            raise ValueError(
+                '{} reads 16-byte vectors: the rows of {} ({} elements of {} '
+                'bytes at address {:#x}) are not 16-byte aligned'.format(
+                    name, label, width, row, t.data_ptr()))
     with torch.cuda.device(a.device):
         err = _kernel()(_MODES[variant], _DTYPES[a.dtype], a.data_ptr(),
                         cg.data_ptr(), starts.data_ptr(), corr_l.data_ptr(),

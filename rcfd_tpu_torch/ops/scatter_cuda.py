@@ -9,12 +9,15 @@ step; invalid points write 0. The max is unpacked into the response and
 the winner, and the legacy rewrite turns the winner into integer depth.
 
 ``scatter_quasi_dense_batched`` (a batch of frames in one launch) is the
-wrapper, and ``scatter_quasi_dense`` its case of one frame. On a CUDA
+wrapper, and ``scatter_quasi_dense`` its case of one frame. The crops are
+float32 or bf16 (bf16 serving); the point tables stay float32. On a CUDA
 tensor it launches the kernel of ``csrc/scatter_quasi_dense.cu`` (built
-with nvcc at first use) or raises; on a CPU tensor, and only there, it runs
-its plain version, ``scatter_quasi_dense_batched_plain`` (of one frame:
-``scatter_quasi_dense_plain``). ``scatter_quasi_dense.launches`` counts the
-kernel's launches, by either entry.
+with nvcc at first use), its instance for the crops' dtype, or raises; on a
+CPU tensor, and only there, it runs its plain version,
+``scatter_quasi_dense_batched_plain`` (of one frame:
+``scatter_quasi_dense_plain``), which widens bf16 crops to float32 exactly.
+``scatter_quasi_dense.launches`` counts the float32 instance's launches and
+``scatter_quasi_dense.launches_bf16`` the bf16 instance's, by either entry.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Tuple
 
 import torch
 
+from . import _build
 from .scatter import legacy_rewrite
 
 Q_BITS = 14
@@ -34,21 +38,18 @@ MAX_POINTS = (1 << IDX_BITS) - 1
 MAX_FRAMES = 65535
 SOURCE = 'scatter_quasi_dense.cu'
 
-_fn = None
+# the C entry point of the kernel's instance for each dtype of the crops
+ENTRIES = {torch.float32: 'rcfd_scatter_quasi_dense',
+           torch.bfloat16: 'rcfd_scatter_quasi_dense_bf16'}
+ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 5 + \
+    (ctypes.c_float,) + (ctypes.c_void_p,) * 2 + \
+    (ctypes.c_longlong, ctypes.c_void_p)
 
 
-def _kernel():
-    """The ctypes entry point of the kernel, built and bound at first use."""
-    global _fn
-    if _fn is None:
-        from ._build import load_library
-        fn = load_library(SOURCE).rcfd_scatter_quasi_dense
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 +
-                       [ctypes.c_float] + [ctypes.c_void_p] * 2 +
-                       [ctypes.c_longlong, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def _kernel(dtype=torch.float32):
+    """The ctypes entry point of the kernel's instance for crops of
+    ``dtype``, built and bound at first use."""
+    return _build.bind(SOURCE, ENTRIES[dtype], ARGTYPES)
 
 
 def point_tables(x_positions, z_values, valid, pw: int, w: int):
@@ -134,24 +135,25 @@ def scatter_quasi_dense_plain(response_crops, x_positions, z_values, valid,
 
 
 def _check_cuda_inputs(response_crops, x_positions, z_values, valid):
-    """The kernel's demands on its CUDA inputs: one device, float32 (bool
-    valid), contiguous, tables shaped as the crops' leading dimensions."""
+    """The kernel's demands on its CUDA inputs: one device, float32 or bf16
+    crops, float32 x and z, bool valid, contiguous, tables shaped as the
+    crops' leading dimensions."""
     device = response_crops.device
     if device.type != 'cuda':
         raise ValueError('the scatter runs on CUDA or CPU tensors, got '
                          '{}'.format(device))
-    for name, t, dtype in (('response_crops', response_crops, torch.float32),
-                           ('x_positions', x_positions, torch.float32),
-                           ('z_values', z_values, torch.float32),
-                           ('valid', valid, torch.bool)):
+    for name, t, dtypes in (('response_crops', response_crops,
+                             tuple(ENTRIES)),
+                            ('x_positions', x_positions, (torch.float32,)),
+                            ('z_values', z_values, (torch.float32,)),
+                            ('valid', valid, (torch.bool,))):
         if t.device != device:
             raise ValueError('{} is on {}, the crops on {}'.format(
                 name, t.device, device))
-        if t.dtype != dtype:
+        if t.dtype not in dtypes:
             raise NotImplementedError(
-                'the scatter kernel takes {} {}, got {} (other types, bf16 '
-                'crops among them, are in the port queue of ROADMAP.md)'
-                .format(dtype, name, t.dtype))
+                'the scatter kernel takes {} {}, got {}'.format(
+                    ' or '.join(map(str, dtypes)), name, t.dtype))
         if not t.is_contiguous():
             raise ValueError('the scatter kernel needs a contiguous '
                              '{}'.format(name))
@@ -186,7 +188,7 @@ def _launch(response_crops, x_positions, z_values, valid, h, w, threshold):
         depth_map[:, :crop_top].zero_()
         response_map[:, :crop_top].zero_()
     row_bytes = w * depth_map.element_size()
-    fn = _kernel()
+    fn = _kernel(response_crops.dtype)
     with torch.cuda.device(device):
         err = fn(response_crops.data_ptr(), x_positions.data_ptr(),
                  z_values.data_ptr(), valid.data_ptr(), b, k, ph, pw, w,
@@ -196,7 +198,7 @@ def _launch(response_crops, x_positions, z_values, valid, h, w, threshold):
     if err != 0:
         raise RuntimeError('scatter kernel launch failed: CUDA error '
                            '{}'.format(err))
-    scatter_quasi_dense.launches += 1
+    _build.count_launch(scatter_quasi_dense, response_crops.dtype)
     return depth_map, response_map
 
 
@@ -214,14 +216,14 @@ def scatter_quasi_dense(response_crops, x_positions, z_values, valid,
     through ``scatter_quasi_dense_batched``.
 
     Arg(s):
-        response_crops : (K, ph, pw) sigmoid responses
+        response_crops : (K, ph, pw) sigmoid responses, float32 or bf16
         x_positions : (K,) padded-coordinate x of each point (x + pw // 2)
         z_values : (K,) metric depth of each point
         valid : (K,) bool mask of the real (non-padding) points
         image_height, image_width : size of the unpadded frame
         patch_size : (ph, pw)
-        On CUDA the four tensors must be contiguous, float32 (bool for
-        valid), and on one device.
+        On CUDA the four tensors must be contiguous, float32 (bf16 crops
+        too; bool for valid), and on one device.
     Returns:
         depth_map, response_map : (H, W) float32 each; the crop rows are
         the bottom ph rows of the frame.
@@ -236,6 +238,7 @@ def scatter_quasi_dense(response_crops, x_positions, z_values, valid,
 
 
 scatter_quasi_dense.launches = 0
+scatter_quasi_dense.launches_bf16 = 0
 
 
 def scatter_quasi_dense_batched(response_crops, x_positions, z_values,

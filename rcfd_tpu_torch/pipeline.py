@@ -12,6 +12,7 @@ load_depth (x256), so the fused path scales the response by
 from __future__ import annotations
 
 import contextlib
+import copy
 from typing import Optional
 
 import numpy as np
@@ -30,6 +31,8 @@ RESPONSE_DECODE_SCALE = float(2 ** 14) / 256.0
 # patches the batched path decodes at once before it splits the decode into
 # chunks (rcfd_tpu/pipeline.py:263-268)
 PATCHES_PER_CHUNK = 512
+# the dtypes the models can serve in (``compute_dtype``)
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def decode_chunk_count(b: int, k: int, decode_chunks: Optional[int] = None
@@ -87,18 +90,37 @@ class TwoStagePipeline:
     they are moved to the device and put in eval mode. ``optimize`` folds
     every batch norm into its convolution (nn.optimize.fold_batch_norm),
     in copies of the two models. A request runs under
-    ``serving_numerics()``."""
+    ``serving_numerics()``.
+
+    ``compute_dtype`` (None, torch.float32 or torch.bfloat16; None is
+    float32) is the dtype the two models compute in, with the JAX package's
+    rules (rcfd_tpu/pipeline.py ``compute_dtype``): after the optional fold,
+    copies of both models have their floating parameters and buffers cast to
+    it; the normalized image is cast to it, the radar points never (their
+    pixel coordinates would move: bf16 steps by 8 above 1024); RadarNet's
+    crops reach the scatter in it; FusionNet's input is cast to it after the
+    bridge; the dense output comes back as float32. The quasi-dense maps are
+    float32 whatever the dtype."""
 
     def __init__(self, radarnet, fusionnet, image_height: int,
                  image_width: int, normalized_image_range=(0, 1),
                  quantize_bridge: bool = True, codec_encode: bool = False,
-                 optimize: bool = False, device=None):
+                 optimize: bool = False, compute_dtype=None, device=None):
         self.device = default_device(device)
+        self.compute_dtype = compute_dtype or torch.float32
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise NotImplementedError(
+                'compute_dtype {} is not served; it takes None, torch.float32 '
+                'or torch.bfloat16'.format(compute_dtype))
         if optimize:
+            # the fold runs in float32, on copies, before any cast
             radarnet = fold_batch_norm(radarnet)
             fusionnet = fold_batch_norm(fusionnet)
-        self.radarnet = radarnet.to(self.device).eval()
-        self.fusionnet = fusionnet.to(self.device).eval()
+        elif self.compute_dtype != torch.float32:
+            radarnet, fusionnet = copy.deepcopy(radarnet), \
+                copy.deepcopy(fusionnet)
+        self.radarnet = radarnet.to(self.device, self.compute_dtype).eval()
+        self.fusionnet = fusionnet.to(self.device, self.compute_dtype).eval()
         self.image_height = image_height
         self.image_width = image_width
         self.transforms = Transforms(normalized_image_range)
@@ -125,10 +147,12 @@ class TwoStagePipeline:
         """``radarnet_stage`` over B frames: images (B, H, W, 3), points
         (B, K, 3). RadarNet decodes the B*K patches in ``n_chunks`` chunks
         of K / n_chunks points of every frame (at once for one). Returns
-        (image_t (B, 3, H, W), crops (B, K, ph, pw), xs (B, K), zs (B, K))."""
+        (image_t (B, 3, H, W), crops (B, K, ph, pw), xs (B, K), zs (B, K)):
+        the image and the crops in the compute dtype, xs and zs float32."""
         pad = self.radarnet.input_patch_size_image[1] // 2
         images = transport.decode(self._tensor(images))
-        image_t = self.transforms.transform(images).permute(0, 3, 1, 2)
+        image_t = self.transforms.transform(images).permute(0, 3, 1, 2).to(
+            self.compute_dtype)
         image_pad = F.pad(image_t, (pad, pad, 0, 0), mode='replicate')
         points = self._tensor(points).float()
         xs = points[..., 0] + pad
@@ -141,15 +165,15 @@ class TwoStagePipeline:
 
     def bridge(self, depth_map, response_map):
         """The codec bridge: optional PNG quantization, then FusionNet's
-        (B, 2, H, W) input with the response scaled by 64, from (H, W) maps
-        (B = 1) or (B, H, W) ones."""
+        (B, 2, H, W) input with the response scaled by 64, in the compute
+        dtype, from (H, W) maps (B = 1) or (B, H, W) ones."""
         if self.quantize_bridge:
             depth_map, response_map = quantize_bridge(depth_map,
                                                       response_map)
         input_depth = torch.stack(
             [depth_map, response_map * RESPONSE_DECODE_SCALE], -3)
         input_depth = input_depth.reshape(-1, *input_depth.shape[-3:])
-        return depth_map, response_map, input_depth
+        return depth_map, response_map, input_depth.to(self.compute_dtype)
 
     def _outputs(self, dense, depth_map, response_map):
         outs = (dense.float(), depth_map, response_map)

@@ -8,7 +8,7 @@ tools/fusepall_exp.py, which does the same for the Pallas kernel on a TPU).
 
 The defaults are ``deconv1``'s shapes on the 900x288 patch, in bf16 as the
 TPU tool measures. The variants (ops/fused_skip_variants.py) are ``full``
-(K3's function; in float32 K3 itself), ``align16`` (the same function over
+(K3 itself, in either dtype), ``align16`` (the same function over
 16-byte vectors, aligned window reads and an on-chip pick-out),
 ``noselect`` (no pick-out), ``dmaonly`` (the window reads and the writes
 alone) and ``nodma`` (``a * 2``). For each the tool prints its device time

@@ -51,15 +51,16 @@ def test_kernel_matches_plain_on_card(cuda_device, rng):
         assert torch.equal(d, d_p) and torch.equal(r, r_p), name
 
 
-def _strip_inputs(rng, device, k, pw, w, offset, ph=23):
+def _strip_inputs(rng, device, k, pw, w, offset, ph=23,
+                  dtype=torch.float32):
     """Scatter inputs for the edges of the row-strip kernel: an odd number of
     rows (a ragged last strip), windows at both aprons (x at the first and
     last column and clipped beyond both), pairs of points inside one 2^-14
     step in overlapping windows (one pair across the 1,024-point list
     chunk when k > 1,024), values of exactly 0.5 and just below, invalid
-    points, and integer depths equal to later indices. The crops start
-    ``offset`` floats past an allocation, so offset 1 is not 16-byte
-    aligned."""
+    points, and integer depths equal to later indices. The crops, of
+    ``dtype``, start ``offset`` elements past an allocation, so offset 1
+    is not aligned to 4 of them (bf16 rounds the pairs to exact ties)."""
     crops = rng.random((k, ph, pw), dtype=np.float32)
     x = rng.integers(0, w, k).astype(np.float32)
     x[:4] = [0, w - 1, -pw - 40, w + pw + 40]
@@ -73,11 +74,27 @@ def _strip_inputs(rng, device, k, pw, w, offset, ph=23):
     z[[0, 2, 4]] = [3.0, 6.5, 8.0]
     valid = rng.random(k) > 0.1
     valid[-2:] = False
-    flat = torch.empty(k * ph * pw + offset, device=device)
+    flat = torch.empty(k * ph * pw + offset, device=device, dtype=dtype)
     crops_t = flat[offset:].view(k, ph, pw)
     crops_t.copy_(torch.from_numpy(crops))
     return (crops_t,) + tuple(torch.from_numpy(a).to(device)
                               for a in (x + pw // 2, z, valid))
+
+
+def _counts():
+    """The launch counts of both instances of every serving kernel."""
+    return {name + suffix: getattr(wrapper, 'launches' + suffix)
+            for name, wrapper in (('K1', sc.scatter_quasi_dense),
+                                  ('K2', cc.batch_column_crop),
+                                  ('K3', fs.fused_skip_gather_add))
+            for suffix in ('', '_bf16')}
+
+
+def _launched(before, **expect):
+    """The counts since ``before`` (a _counts()) equal ``expect`` (e.g.
+    K1_bf16=1), and every other count is unchanged."""
+    return {key: n - before[key] for key, n in _counts().items()} == \
+        {key: expect.get(key, 0) for key in before}
 
 
 @pytest.mark.cuda
@@ -107,10 +124,13 @@ def test_kernel_wrapper_refuses_bad_cuda_tensors(cuda_device, rng):
     with pytest.raises(ValueError, match='contiguous'):
         sc.scatter_quasi_dense(c.transpose(1, 2).contiguous().transpose(
             1, 2), xs, zs, v, h, w, patch)
-    with pytest.raises(NotImplementedError):
-        sc.scatter_quasi_dense(c.to(torch.bfloat16), xs, zs, v, h, w, patch)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(NotImplementedError):
+            sc.scatter_quasi_dense(c.to(dtype), xs, zs, v, h, w, patch)
     with pytest.raises(NotImplementedError):
         sc.scatter_quasi_dense(c, xs.double(), zs, v, h, w, patch)
+    with pytest.raises(NotImplementedError):
+        sc.scatter_quasi_dense(c, xs.to(torch.bfloat16), zs, v, h, w, patch)
     with pytest.raises(ValueError):
         sc.scatter_quasi_dense(c, xs.cpu(), zs, v, h, w, patch)
 
@@ -144,8 +164,16 @@ def test_fused_skip_wrapper_refuses_bad_cuda_tensors(cuda_device, rng):
     with pytest.raises(ValueError, match='contiguous'):
         fs.fused_skip_gather_add(a, cg, starts, cl.transpose(1, 2)
                                  .contiguous().transpose(1, 2), cr)
-    with pytest.raises(NotImplementedError):
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(NotImplementedError):
+            fs.fused_skip_gather_add(a.to(dtype), cg.to(dtype), starts, cl,
+                                     cr)
+    with pytest.raises(NotImplementedError):  # a and cg of two dtypes
         fs.fused_skip_gather_add(a.to(torch.bfloat16), cg, starts, cl, cr)
+    with pytest.raises(NotImplementedError):  # bf16 corrections
+        fs.fused_skip_gather_add(a.to(torch.bfloat16),
+                                 cg.to(torch.bfloat16), starts,
+                                 cl.to(torch.bfloat16), cr)
     with pytest.raises(NotImplementedError):
         fs.fused_skip_gather_add(a, cg, starts.long(), cl, cr)
     with pytest.raises(ValueError):
@@ -268,13 +296,15 @@ def test_codec_encode_on_card(cuda_device, rng):
             codes, np.floor(x.astype(np.float64) * m).astype(np.int64))
 
 
-def _batched_scatter_inputs(rng, device, b, k, pw, offset, ph=23, w=640):
+def _batched_scatter_inputs(rng, device, b, k, pw, offset, ph=23, w=640,
+                            dtype=torch.float32):
     """Inputs of the batched scatter: B frames of K points with windows at
     and beyond both aprons, a pair of points inside one 2^-14 step in one
     window, values of exactly 0.5, integer depths that cascade through the
     legacy rewrite, random padding, and (B > 1) a last frame with no valid
-    point. The crops start ``offset`` floats past an allocation, so offset
-    1 is not 16-byte aligned (the scalar branch)."""
+    point. The crops, of ``dtype``, start ``offset`` elements past an
+    allocation, so offset 1 is not aligned to 4 of them (the scalar
+    branch)."""
     crops = rng.random((b, k, ph, pw), dtype=np.float32)
     x = rng.integers(-pw - 40, w + pw + 40, (b, k)).astype(np.float32)
     x[:, 0] = rng.integers(0, w, b)  # point 0 lands in the frame
@@ -288,7 +318,7 @@ def _batched_scatter_inputs(rng, device, b, k, pw, offset, ph=23, w=640):
     valid[:, 0] = True
     if b > 1:
         valid[-1] = False
-    flat = torch.empty(b * k * ph * pw + offset, device=device)
+    flat = torch.empty(b * k * ph * pw + offset, device=device, dtype=dtype)
     crops_t = flat[offset:].view(b, k, ph, pw)
     crops_t.copy_(torch.from_numpy(crops))
     return (crops_t,) + tuple(torch.from_numpy(a).to(device)
@@ -327,9 +357,10 @@ def test_batched_scatter_wrapper_refuses_bad_cuda_tensors(cuda_device,
                                                           rng):
     c, xs, zs, v = _batched_scatter_inputs(rng, cuda_device, 3, 8, 16, 0)
     h, w, patch = 27, 640, tuple(c.shape[2:])
-    with pytest.raises(NotImplementedError):
-        sc.scatter_quasi_dense_batched(c.to(torch.bfloat16), xs, zs, v, h,
-                                       w, patch)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(NotImplementedError):
+            sc.scatter_quasi_dense_batched(c.to(dtype), xs, zs, v, h, w,
+                                           patch)
     with pytest.raises(ValueError, match='contiguous'):
         sc.scatter_quasi_dense_batched(
             c.transpose(2, 3).contiguous().transpose(2, 3), xs, zs, v, h, w,
@@ -406,3 +437,156 @@ def test_batched_pipeline_on_card_matches_cpu(cuda_device, path):
         dense_g = card.fusionnet(image_c.to(cuda_device),
                                  input_depth.to(cuda_device))
         assert float((dense_g.cpu() - dense_c).abs().max()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# bf16 instances of the serving kernels, and bf16 serving
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('pw', [288, 300, 30])
+@pytest.mark.parametrize('b', [1, 3])
+def test_scatter_bf16_matches_plain_on_card(cuda_device, rng, b, pw,
+                                            offset):
+    """K1's bf16 instance: pw 288 and 300 with aligned crops take the 8-byte
+    branch, pw 30 and offset 1 (2 bytes past an allocation) the scalar one.
+    One frame through scatter_quasi_dense, B frames through the batched
+    wrapper, each against its plain version bit for bit, and each frame of
+    the batch against the one-frame kernel; the bf16 count rises by one a
+    call, the float32 count not at all."""
+    args = _batched_scatter_inputs(rng, cuda_device, b, 64, pw, offset,
+                                   dtype=torch.bfloat16)
+    h, w, patch = 27, 640, tuple(args[0].shape[2:])
+    before = _counts()
+    d, r = sc.scatter_quasi_dense_batched(*args, h, w, patch)
+    torch.cuda.synchronize()
+    assert _launched(before, K1_bf16=1)
+    d_p, r_p = sc.scatter_quasi_dense_batched_plain(*args, h, w, patch)
+    assert torch.equal(d, d_p) and torch.equal(r, r_p)
+    for f in range(b):
+        d_f, r_f = sc.scatter_quasi_dense(
+            *[t[f].contiguous() for t in args], h, w, patch)
+        assert torch.equal(d[f], d_f) and torch.equal(r[f], r_f)
+    assert bool((r[0] > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('k, w', [(1100, 640), (9, 12000)])
+def test_scatter_bf16_strip_edges_on_card(cuda_device, rng, k, w, offset):
+    """The row-strip edges of test_scatter_strip_edges_on_card with bf16
+    crops at pw 288: more points than one list chunk, and key map rows
+    beyond 48 KB of shared memory."""
+    args = _strip_inputs(rng, cuda_device, k, 288, w, offset,
+                         dtype=torch.bfloat16)
+    h, patch = 27, tuple(args[0].shape[1:])
+    d, r = sc.scatter_quasi_dense(*args, h, w, patch)
+    d_p, r_p = sc.scatter_quasi_dense_plain(*args, h, w, patch)
+    torch.cuda.synchronize()
+    assert torch.equal(d, d_p) and torch.equal(r, r_p)
+    assert bool((r > 0).any()) and bool((d > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('pw', [2, 6, 37])
+def test_fused_skip_bf16_matches_plain_on_card(cuda_device, rng, pw):
+    """K3's bf16 instance against its plain version, bit for bit; K4's bf16
+    ``full`` is this instance (one more launch of it, the same output)."""
+    a, cg, starts, cl, cr = _gather_add_inputs(rng, cuda_device, pw=pw)
+    args = (a.to(torch.bfloat16), cg.to(torch.bfloat16), starts, cl, cr)
+    before = _counts()
+    out = fs.fused_skip_gather_add(*args)
+    torch.cuda.synchronize()
+    assert _launched(before, K3_bf16=1)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, fs.fused_skip_gather_add_plain(*args))
+    assert torch.equal(out, fv.full(*args))
+    assert _launched(before, K3_bf16=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('win', [1, 15, 43])
+def test_column_crop_bf16_matches_plain_on_card(cuda_device, rng, win):
+    rows, starts = _crop_inputs(rng, cuda_device)
+    rows = rows.to(torch.bfloat16)
+    before = _counts()
+    out = cc.batch_column_crop(rows, starts, win)
+    torch.cuda.synchronize()
+    assert _launched(before, K2_bf16=1)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, cc.batch_column_crop_plain(rows, starts, win))
+
+
+# tiny bf16 pipelines on the card: (RadarNet config, perf, the launches of
+# one request by instance)
+BF16_PATHS = {
+    'canonical': (RADARNET_TINY, None, dict(K1_bf16=1)),
+    'fused': (RADARNET_TINY, PerfConfig(fused_pool2=True, fused_pool4=True),
+              dict(K1_bf16=1, K3_bf16=2)),
+    # patch 64x40: the 1/16 and 1/32 pools are variable-bin
+    'wide': (RADARNET_WIDE, None, dict(K1_bf16=1, K2_bf16=2)),
+}
+# bf16 on the card against bf16 on the CPU: RadarNet's crops within a few
+# bf16 steps (cuDNN and the CPU round bf16 convolutions at other places),
+# dense depth from the same maps within tests/test_bf16_serving.py's MAE
+BF16_CROP_TOL = 2e-2
+BF16_DENSE_MAE = 0.25
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('path', sorted(BF16_PATHS))
+def test_bf16_pipeline_on_card_matches_cpu(cuda_device, path):
+    """One request of a tiny TwoStagePipeline(compute_dtype=bfloat16) on
+    the card: only the bf16 instances launched, as the path needs; dense
+    float32 and finite; RadarNet's crops within BF16_CROP_TOL of the
+    CPU's; the scatter of the CPU's bf16 crops equal on both; FusionNet's
+    depth from the same input within BF16_DENSE_MAE; then forward_batched
+    over two frames in one decode chunk: the same launches as one request
+    (one K1 over both frames; K2 and K3 over the chunk's patches), dense
+    float32 and finite."""
+    radarnet_kw, perf, expect = BF16_PATHS[path]
+    gen = torch.Generator().manual_seed(5)
+    rn = RadarNetModel(**radarnet_kw, device='cpu', perf=perf)
+    fn = FusionNetModel(**FUSIONNET_TINY, device='cpu')
+    init_parameters(rn, gen)
+    init_parameters(fn, gen)
+    cpu = pipeline.TwoStagePipeline(rn, fn, H, W, device='cpu',
+                                    compute_dtype=torch.bfloat16)
+    card = pipeline.TwoStagePipeline(rn, fn, H, W, device=cuda_device,
+                                     compute_dtype=torch.bfloat16)
+    image, points, valid = frame_and_points(np.random.default_rng(6))
+    before = _counts()
+    dense_g = card(image, points, valid)[0]
+    torch.cuda.synchronize()
+    assert _launched(before, **expect)
+    assert dense_g.dtype == torch.float32 and dense_g.is_cuda
+    assert bool(torch.isfinite(dense_g).all())
+    with torch.inference_mode(), pipeline.serving_numerics():
+        image_c, crops_c, xs, zs = cpu.radarnet_stage(image, points)
+        crops_g = card.radarnet_stage(image, points)[1]
+        assert crops_g.dtype == torch.bfloat16
+        assert float((crops_g.cpu().float() - crops_c.float()).abs().max()) \
+            <= BF16_CROP_TOL
+        v = torch.from_numpy(valid)
+        patch = rn.input_patch_size_image
+        maps_c = sc.scatter_quasi_dense(crops_c, xs, zs, v, H, W, patch)
+        maps_g = sc.scatter_quasi_dense(
+            crops_c.to(cuda_device), xs.to(cuda_device), zs.to(cuda_device),
+            v.to(cuda_device), H, W, patch)
+        assert all(torch.equal(g.cpu(), c) for g, c in zip(maps_g, maps_c))
+        _, _, input_depth = cpu.bridge(*maps_c)
+        dense_c = cpu.fusionnet(image_c, input_depth).float()
+        dense_g = card.fusionnet(image_c.to(cuda_device),
+                                 input_depth.to(cuda_device)).float()
+        assert float((dense_g.cpu() - dense_c).abs().mean()) < BF16_DENSE_MAE
+    frames = [(image, points, valid),
+              frame_and_points(np.random.default_rng(7))]
+    before = _counts()
+    dense_b = card.forward_batched(np.concatenate([f[0] for f in frames]),
+                                   np.stack([f[1] for f in frames]),
+                                   np.stack([f[2] for f in frames]))[0]
+    torch.cuda.synchronize()
+    assert _launched(before, **expect)
+    assert dense_b.dtype == torch.float32 and tuple(dense_b.shape) == \
+        (2, H, W) and bool(torch.isfinite(dense_b).all())

@@ -52,8 +52,9 @@ def test_source_imports_nothing_forbidden(path):
 
 def test_import_and_build_pipeline_without_jax():
     """A fresh interpreter imports every module of the port, builds the
-    pipeline on the CPU, serves a batch and restores a pipeline from .pth
-    files; no JAX, rcfd_tpu, Pillow or torchvision module is loaded."""
+    pipeline on the CPU, serves a batch and a bf16 request and restores a
+    pipeline from .pth files; no JAX, rcfd_tpu, Pillow or torchvision
+    module is loaded."""
     code = r'''
 import importlib, pkgutil, sys
 import rcfd_tpu_torch
@@ -70,13 +71,18 @@ fn = FusionNetModel(3, 2, 'fusionnet18_batch_norm', [4, 8, 8, 8, 8, 8],
                     device='cpu')
 TwoStagePipeline(rn, fn, 64, 96, device='cpu')
 TwoStagePipeline(rn, fn, 64, 96, optimize=True, device='cpu')
-# the batched path and the checkpoint restore load nothing forbidden either
+# the batched path, bf16 serving and the checkpoint restore load nothing
+# forbidden either
 import os, tempfile, numpy as np, torch
 pipe = TwoStagePipeline(rn, fn, 64, 96, device='cpu')
 points = np.zeros((2, 4, 3), np.float32)
 points[..., 0], points[..., 2] = 40, 9
 pipe.forward_batched(np.zeros((2, 64, 96, 3), np.uint8), points,
                      np.ones((2, 4), bool))
+dense, _, _ = TwoStagePipeline(rn, fn, 64, 96, compute_dtype=torch.bfloat16,
+                               device='cpu')(
+    np.zeros((1, 64, 96, 3), np.uint8), points[0], np.ones(4, bool))
+assert dense.dtype == torch.float32 and dense.shape == (64, 96)
 paths = []
 for model, keys in ((rn, ('radarnet_encoder_state_dict',
                           'radarnet_decoder_state_dict')),
