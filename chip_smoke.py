@@ -53,7 +53,9 @@ Phases, each printed as it starts and ends:
              versions and its deviation from the float32 path of the same
              requests printed; forward_batched at B = 8 and, folded, at
              B = 16, each frame against __call__; paired rounds of bf16
-             against float32 slice requests; FusionNet alone in bf16
+             against float32 slice requests; B = 2 in two decode chunks
+             with the deferred pools and at the 900x300 patch, as in
+             batched; FusionNet alone in bf16
 
 Each path phase (and each configuration of the batched phase) sets every
 kernel's launch count to 0 before its counted requests, reads them after,
@@ -393,6 +395,25 @@ def kernel_entry(name, source, replaces, parts, library):
                 per_request=True, parts=parts)
 
 
+def row_tile_geometry(dtype, rows, stride, n_images):
+    """The launch geometry of a bf16 row-tile kernel (rows a block stages,
+    its shared-memory bytes, blocks: ops/fused_skip.py::row_tile); {} for
+    float32, whose kernels stage nothing."""
+    from rcfd_tpu_torch.ops.fused_skip import row_tile
+
+    if dtype != torch.bfloat16:
+        return {}
+    tile_rows, smem_bytes, blocks = row_tile(rows, stride, n_images)
+    return dict(tile_rows=tile_rows, smem_bytes=smem_bytes, blocks=blocks)
+
+
+def describe_tiles(tiles):
+    if not tiles:
+        return ''
+    return ', {tile_rows}-row tiles of {smem_bytes} bytes of shared ' \
+        'memory, {blocks} blocks of 256 threads'.format(**tiles)
+
+
 def fused_skip_shapes(rn, device):
     """(block, channels, ph, pw, map width) of the fused skip gather-add
     at deconv1 (the 1/2-scale skip) and deconv2 (the 1/4) of the 900x288
@@ -440,16 +461,20 @@ def phase_kernel_fused_skip(device, record, rn, dtype=torch.float32):
         nbytes = a.element_size() * (2 * a.numel() + cg.numel()) + \
             4 * (2 * corr_l.numel() + K)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        tiles = row_tile_geometry(dtype, co * ph, wg, 1)
         log('{} at {}: a {} cg {}, kernel == plain version, bit for bit '
             '(tolerance 0); device time: kernel {:.4f} ms (median of 20), '
-            'plain {:.4f} ms, bound {:.4f} ms ({} bytes at {:.3g} B/s); '
-            'one-call PyTorch yardstick: none (no one call adds windows of '
-            'one tensor with the boundary corrections)'.format(
+            'plain {:.4f} ms, bound {:.4f} ms ({} bytes at {:.3g} B/s), '
+            'kernel at {:.1f} GB/s{}; one-call PyTorch yardstick: none (no '
+            'one call adds windows of one tensor with the boundary '
+            'corrections)'.format(
                 label, block, tuple(a.shape), tuple(cg.shape), ms,
-                plain_ms, bound_ms, nbytes, HBM_BYTES_PER_S))
+                plain_ms, bound_ms, nbytes, HBM_BYTES_PER_S,
+                nbytes / ms * 1e-6, describe_tiles(tiles)))
         parts.append(dict(shape=block, a=list(a.shape), cg=list(cg.shape),
                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bytes=nbytes))
+                          bound_ms=bound_ms, bytes=nbytes,
+                          gb_per_s=nbytes / ms * 1e-6, **tiles))
         del args, a, cg, corr_l, corr_r
     name = 'fused_skip_gather_add' + dtype_label(dtype)
     record[name] = kernel_entry(
@@ -497,19 +522,30 @@ def phase_kernel_column_crop(device, record, rn, dtype=torch.float32):
         check(torch.equal(torch.gather(rows_p, 3, index), out),
               'the torch.gather yardstick differs from the kernel')
         library_ms = device_ms(lambda: torch.gather(rows_p, 3, index), 20)
+        # the write-only floor: PyTorch filling a tensor of the output's
+        # bytes, the most of the kernel's work (the rows are 3-9% of it)
+        fill = torch.empty_like(out)
+        write_ms = device_ms(fill.zero_, 20)
         nbytes = rows.element_size() * (out.numel() + rows.numel()) + 4 * K
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        tiles = row_tile_geometry(dtype, c * ph, w_f + win, 1)
         log('{} at 1/{}: rows {} -> {} windows of {}, kernel == plain '
             'version, bit for bit (tolerance 0); device time: kernel {:.4f} '
             'ms (median of 20), plain {:.4f} ms, torch.gather {:.4f} ms, '
-            'bound {:.4f} ms ({} bytes at {:.3g} B/s)'.format(
+            'bound {:.4f} ms ({} bytes at {:.3g} B/s), kernel at {:.1f} '
+            'GB/s; write-only floor (zero_ of the output\'s {} bytes) {:.4f} '
+            'ms{}'.format(
                 label, int(1 / SCALES[i]), tuple(rows.shape), K, win, ms,
-                plain_ms, library_ms, bound_ms, nbytes, HBM_BYTES_PER_S))
+                plain_ms, library_ms, bound_ms, nbytes, HBM_BYTES_PER_S,
+                nbytes / ms * 1e-6, out.numel() * out.element_size(),
+                write_ms, describe_tiles(tiles)))
         parts.append(dict(shape='1/{}'.format(int(1 / SCALES[i])),
                           rows=list(rows.shape), win=win, max_abs_err=err,
                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          library_ms=library_ms, bytes=nbytes))
-        del out, ref, rows_p, index
+                          library_ms=library_ms, bytes=nbytes,
+                          gb_per_s=nbytes / ms * 1e-6, write_floor_ms=write_ms,
+                          **tiles))
+        del out, ref, rows_p, index, fill
     name = 'column_crop' + dtype_label(dtype)
     record[name] = kernel_entry(
         name, 'rcfd_tpu_torch/csrc/column_crop.cu',
@@ -1498,7 +1534,10 @@ def phase_bf16(device, record, pipes, opt_pipe, reqs):
     path's requests launch only the bf16 instances, held to their plain
     versions and compared with the float32 path; forward_batched at B = 8
     and, folded, at B = 16, each frame against __call__; paired rounds
-    against float32; FusionNet alone in bf16."""
+    against float32; B = 2 in two decode chunks with the deferred pools
+    and at the 900x300 patch, as in phase batched; FusionNet alone in
+    bf16."""
+    from rcfd_tpu_torch.nn.perf import PerfConfig
     from rcfd_tpu_torch.ops import crop_cuda as cc
     from rcfd_tpu_torch.ops import fused_skip as fs
     from rcfd_tpu_torch.ops import roi_pool
@@ -1551,6 +1590,34 @@ def phase_bf16(device, record, pipes, opt_pipe, reqs):
         del outs
         torch.cuda.empty_cache()
     del batches
+    # phase batched's B = 2 requests, in two decode chunks: the row-tile
+    # kernels over the 2 images of each chunk's windows
+    small = batched_requests(rng, N_BATCHED + 1, 2)
+    for name, kw, kernel, per_chunk, module, attr, plain in (
+            ('batched fused bf16 B=2', dict(perf=PerfConfig(
+                fused_pool2=True, fused_pool4=True, decode_chunks=2)),
+             'fused_skip_gather_add bf16', 2, fs, 'fused_skip_gather_add',
+             fs.fused_skip_gather_add_plain),
+            ('batched wide bf16 B=2', dict(input_patch_size_image=WIDE_PATCH,
+                                           perf=PerfConfig(decode_chunks=2)),
+             'column_crop bf16', 3, roi_pool, 'batch_column_crop',
+             cc.batch_column_crop_plain)):
+        rn = radarnet_like(pipes['slice'].radarnet, device, **kw)
+        pipe = TwoStagePipeline(rn, pipes['slice'].fusionnet, H, W,
+                                compute_dtype=bf16, device=device)
+        outs, _, _, launches = serve_path(
+            name, pipe, small, device,
+            {'scatter_quasi_dense bf16': N_BATCHED,
+             kernel: 2 * per_chunk * N_BATCHED}, batched=True)
+        count_launches(record, name, launches,
+                       ['scatter_quasi_dense bf16', kernel])
+        check_plain_route(name, pipe.forward_batched, small[1], outs[0],
+                          module, attr, plain)
+        check_frames(name, pipe, small[1], outs[0], (0, 1),
+                     crop_tol=BF16_CROP_TOL, dense_atol=0.0,
+                     dense_rtol=BF16_DENSE_RTOL)
+        del outs, pipe, rn
+    torch.cuda.empty_cache()
     paired_times({'slice': pipes['slice'], 'slice bf16': served['slice']},
                  reqs[1:], PAIRED_ROUNDS)
     phase_fusionnet_alone(device, pipes['slice'].fusionnet, bf16)

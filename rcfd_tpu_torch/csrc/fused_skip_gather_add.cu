@@ -22,30 +22,44 @@
 // this kernel is also K4's `full` (fused_skip_variants.py).
 //
 // What bounds it on the card: memory. Each element of `a` is read and each of
-// `out` written once; `cg` is read from its windows. At the deconv1 shapes of
-// the 900x288 patch (64 windows of 32 x 450 x 144, cg 1 x 32 x 450 x 1088)
-// that is about 531 MB read, 531 MB written and 63 MB of cg: about 0.34 ms at
-// the 3.35 TB/s of the H100 SXM data sheet; in bf16 `a`, `cg` and `out` take
-// half of that, and the corrections the same. Windows of neighbouring points
-// overlap in cg, but cg (63 MB in float32) is larger than the 50 MB L2, so
-// overlapping reads hit L2 only in part.
+// `out` written once, and cg once for all its windows. At the deconv1 shapes
+// of the 900x288 patch (64 windows of 32 x 450 x 144, cg 1 x 32 x 450 x 1088)
+// that is about 531 MB read, 531 MB written and 63 MB of cg in float32:
+// about 0.34 ms at the 3.35 TB/s of the H100 SXM data sheet; in bf16 `a`,
+// `cg` and `out` take half of that, and the corrections the same.
 //
-// What the design does about it: the Pallas kernel DMAs an 8-aligned window
-// of cg into VMEM and selects the true sub-window by one of 8 predicated
-// static slices, because Mosaic only takes 8-aligned dynamic offsets. Hopper
-// has no such constraint, so none of that is carried over. A block row
+// The float32 instance: the Pallas kernel DMAs an 8-aligned window of cg
+// into VMEM and selects the true sub-window by one of 8 predicated static
+// slices, because Mosaic only takes 8-aligned dynamic offsets. Hopper has no
+// such constraint, so none of that is carried over. A block row
 // (blockIdx.y) is one window; its threads walk the window's elements in
 // order, consecutive threads on consecutive elements, so the reads of `a`
 // and the writes of `out` coalesce and the reads of cg are contiguous along
 // each row from an unaligned start. The (row, column) of an element is
 // stepped forward with the grid stride instead of divided out per element.
-// Bias and activation stay outside, as in the JAX package. The bf16 instance
-// keeps the walk and the grid; only the element type changes.
+// Bias and activation stay outside, as in the JAX package.
+//
+// The bf16 instance replaces that element walk, which moved one 2-byte
+// element a thread a step and read each window's slice of cg anew (64
+// overlapping 144-wide windows of a 1088-wide row), with the row-tile design
+// of row_tiles.cuh. A block owns image n and 8 consecutive rows q of
+// cg[n] (fewer where a row is too wide for shared memory): it stages them in
+// shared memory once, then loops over the windows of image n, writing each
+// window's rows [q0, q0 + 8) of `out`, one contiguous run, as 16-byte
+// vectors: `a` read as 16-byte vectors, the cg elements picked from shared
+// memory at column s_k + j, the edge corrections applied per element inside
+// the vector. So cg is read from device memory once a frame, and `a` and
+// `out` stream as 16-byte vectors, the pattern of K4's `nodma`. That path
+// needs pw % 8 == 0 (every constant-bin path: pw = patch / 2 or / 4 with
+// patch % 32 == 0) and 16-byte aligned `a` and `out`; any other shape takes
+// the same kernel's scalar path, one element a thread a step, with the
+// element's row and column stepped from its flat index.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gather_add_math.cuh"
+#include "row_tiles.cuh"
 
 namespace {
 
@@ -105,6 +119,84 @@ int launch(const void* a, const void* cg, const void* starts,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bf16 instance: a block stages cg[n, q0 : q0 + rt, :] (rt <= tile_rows
+// rows) in shared memory, then writes out[k, q0 : q0 + rt, :] of every window
+// k of image n. kVec: 16-byte vectors (pw % 8 == 0, `a` and `out` 16-byte
+// aligned, so every chunk starts on a vector and holds whole vectors, and a
+// vector lies in one row); else one element a step.
+template <bool kVec>
+__global__ void __launch_bounds__(row_tiles::kThreads)
+fused_skip_gather_add_bf16_kernel(const unsigned short* __restrict__ a,
+                                  const unsigned short* __restrict__ cg,
+                                  const int* __restrict__ starts,
+                                  const float* __restrict__ corr_l,
+                                  const float* __restrict__ corr_r,
+                                  int k_per_image, int rows, int pw, int wg,
+                                  int tile_rows,
+                                  unsigned short* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned short tile[];
+  const int n = blockIdx.y;
+  const int q0 = blockIdx.x * tile_rows;
+  const int rt = min(tile_rows, rows - q0);
+  row_tiles::stage_rows(cg + ((size_t)n * rows + q0) * wg, rt * wg, wg, wg,
+                        tile);
+  __syncthreads();
+
+  constexpr int kWidth = kVec ? 8 : 1;  // elements a thread a step
+  row_tiles::Walk it(threadIdx.x * kWidth, row_tiles::kThreads * kWidth, rt,
+                     pw);
+  for (; it.k < k_per_image; it.next(rt, pw)) {
+    const int win = n * k_per_image + it.k;
+    const int s = min(max(__ldg(starts + win), 0), wg - pw);
+    const size_t q = (size_t)win * rows + q0 + it.r;  // (window, row)
+    const size_t off = q * pw + it.c;
+    const int p = it.r * wg + s + it.c;  // in the tile
+    if (kVec) {
+      const uint4 va = __ldg(reinterpret_cast<const uint4*>(a + off));
+      const uint4 vc = row_tiles::pick8(tile, p);
+      uint32_t x[4] = {va.x, va.y, va.z, va.w};
+      const uint32_t y[4] = {vc.x, vc.y, vc.z, vc.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = add_pair(x[i], y[i]);
+      if (it.c == 0)
+        x[0] = with_low(x[0], corrected(low(x[0]), __ldg(corr_l + q)));
+      if (it.c + 8 == pw)
+        x[3] = with_high(x[3], corrected(high(x[3]), __ldg(corr_r + q)));
+      *reinterpret_cast<uint4*>(out + off) = make_uint4(x[0], x[1], x[2],
+                                                        x[3]);
+    } else {
+      __nv_bfloat16 v = add(__ushort_as_bfloat16(a[off]),
+                            __ushort_as_bfloat16(tile[p]));
+      if (it.c == 0) v = corrected(v, __ldg(corr_l + q));
+      if (it.c == pw - 1) v = corrected(v, __ldg(corr_r + q));
+      out[off] = __bfloat16_as_ushort(v);
+    }
+  }
+}
+
+int launch_bf16(const void* a, const void* cg, const void* starts,
+                const void* corr_l, const void* corr_r, int nk,
+                int k_per_image, int rows, int pw, int wg, void* out,
+                void* stream) {
+  const int tile_rows = row_tiles::tile_rows(wg);
+  if (tile_rows == 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = row_tiles::tile_elems(tile_rows, wg) * 2;
+  const bool vec = pw % 8 == 0 && row_tiles::aligned16(a) &&
+                   row_tiles::aligned16(out);
+  auto kernel = vec ? fused_skip_gather_add_bf16_kernel<true>
+                    : fused_skip_gather_add_bf16_kernel<false>;
+  const cudaError_t err = row_tiles::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((rows + tile_rows - 1) / tile_rows, nk / k_per_image);
+  kernel<<<grid, row_tiles::kThreads, smem, (cudaStream_t)stream>>>(
+      static_cast<const unsigned short*>(a),
+      static_cast<const unsigned short*>(cg), static_cast<const int*>(starts),
+      static_cast<const float*>(corr_l), static_cast<const float*>(corr_r),
+      k_per_image, rows, pw, wg, tile_rows,
+      static_cast<unsigned short*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // a and out (nk, rows, pw) f32 with rows = channels * ph; cg (nk / k, rows,
@@ -125,6 +217,6 @@ extern "C" int rcfd_fused_skip_gather_add_bf16(
     const void* a, const void* cg, const void* starts, const void* corr_l,
     const void* corr_r, int nk, int k_per_image, int rows, int pw, int wg,
     void* out, void* stream) {
-  return launch<__nv_bfloat16>(a, cg, starts, corr_l, corr_r, nk,
-                               k_per_image, rows, pw, wg, out, stream);
+  return launch_bf16(a, cg, starts, corr_l, corr_r, nk, k_per_image, rows,
+                     pw, wg, out, stream);
 }

@@ -39,8 +39,11 @@
 //
 // What the design does about it: nothing more than the split. The variants
 // exist to measure which of K3's parts (its scalar accesses, its unaligned
-// window reads, the pick-out) keeps it from its bound; the faster K3 they
-// point to is later work.
+// window reads, the pick-out) keeps it from its bound. What they pointed to
+// (16-byte vectors, and cg read once for all overlapping windows) is K3's
+// bf16 instance since its row-tile redesign, which `full` measures in bf16;
+// `align16` stays a variant of the old per-window grid, and `nodma` is the
+// streaming floor that instance is held against.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -12,7 +12,8 @@ tensor it launches the kernel of ``csrc/column_crop.cu`` (built with nvcc
 at first use) in the rows' dtype or raises; on a CPU tensor, and only
 there, it runs ``batch_column_crop_plain``. ``batch_column_crop.launches``
 counts the float32 instance's launches, ``batch_column_crop.launches_bf16``
-the bf16 instance's.
+the bf16 instance's. The bf16 instance stages row tiles in shared memory
+(``fused_skip.row_tile``, which refuses a row too wide for it).
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .fused_skip import MAX_WINDOW_ELEMS, MAX_WINDOWS, gather_windows
+from .fused_skip import (MAX_WINDOW_ELEMS, MAX_WINDOWS, gather_windows,
+                         row_tile)
 
 SOURCE = 'column_crop.cu'
 
@@ -93,6 +95,8 @@ def batch_column_crop(rows, starts, win: int):
                              nk, c * ph * win, MAX_WINDOWS,
                              MAX_WINDOW_ELEMS))
 
+    if rows.dtype == torch.bfloat16:
+        row_tile(c * ph, w + win, n)  # raises if a row does not fit
     out = torch.empty((nk, c, ph, win), dtype=rows.dtype, device=device)
     fn = _kernel(rows.dtype)
     with torch.cuda.device(device):

@@ -18,8 +18,10 @@ CUDA tensor it launches the kernel of ``csrc/fused_skip_gather_add.cu``
 (built with nvcc at first use) in the tensors' dtype or raises; on a CPU
 tensor, and only there, it runs ``fused_skip_gather_add_plain``.
 ``fused_skip_gather_add.launches`` counts the float32 instance's launches,
-``fused_skip_gather_add.launches_bf16`` the bf16 instance's. The
-convolutions around it are plain PyTorch (cuDNN on the card).
+``fused_skip_gather_add.launches_bf16`` the bf16 instance's. The bf16
+instance stages row tiles of cg in shared memory (``row_tile`` gives its
+launch geometry, and refuses a cg row too wide for it). The convolutions
+around it are plain PyTorch (cuDNN on the card).
 """
 
 from __future__ import annotations
@@ -36,6 +38,34 @@ SOURCE = 'fused_skip_gather_add.cu'
 # with 32-bit unsigned integers and its windows by the rows of a CUDA grid
 MAX_WINDOW_ELEMS = 2 ** 31 - 1
 MAX_WINDOWS = 65535
+
+# The bf16 instances of this module's kernel and of crop_cuda.py's stage a
+# tile of TILE_ROWS input rows of one image in shared memory (csrc/
+# row_tiles.cuh, whose tile_rows and tile_elems row_tile mirrors): at most
+# SMEM_LIMIT bytes a block, the tile's rows padded by TILE_PAD elements
+TILE_ROWS = 8
+SMEM_LIMIT = 232448
+TILE_PAD = 16
+
+
+def row_tile(rows: int, stride: int, n_images: int):
+    """The launch geometry of a bf16 row-tile kernel over ``n_images``
+    images of ``rows`` input rows, each staged ``stride`` 2-byte elements
+    wide: (rows a block stages, its dynamic shared-memory bytes, blocks).
+    TILE_ROWS rows, halved while the tile does not fit in SMEM_LIMIT bytes;
+    ValueError when one row does not fit."""
+    def nbytes(r):
+        return (-(-r * stride // 8) * 8 + TILE_PAD) * 2
+
+    r = TILE_ROWS
+    while r > 1 and nbytes(r) > SMEM_LIMIT:
+        r //= 2
+    if nbytes(r) > SMEM_LIMIT:
+        raise ValueError(
+            'a row of {} bf16 elements does not fit in the {} bytes of shared '
+            'memory a block can use'.format(stride, SMEM_LIMIT))
+    return r, nbytes(r), -(-rows // r) * n_images
+
 
 # the C entry point of the kernel's instance for each dtype of a and cg
 ENTRIES = {torch.float32: 'rcfd_fused_skip_gather_add',
@@ -211,6 +241,8 @@ def fused_skip_gather_add(a, cg, starts, corr_l, corr_r):
         '(a and cg are float32 or bf16, of one dtype)')
     nk, co, ph, pw = a.shape
     n, wg = cg.shape[0], cg.shape[3]
+    if dtype == torch.bfloat16:
+        row_tile(co * ph, wg, n)  # raises if a row of cg does not fit
     out = torch.empty_like(a)
     fn = _kernel(dtype)
     with torch.cuda.device(device):

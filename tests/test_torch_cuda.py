@@ -518,6 +518,127 @@ def test_column_crop_bf16_matches_plain_on_card(cuda_device, rng, win):
     assert torch.equal(out, cc.batch_column_crop_plain(rows, starts, win))
 
 
+def _at_offset(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements past an
+    allocation (offset 1: not 16-byte aligned)."""
+    flat = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = flat[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _residue_starts(rng, n, k, low, high):
+    """(n, k) int32 starts in [low, high], the first image's beginning with
+    every residue mod 8 (0 to 7, then 8 + 3), both ends and three outside
+    [low, high] that the kernels clip."""
+    starts = rng.integers(low, high + 1, (n, k)).astype(np.int32)
+    starts[0, :14] = [0, 1, 2, 3, 4, 5, 6, 7, 11, low, high, low - 5,
+                      high + 1, high + 9]
+    return starts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('pw', [8, 72, 144])
+def test_fused_skip_bf16_row_tiles_on_card(cuda_device, rng, pw, offset):
+    """K3's bf16 row-tile kernel on its vector path (pw % 8 == 0, aligned
+    a and out) and, at offset 1, its scalar path: two images, 21 rows (a
+    last tile of 5 of the 8-row tile), starts at every residue mod 8, at
+    0 and wg - pw and outside [0, wg - pw]; bit for bit against the plain
+    version, one launch of the bf16 instance."""
+    n, k, co, ph, wg = 2, 16, 3, 7, pw + 40
+    t = lambda a, d=torch.bfloat16: torch.from_numpy(a).to(  # noqa: E731
+        cuda_device, d)
+    normal = lambda *shape: rng.standard_normal(  # noqa: E731
+        shape, dtype=np.float32)
+    args = (_at_offset(t(normal(n * k, co, ph, pw)), offset),
+            _at_offset(t(normal(n, co, ph, wg)), offset),
+            t(_residue_starts(rng, n, k, 0, wg - pw), torch.int32),
+            t(normal(n * k, co, ph), torch.float32),
+            t(normal(n * k, co, ph), torch.float32))
+    before = _counts()
+    out = fs.fused_skip_gather_add(*args)
+    torch.cuda.synchronize()
+    assert _launched(before, K3_bf16=1)
+    assert torch.equal(out, fs.fused_skip_gather_add_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('c, ph', [(3, 5), (2, 6), (4, 6)])
+@pytest.mark.parametrize('win', [8, 22, 43])
+def test_column_crop_bf16_row_tiles_on_card(cuda_device, rng, win, c, ph):
+    """K2's bf16 row-tile kernel at 15 rows (not a multiple of 8: the
+    scalar path unless win = 8), 12 (a last tile of 4; the vector path at
+    win 8 and 22, with vectors across two rows) and 24 rows: two images,
+    starts at every residue mod 8, at 0 and w, past w and below 0; bit for
+    bit against the plain version, one launch of the bf16 instance."""
+    n, k, w = 2, 16, 60
+    rows = torch.from_numpy(rng.standard_normal(
+        (n, c, ph, w), dtype=np.float32)).to(cuda_device, torch.bfloat16)
+    starts = torch.from_numpy(_residue_starts(rng, n, k, 0, w)).to(
+        cuda_device)
+    before = _counts()
+    out = cc.batch_column_crop(rows, starts, win)
+    torch.cuda.synchronize()
+    assert _launched(before, K2_bf16=1)
+    assert torch.equal(out, cc.batch_column_crop_plain(rows, starts, win))
+
+
+@pytest.mark.cuda
+def test_bf16_row_tiles_of_wide_rows_on_card(cuda_device, rng):
+    """Rows too wide for 8 a tile: K3 at wg = 20,000 stages 4 rows (160
+    KB of dynamic shared memory), K2 at w + win = 30,043 stages 2 (120
+    KB); both bit for bit against their plain versions."""
+    n, k, co, ph, pw, wg = 2, 5, 2, 5, 144, 20_000
+    assert fs.row_tile(co * ph, wg, n)[:2] == (4, 160_032)
+    t = lambda a, d=torch.bfloat16: torch.from_numpy(a).to(  # noqa: E731
+        cuda_device, d)
+    normal = lambda *shape: rng.standard_normal(  # noqa: E731
+        shape, dtype=np.float32)
+    args = (t(normal(n * k, co, ph, pw)), t(normal(n, co, ph, wg)),
+            t(rng.integers(0, wg - pw + 1, (n, k)).astype(np.int32),
+              torch.int32),
+            t(normal(n * k, co, ph), torch.float32),
+            t(normal(n * k, co, ph), torch.float32))
+    before = _counts()
+    out = fs.fused_skip_gather_add(*args)
+    torch.cuda.synchronize()
+    assert _launched(before, K3_bf16=1)
+    assert torch.equal(out, fs.fused_skip_gather_add_plain(*args))
+
+    w, win = 30_000, 43
+    assert fs.row_tile(co * ph, w + win, n)[:2] == (2, 120_208)
+    rows = t(normal(n, co, ph, w))
+    starts = t(_residue_starts(rng, n, k + 9, 0, w), torch.int32)
+    before = _counts()
+    out = cc.batch_column_crop(rows, starts, win)
+    torch.cuda.synchronize()
+    assert _launched(before, K2_bf16=1)
+    assert torch.equal(out, cc.batch_column_crop_plain(rows, starts, win))
+
+
+@pytest.mark.cuda
+def test_bf16_row_tiles_refuse_rows_too_wide(cuda_device):
+    """A row too wide for a block's shared memory raises ValueError before
+    any launch; float32, which stages nothing, takes it."""
+    wide = fs.SMEM_LIMIT // 2
+    zeros = lambda *shape, d=torch.bfloat16: torch.zeros(  # noqa: E731
+        shape, dtype=d, device=cuda_device)
+    starts = zeros(1, 2, d=torch.int32)
+    corr = zeros(2, 1, 1, d=torch.float32)
+    before = _counts()
+    with pytest.raises(ValueError, match='shared memory'):
+        fs.fused_skip_gather_add(zeros(2, 1, 1, 8), zeros(1, 1, 1, wide),
+                                 starts, corr, corr)
+    with pytest.raises(ValueError, match='shared memory'):
+        cc.batch_column_crop(zeros(1, 1, 1, wide - 8), starts, 8)
+    assert _launched(before)
+    out = cc.batch_column_crop(zeros(1, 1, 1, wide - 8, d=torch.float32),
+                               starts, 8)
+    torch.cuda.synchronize()
+    assert _launched(before, K2=1) and not bool(out.any())
+
+
 # tiny bf16 pipelines on the card: (RadarNet config, perf, the launches of
 # one request by instance)
 BF16_PATHS = {
