@@ -7,6 +7,13 @@ Phases, each printed as it starts and ends:
 
   build      compile the hand-written CUDA kernels with nvcc, one process
              per source, all started together
+  codec      build the port's image codec (g++; nvJPEG for JPEG on the
+             card) after one line of what the machine offers it (g++, the
+             headers and libraries of libpng, libjpeg, zlib and nvJPEG);
+             900x1600 depth, response and RGB frames through the writers
+             and readers, exact; the repository's JPEG frame decoded on the
+             card against PIL's decode; host ms per frame to read a camera
+             frame and a ground truth and to write the three outputs
   kernel     hold each kernel against its plain PyTorch version on the card
              at the shapes of the serving paths, bit for bit, and time the
              kernel, the plain version and the nearest one-call PyTorch
@@ -56,6 +63,15 @@ Phases, each printed as it starts and ends:
              against float32 slice requests; B = 2 in two decode chunks
              with the deferred pools and at the 900x300 patch, as in
              batched; FusionNet alone in bf16
+  cli        the serving CLI (rcfd_tpu_torch.run_pipeline.main, in
+             process) on 8 full-size frames the port's writers put in a
+             temporary directory, with the two models as .pth files: a
+             float32, one frame a request, with ground truth; b float32, 4
+             a request, without (the codec_encode writers); c as b in bf16;
+             d at the 900x300 patch; e with RCFD_FUSED_POOL2/4 set; each
+             after a warm-up run of the same configuration: launches, every
+             file against the same frame served in memory, run a's files
+             against run b's, frames/s and the read/serve/write split
 
 Each path phase (and each configuration of the batched phase) sets every
 kernel's launch count to 0 before its counted requests, reads them after,
@@ -86,7 +102,9 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -1623,6 +1641,466 @@ def phase_bf16(device, record, pipes, opt_pipe, reqs):
     phase_fusionnet_alone(device, pipes['slice'].fusionnet, bf16)
 
 
+# -- file I/O and the serving CLI ---------------------------------------------
+
+# the CLI phase: frames written to files, and the five configurations of
+# rcfd_tpu_torch.run_pipeline it serves them in (name, flags, environment,
+# with ground truth, the kernels and launches per frame or per request)
+CLI_FRAMES = 8
+CLI_BATCH = 4
+CLI_RUNS = (
+    ('cli a', ['--batch_size', '1'], {}, True),
+    ('cli b', ['--batch_size', str(CLI_BATCH)], {}, False),
+    ('cli c', ['--bfloat16', '--batch_size', str(CLI_BATCH)], {}, False),
+    ('cli d', ['--patch_size', str(WIDE_PATCH[0]), str(WIDE_PATCH[1]),
+               '--batch_size', '1'], {}, False),
+    ('cli e', ['--batch_size', '1'],
+     {'RCFD_FUSED_POOL2': '1', 'RCFD_FUSED_POOL4': '1'}, True),
+)
+# a JPEG frame of the repository and PIL's decode of it, and the decoders'
+# agreement the JAX package asks of its own codec
+# (tests/test_native_io.py::test_image_decode_jpeg)
+JPEG_FIXTURE = os.path.join('tests', 'data', 'torch_io', 'frame_q95.jpg')
+JPEG_PIL_DECODE = os.path.join('tests', 'data', 'torch_io',
+                               'frame_q95_pil.png')
+JPEG_MEAN_ABS, JPEG_MAX_ABS = 1.0, 16.0
+CODEC_REPEATS = 5
+
+
+def toolchain_line():
+    """What the codec's routes need on this machine, on one line: g++, the
+    headers and libraries of libpng, libjpeg, zlib and nvJPEG."""
+    proc = subprocess.run(['g++', '--version'], capture_output=True,
+                          text=True)
+    gxx = proc.stdout.splitlines()[0] if proc.returncode == 0 else 'missing'
+    headers = {h: os.path.exists(h) for h in (
+        '/usr/include/png.h', '/usr/include/jpeglib.h', '/usr/include/zlib.h',
+        '/usr/local/cuda/include/nvjpeg.h')}
+    proc = subprocess.run(['ldconfig', '-p'], capture_output=True, text=True)
+    libs = sorted({line.split()[0] for line in proc.stdout.splitlines()
+                   if any(s in line for s in ('libpng', 'libjpeg', 'libz.so',
+                                              'libnvjpeg'))})
+    return 'codec: toolchain: g++ {}; headers {}; libraries {}'.format(
+        gxx, ', '.join('{} {}'.format(h, 'present' if ok else 'missing')
+                       for h, ok in headers.items()),
+        ', '.join(libs) or 'none')
+
+
+def camera_frame(rng):
+    """A uint8 frame that compresses like a camera's: smooth gradients and
+    a few flat patches, plus noise of a few levels."""
+    h, w = H, W
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    frame = np.stack([x * 255 / w, y * 255 / h,
+                      128 + 90 * np.sin(x / 37.0) * np.cos(y / 23.0)], -1)
+    for _ in range(6):
+        r, c = rng.integers(0, h - h // 9), rng.integers(0, w - w // 8)
+        frame[r:r + h // 9, c:c + w // 8] = rng.integers(0, 256, 3)
+    frame += rng.normal(0, 4, frame.shape)
+    return np.clip(frame, 0, 255).astype(np.uint8)
+
+
+def ground_truth(rng):
+    """A lidar-like ground-truth map: 5% of the pixels, 1 to 80 m."""
+    h, w = H, W
+    z = (rng.random((h, w), dtype=np.float32) * 79 + 1).astype(np.float32)
+    z[rng.random((h, w)) > 0.05] = 0.0
+    return z
+
+
+def host_ms(fn, n=CODEC_REPEATS):
+    """Median host milliseconds of ``fn`` over ``n`` runs, after one."""
+    fn()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_codec(device, tmp):
+    """Build the codec (g++; nvJPEG for JPEG on the card), then at 900x1600:
+    a depth map and a response map through save_*/load_* and through
+    save_*_encoded, exact; an RGB frame through save_image/load_image_u8,
+    exact; the repository's JPEG frame decoded on the card against PIL's
+    decode; ms per frame to read a camera frame and a ground truth, and to
+    write the three output PNGs."""
+    from rcfd_tpu_torch import native
+    from rcfd_tpu_torch.data import io
+
+    log(toolchain_line())
+    t0 = time.perf_counter()
+    native.codec_lib()
+    t1 = time.perf_counter()
+    native.nvjpeg_lib()
+    t2 = time.perf_counter()
+    log('codec: built codec.cpp in {:.2f} s and jpeg_nvjpeg.cpp in {:.2f} s '
+        '(g++); PNG: zlib {} of the standard library, level {}'.format(
+            t1 - t0, t2 - t1, zlib.ZLIB_RUNTIME_VERSION,
+            native.ZLIB_LEVEL))
+    try:
+        native.jpeg_host_lib()
+        log('codec: libjpeg also builds here (the CPU route of JPEG)')
+    except RuntimeError as e:
+        log('codec: the CPU route of JPEG does not build here, as expected '
+            'without libjpeg: {}'.format(str(e).splitlines()[0]))
+
+    rng = np.random.default_rng(SEED + 11)
+    dense = (rng.random((H, W), dtype=np.float32) * 99 + 1).astype(np.float32)
+    dense[0, :3] = [1.0, 65535 / 256.0, 99.99609375]
+    quasi = np.zeros((H, W), np.float32)
+    quasi[H - PATCH[0]:, ::17] = rng.integers(0, 80, (PATCH[0], -(-W // 17)))
+    response = np.zeros((H, W), np.float32)
+    response[H - PATCH[0]:, ::3] = rng.random((PATCH[0], -(-W // 3)),
+                                              dtype=np.float32)
+    response[H - 1, :3] = [2.0 ** -14, 1.0 - 2.0 ** -14, 1.0]
+    paths = {n: os.path.join(tmp, n + '.png') for n in (
+        'dense', 'quasi', 'response', 'dense_c', 'quasi_c', 'response_c',
+        'frame')}
+
+    def write_floats():
+        io.save_depth(dense, paths['dense'])
+        io.save_depth(quasi, paths['quasi'])
+        io.save_response(response, paths['response'])
+
+    codes = (native.depth_codes(dense, 256.0), native.depth_codes(quasi, 256.0),
+             native.depth_codes(response, 2.0 ** 14))
+
+    def write_codes():
+        io.save_depth_encoded(codes[0], paths['dense_c'])
+        io.save_depth_encoded(codes[1], paths['quasi_c'])
+        io.save_response_encoded(codes[2], paths['response_c'])
+
+    write_floats()
+    write_codes()
+    for name, code, scale, loader in (
+            ('dense', codes[0], 256.0, io.load_depth),
+            ('quasi', codes[1], 256.0, io.load_depth),
+            ('response', codes[2], 2.0 ** 14, io.load_response)):
+        want = code.astype(np.float32) / np.float32(scale)
+        for path in (paths[name], paths[name + '_c']):
+            check(np.array_equal(loader(path), want),
+                  'codec: {} read back from {} differs from its codes'.format(
+                      name, os.path.basename(path)))
+            check(np.array_equal(io.load_depth_u16(path), code),
+                  'codec: {} codes read back differ'.format(name))
+        with open(paths[name], 'rb') as f, open(paths[name + '_c'], 'rb') as g:
+            check(f.read() == g.read(), 'codec: the {} file of save_*_encoded '
+                  'differs from save_*\'s'.format(name))
+    frame = camera_frame(rng)
+    io.save_image(frame / 255.0, paths['frame'])
+    check(np.array_equal(io.load_image_u8(paths['frame'], device=device),
+                         frame), 'codec: the RGB frame read back differs')
+    log('codec: 900x1600 round trips exact: dense, quasi and response through '
+        'save_*/load_* and save_*_encoded (codes 0, 1, 65535 included; the '
+        'two writers\' files equal byte for byte), the RGB frame through '
+        'save_image/load_image_u8')
+
+    jpeg = io.load_image_u8(os.path.join(HERE, JPEG_FIXTURE), device=device)
+    pil = io.load_image_u8(os.path.join(HERE, JPEG_PIL_DECODE), device=device)
+    diff = np.abs(jpeg.astype(np.float64) - pil)
+    check(jpeg.shape == pil.shape and diff.mean() < JPEG_MEAN_ABS and
+          diff.max() <= JPEG_MAX_ABS, 'codec: nvJPEG\'s decode of {} is {} '
+          'from PIL\'s: mean |diff| {}, max {} (tolerance < {}, <= {})'.format(
+              JPEG_FIXTURE, jpeg.shape, diff.mean(), diff.max(),
+              JPEG_MEAN_ABS, JPEG_MAX_ABS))
+    log('codec: {} {} decoded on the card with nvJPEG against PIL\'s decode: '
+        'mean |diff| {:.4f}, max {:.0f} (tolerance < {:g}, <= {:g})'.format(
+            JPEG_FIXTURE, 'x'.join(map(str, jpeg.shape[:2])), diff.mean(),
+            diff.max(), JPEG_MEAN_ABS, JPEG_MAX_ABS))
+
+    gt_path = os.path.join(tmp, 'gt.png')
+    io.save_depth(ground_truth(rng), gt_path)
+    times = dict(
+        read_frame=host_ms(lambda: io.load_image_u8(paths['frame'],
+                                                    device=device)),
+        read_ground_truth=host_ms(lambda: io.load_depth_u16(gt_path)),
+        write_three_float=host_ms(write_floats),
+        write_three_encoded=host_ms(write_codes))
+    sizes = {n: os.path.getsize(paths[n]) for n in ('frame', 'dense', 'quasi',
+                                                    'response')}
+    log('codec: host ms per 900x1600 frame, median of {}: {}; file bytes: '
+        '{}; {}'.format(CODEC_REPEATS, ', '.join(
+            '{} {:.2f}'.format(k, v) for k, v in times.items()),
+            sizes, gpu_name_and_power()))
+
+
+def write_cli_inputs(rn, fn, tmp, rng):
+    """CLI_FRAMES full-size frames with the port's own writers (RGB PNGs,
+    .npy point sets of 40 to 64 points, 16-bit ground truth), the
+    manifests, and the two models as reference-layout .pth checkpoints."""
+    from rcfd_tpu_torch import native
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.models import fusionnet, radarnet
+
+    paths = {n: [] for n in ('image', 'radar', 'ground_truth')}
+    for i in range(CLI_FRAMES):
+        for n in paths:
+            paths[n].append(os.path.join(tmp, '{}_{:02d}.{}'.format(
+                n, i, 'npy' if n == 'radar' else 'png')))
+        native.write_rgb(paths['image'][i], camera_frame(rng))
+        k = int(rng.integers(40, K + 1))
+        np.save(paths['radar'][i], np.stack(
+            [rng.integers(0, W, k), rng.integers(0, H, k),
+             rng.random(k) * 79 + 1], 1).astype(np.float32))
+        io.save_depth(ground_truth(rng), paths['ground_truth'][i])
+    manifests = {}
+    for n, p in paths.items():
+        manifests[n] = os.path.join(tmp, n + '.txt')
+        io.write_paths(manifests[n], p)
+    checkpoints = []
+    for model, keys, name in ((rn, radarnet.PTH_KEYS, 'radarnet'),
+                              (fn, fusionnet.PTH_KEYS, 'fusionnet')):
+        checkpoints.append(os.path.join(tmp, name + '.pth'))
+        torch.save(dict({keys[part]: {k: v.cpu() for k, v in getattr(
+            model, part).state_dict().items()} for part in keys},
+            train_step=0), checkpoints[-1])
+    return paths, manifests, checkpoints
+
+
+def cli_patch(flags):
+    return [int(v) for v in flags[flags.index('--patch_size') + 1:][:2]] \
+        if '--patch_size' in flags else list(PATCH)
+
+
+def cli_expect(flags, env):
+    """The launches a CLI run of CLI_FRAMES frames must make: the scatter
+    once a request; at a patch width that is not a multiple of 32 (the
+    900x300 patch) the column crop 3 times a frame; with the fused gates
+    the gather-add twice a frame."""
+    batch = int(flags[flags.index('--batch_size') + 1])
+    k1 = 'scatter_quasi_dense' + (' bf16' if '--bfloat16' in flags else '')
+    expect = {k1: -(-CLI_FRAMES // batch)}
+    if cli_patch(flags)[1] % 32:
+        expect['column_crop'] = 3 * CLI_FRAMES
+    if env:
+        expect['fused_skip_gather_add'] = 2 * CLI_FRAMES
+    return expect
+
+
+def cli_pipeline(checkpoints, flags, env, device):
+    """A pipeline built as the CLI builds it for ``flags`` and ``env``."""
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline
+    from rcfd_tpu_torch.run_pipeline import perf_from_env
+
+    return TwoStagePipeline.from_checkpoints(
+        *checkpoints, image_height=H, image_width=W,
+        patch_size=cli_patch(flags),
+        radarnet_kwargs=dict(perf=perf_from_env(env)), optimize=True,
+        compute_dtype=torch.bfloat16 if '--bfloat16' in flags else None,
+        device=device)
+
+
+def cli_reference(pipe, flags, samples):
+    """The frames ``samples`` served in memory by ``pipe`` in the CLI's
+    requests: per frame (dense, quasi, response), float32 numpy."""
+    batch = int(flags[flags.index('--batch_size') + 1])
+    out = []
+    for start in range(0, len(samples), batch):
+        s = samples[start:start + batch]
+        if len(s) > 1:
+            maps = pipe.forward_batched(np.stack([x[0] for x in s]),
+                                        np.stack([x[1] for x in s]),
+                                        np.stack([x[2] for x in s]))
+        else:
+            maps = [m[None] for m in pipe(s[0][0][None], s[0][1], s[0][2])]
+        maps = [m.float().cpu().numpy() for m in maps]
+        out += [tuple(m[b] for m in maps) for b in range(len(s))]
+    return out
+
+
+def write_breakdown(name, maps, repeats=3):
+    """Where the float writers' time goes on one frame's (dense, quasi,
+    response) maps: the 16-bit codes, the row filters, deflate at the
+    writer's level (and at zlib's default 6, for comparison), the file
+    write; host ms, median of ``repeats``, and the deflated bytes."""
+    from rcfd_tpu_torch import native
+
+    lib = native.codec_lib()
+    times = {k: [] for k in ('codes', 'filter', 'deflate', 'deflate_level_6',
+                             'file_write')}
+    sizes = []
+    for _ in range(repeats):
+        sums = dict.fromkeys(times, 0.0)
+        sizes = []
+        for m, scale in zip(maps, (256.0, 256.0, 2.0 ** 14)):
+            t0 = time.perf_counter()
+            rows = native.depth_codes(m, scale).astype('>u2').view(
+                np.uint8).reshape(m.shape[0], -1)
+            t1 = time.perf_counter()
+            filtered = np.empty((rows.shape[0], rows.shape[1] + 1), np.uint8)
+            scratch = np.empty(2 * rows.shape[1], np.uint8)
+            lib.rcfd_png_filter(rows.ctypes.data, filtered.ctypes.data,
+                                rows.shape[0], rows.shape[1], 2,
+                                scratch.ctypes.data)
+            t2 = time.perf_counter()
+            data = zlib.compress(filtered, native.ZLIB_LEVEL)
+            t3 = time.perf_counter()
+            zlib.compress(filtered, 6)
+            t4 = time.perf_counter()
+            with tempfile.TemporaryFile() as f:
+                f.write(data)
+            t5 = time.perf_counter()
+            for k, a, b in (('codes', t0, t1), ('filter', t1, t2),
+                            ('deflate', t2, t3), ('deflate_level_6', t3, t4),
+                            ('file_write', t4, t5)):
+                sums[k] += (b - a) * 1e3
+            sizes.append(len(data))
+        for k in times:
+            times[k].append(sums[k])
+    log('{}: the float writers on frame 0\'s three maps, host ms, median of '
+        '{}: {}; deflated bytes (dense, quasi, response) {}'.format(
+            name, repeats, ', '.join('{} {:.2f}'.format(
+                k, float(np.median(v))) for k, v in times.items()), sizes))
+
+
+def cli_files(out_dir, names):
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.run_pipeline import STREAMS
+
+    return [tuple(io.load_depth_u16(os.path.join(out_dir, s, n)).astype(
+        np.int64) for s in STREAMS) for n in names]
+
+
+def compare_codes(name, files, ref, crops_of_frame, samples, crop_tol,
+                  dense_tol):
+    """Files (dense, quasi, response codes) against other codes of the same
+    frames: response within one count, and farther only where the top
+    response is within crop_tol of the threshold; quasi equal except at
+    pixels a 14-bit tie or the threshold explains (crops_of_frame(f) are
+    the crops and padded x of frame f); dense within dense_tol counts where
+    the frame's quasi and response codes are equal. Returns the numbers of
+    differing codes (dense, quasi, response)."""
+    counts = np.zeros(3, np.int64)
+    for f, (got, want) in enumerate(zip(files, ref)):
+        diff = [np.abs(g - w) for g, w in zip(got, want)]
+        counts += [int((d > 0).sum()) for d in diff]
+        quasi_px = np.argwhere(diff[1] > 0)
+        resp_px = np.argwhere(diff[2] > 1 + math.ceil(crop_tol * 2 ** 14))
+        if len(quasi_px) or len(resp_px):
+            crops, xs = crops_of_frame(f)
+            valid = samples[f][2]
+            bad = unexplained_quasi(crops, xs, valid, quasi_px, crop_tol)
+            check(not bad, '{}: frame {}: quasi codes differ at {} pixels no '
+                  'tie or threshold explains: {}'.format(
+                      name, f, len(bad), bad[:10]))
+            bad = off_threshold(crops, xs, valid, resp_px, crop_tol)
+            check(not bad, '{}: frame {}: response codes differ by more than '
+                  'a step at {} pixels away from the threshold: {}'.format(
+                      name, f, len(bad), bad[:10]))
+        elif not (diff[1].any() or diff[2].any()):
+            check(diff[0].max() <= dense_tol, '{}: frame {}: dense codes '
+                  'differ by {} > {} with equal maps'.format(
+                      name, f, diff[0].max(), dense_tol))
+    return counts
+
+
+def phase_cli(device, record, rn, fn, tmp):
+    """rcfd_tpu_torch.run_pipeline.main in process on files the port wrote,
+    in the five configurations of CLI_RUNS, each after a warm-up run of the
+    same configuration, with every launch count set to 0 just before the
+    timed run and read just after; each run's files against the same frames
+    served in memory by a pipeline built the same way; run a's (float
+    writers, one frame a request) against run b's (codec writers, batched)."""
+    from rcfd_tpu_torch import run_pipeline
+    from rcfd_tpu_torch.data.datasets import RadarNetInferenceDataset
+
+    rng = np.random.default_rng(SEED + 12)
+    paths, manifests, checkpoints = write_cli_inputs(rn, fn, tmp, rng)
+    base = ['--radarnet_restore_path', checkpoints[0],
+            '--fusionnet_restore_path', checkpoints[1],
+            '--image_path', manifests['image'],
+            '--radar_path', manifests['radar'], '--save_outputs']
+    dataset = RadarNetInferenceDataset(paths['image'], paths['radar'],
+                                       max_points=None, device=device)
+    samples = [dataset.get(i) for i in range(CLI_FRAMES)]
+    names = ['{:010d}.png'.format(i) for i in range(CLI_FRAMES)]
+    power = gpu_name_and_power()
+    files = {}
+    for name, flags, env, with_gt in CLI_RUNS:
+        argv = base + flags + (['--ground_truth_path',
+                                manifests['ground_truth']] if with_gt else [])
+        out_dir = os.path.join(tmp, name.replace(' ', '_'))
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        try:
+            run_pipeline.main(argv + ['--output_dirpath', out_dir + '_warm'],
+                              device=device)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            summary = run_pipeline.main(
+                argv + ['--output_dirpath', out_dir], device=device)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        expect = cli_expect(flags, env)
+        for kernel, n in launches.items():
+            check(n == expect.get(kernel, 0), '{}: {} launched {} times for '
+                  '{} frames, expected {}'.format(name, kernel, n, CLI_FRAMES,
+                                                  expect.get(kernel, 0)))
+        count_launches(record, name, launches, list(expect))
+        if with_gt:
+            check(summary['metrics'] is not None and all(
+                math.isfinite(v) for v in summary['metrics'].values()),
+                '{}: metrics {}'.format(name, summary['metrics']))
+        files[name] = cli_files(out_dir, names)
+        pipe = cli_pipeline(checkpoints, flags, env, device)
+        ref = cli_reference(pipe, flags, samples)
+        ref_codes = [tuple(c.astype(np.int64) for c in native_codes(m))
+                     for m in ref]
+        bf16 = '--bfloat16' in flags
+        counts = compare_codes(
+            name, files[name], ref_codes,
+            lambda f: tuple(t.float().cpu().numpy() for t in radarnet_outputs(
+                pipe, (samples[f][0][None], samples[f][1], samples[f][2]))),
+            samples, BF16_CROP_TOL if bf16 else FOLD_TOL, 1)
+        del pipe
+        torch.cuda.empty_cache()
+        if name == CLI_RUNS[0][0]:
+            write_breakdown(name, ref[0])
+        sec = summary['seconds']
+        log('{}: flags {} env {}: {} frames in {:.3f} s of main, {:.3f} '
+            'frames/s end to end; per frame: host read {:.2f} ms, device '
+            '(serve to the outputs on the host) {:.2f} ms, host write {:.2f} '
+            'ms; setup {:.3f} s; launches {}; metrics {}; files against the '
+            'same frames served in memory: codes that differ (dense, quasi, '
+            'response) {}; {}'.format(
+                name, ' '.join(flags), env or '{}', CLI_FRAMES, wall,
+                CLI_FRAMES / wall, *[1e3 * sec[k] / CLI_FRAMES for k in (
+                    'read', 'serve', 'write')], sec['setup'],
+                {k: v for k, v in launches.items() if v}, summary['metrics'],
+                counts.tolist(), power))
+    # run a (float writers, one frame a request) against run b (codec
+    # writers, forward_batched): the same frames, served two ways
+    ref_pipe = cli_pipeline(checkpoints, CLI_RUNS[0][1], {}, device)
+    counts = compare_codes(
+        'cli a vs b', files['cli b'], files['cli a'],
+        lambda f: tuple(t.float().cpu().numpy() for t in radarnet_outputs(
+            ref_pipe, (samples[f][0][None], samples[f][1], samples[f][2]))),
+        samples, FOLD_TOL, 1)
+    log('cli a vs b: the same {} frames, one a request with the float writers '
+        'and {} a request with the codec writers: codes that differ (dense, '
+        'quasi, response) {}, each quasi and response difference at a 14-bit '
+        'tie or the threshold'.format(CLI_FRAMES, CLI_BATCH, counts.tolist()))
+
+
+def native_codes(maps):
+    """The 16-bit codes the float writers make of (dense, quasi,
+    response)."""
+    from rcfd_tpu_torch import native
+
+    dense, quasi, response = maps
+    return (native.depth_codes(dense, 256.0), native.depth_codes(quasi, 256.0),
+            native.depth_codes(response, 2.0 ** 14))
+
+
 def profile_request(name, pipe, req):
     """torch.profiler over one request: device time by kernel name, and the
     device's busy share of the request's wall time."""
@@ -1686,6 +2164,8 @@ def main():
                 source, _build.BUILD_SECONDS.get(source, float('nan'))))
             for line in _build.BUILD_LOGS.get(source, '').splitlines():
                 log('  nvcc: ' + line)
+    with Phase('codec'), tempfile.TemporaryDirectory() as tmp:
+        phase_codec(device, tmp)
     # one set of weights for every full-width phase (no configuration of
     # the smoke changes a parameter's shape), and one set of requests
     rn, fn = build_models(RADARNET, FUSIONNET, device, SEED)
@@ -1718,6 +2198,10 @@ def main():
     with Phase('bf16'):
         phase_bf16(device, record, {'slice': slice_pipe, 'fused': fused_pipe,
                                     'wide': wide_pipe}, opt_pipe, reqs)
+    del fused_pipe, wide_pipe, opt_pipe
+    torch.cuda.empty_cache()
+    with Phase('cli'), tempfile.TemporaryDirectory() as tmp:
+        phase_cli(device, record, rn, fn, tmp)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

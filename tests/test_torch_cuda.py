@@ -6,6 +6,7 @@ no JAX, so they run on a machine without it:
 """
 
 import copy
+import os
 
 import numpy as np
 import pytest
@@ -711,3 +712,35 @@ def test_bf16_pipeline_on_card_matches_cpu(cuda_device, path):
     assert _launched(before, **expect)
     assert dense_b.dtype == torch.float32 and tuple(dense_b.shape) == \
         (2, H, W) and bool(torch.isfinite(dense_b).all())
+
+
+JPEG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'data',
+                        'torch_io')
+
+
+@pytest.mark.cuda
+def test_nvjpeg_decode_on_card(cuda_device, tmp_path):
+    """A JPEG frame decodes with nvJPEG on the card within the JAX codec's
+    tolerance of PIL's decode (tests/test_native_io.py); a corrupt one
+    raises OSError and the decoder stays usable."""
+    from rcfd_tpu_torch import native
+
+    path = os.path.join(JPEG_DIR, 'frame_q95.jpg')
+    want = native.read_image_u8(os.path.join(JPEG_DIR, 'frame_q95_pil.png'))
+    got = native.read_image_u8(path, device=cuda_device)
+    assert got.shape == want.shape == (96, 160, 3)
+    diff = np.abs(got.astype(np.float64) - want)
+    assert diff.mean() < 1.0 and diff.max() <= 16.0
+    with open(path, 'rb') as f:
+        data = f.read()
+    # garbage after the start marker; a valid header with no scan
+    for name, blob in (('garbage', b'\xff\xd8\xff\xe0' + b'\x00' * 64),
+                       ('no_scan', data[:data.index(b'\xff\xda')])):
+        bad = str(tmp_path / (name + '.jpg'))
+        with open(bad, 'wb') as f:
+            f.write(blob)
+        with pytest.raises(OSError):
+            native.read_image_u8(bad, device=cuda_device)
+    batch = native.batch_read_images([path, path], 96, 160,
+                                     device=cuda_device)
+    assert np.array_equal(batch[1], got.astype(np.float32))

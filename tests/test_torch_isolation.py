@@ -26,7 +26,13 @@ def test_port_sources_include_the_measurement_tool():
     paths = [os.path.relpath(p, REPO) for p in _port_sources()]
     for path in ('rcfd_tpu_torch/tools/fusepall_exp.py',
                  'rcfd_tpu_torch/ops/fused_skip_variants.py',
-                 'rcfd_tpu_torch/nn/optimize.py'):
+                 'rcfd_tpu_torch/nn/optimize.py',
+                 'rcfd_tpu_torch/native/__init__.py',
+                 'rcfd_tpu_torch/data/io.py',
+                 'rcfd_tpu_torch/data/datasets.py',
+                 'rcfd_tpu_torch/utils/eval_utils.py',
+                 'rcfd_tpu_torch/utils/log_utils.py',
+                 'rcfd_tpu_torch/run_pipeline.py'):
         assert path in paths
 
 
@@ -52,9 +58,9 @@ def test_source_imports_nothing_forbidden(path):
 
 def test_import_and_build_pipeline_without_jax():
     """A fresh interpreter imports every module of the port, builds the
-    pipeline on the CPU, serves a batch and a bf16 request and restores a
-    pipeline from .pth files; no JAX, rcfd_tpu, Pillow or torchvision
-    module is loaded."""
+    pipeline on the CPU, serves a batch and a bf16 request, restores a
+    pipeline from .pth files and writes and reads PNGs; no JAX, rcfd_tpu,
+    Pillow or torchvision module is loaded."""
     code = r'''
 import importlib, pkgutil, sys
 import rcfd_tpu_torch
@@ -99,6 +105,13 @@ TwoStagePipeline.from_checkpoints(
                           n_filters_encoder_depth=[4, 4, 8, 8, 8, 8],
                           n_filters_decoder=[8, 8, 8, 8, 8, 8]),
     device='cpu')
+# the codec writes and reads PNGs without Pillow
+from rcfd_tpu_torch.data import io
+d = tempfile.mkdtemp()
+io.save_depth(np.full((4, 6), 7.5, np.float32), os.path.join(d, 'd.png'))
+assert (io.load_depth(os.path.join(d, 'd.png')) == 7.5).all()
+io.save_image(np.ones((4, 6, 3)), os.path.join(d, 'i.png'))
+assert (io.load_image_u8(os.path.join(d, 'i.png')) == 255).all()
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'rcfd_tpu', 'PIL',
                                     'torchvision'))
