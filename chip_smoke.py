@@ -31,7 +31,8 @@ Phases, each printed as it starts and ends:
   slice      the two-stage serving path at full width (RadarNet at its
              900x288 patch, FusionNet at the benchmark config, 900x1600
              frames, 64 radar points) with seeded random weights, serving a
-             few requests; kernel: the quasi-dense scatter. Also one
+             few requests; kernel: the quasi-dense scatter (the path phases
+             build RadarNet with PerfConfig(pallas_scatter=True)). Also one
              request with codec_encode=True, whose uint16 outputs must
              equal floor(x * 256) / floor(x * 2^14) of the float ones
   fused      the same path with RadarNet's 1/2- and 1/4-scale pools
@@ -41,6 +42,10 @@ Phases, each printed as it starts and ends:
   wide       the same path with RadarNet at a 900x300 patch, whose 1/8,
              1/16 and 1/32 pools take the variable-bin branch; kernels: the
              column crop and the scatter
+  exact      the slice at the serving default (the exact float max,
+             ops/scatter.py, no kernel): no launch; its maps against the
+             exact scatter of the same crops on the card and on the CPU,
+             bit for bit, and against K1's; both scatters timed
   optimize   the slice and fused paths with every batch norm folded into
              its convolution (TwoStagePipeline(optimize=True)): launches,
              the deviation from the unfolded paths, and ms/frame of
@@ -66,12 +71,23 @@ Phases, each printed as it starts and ends:
   cli        the serving CLI (rcfd_tpu_torch.run_pipeline.main, in
              process) on 8 full-size frames the port's writers put in a
              temporary directory, with the two models as .pth files: a
-             float32, one frame a request, with ground truth; b float32, 4
-             a request, without (the codec_encode writers); c as b in bf16;
-             d at the 900x300 patch; e with RCFD_FUSED_POOL2/4 set; each
-             after a warm-up run of the same configuration: launches, every
-             file against the same frame served in memory, run a's files
-             against run b's, frames/s and the read/serve/write split
+             float32, one frame a request, with ground truth, at the
+             default (the exact max); with RCFD_PALLAS_SCATTER=1 (K1): b
+             float32, 4 a request, without (the codec_encode writers); c as
+             b in bf16; d at the 900x300 patch; e with RCFD_FUSED_POOL2/4
+             set; each after a warm-up run of the same configuration:
+             launches, every file against the same frame served in memory,
+             run a's files against run b's, frames/s and the
+             read/serve/write split
+  train      FusionNet training: rcfd_tpu_torch.train_fusionnet.main, in
+             process, with bash/train_fusionnet_nuscenes.sh's flags on 16
+             full-size quintuples and 4 validation frames the port's
+             writers made (10 steps of batch 16, checkpoints and
+             validation at steps 5 and 10), then resumed from the newest
+             checkpoint to step 15; model-10.pth served beside the smoke's
+             RadarNet; one step of a narrow FusionNet card vs CPU; 30
+             steps of the canonical model on one fixed batch. Prints ms a
+             step, the host's wait for data, samples/s and peak memory
 
 Each path phase (and each configuration of the batched phase) sets every
 kernel's launch count to 0 before its counted requests, reads them after,
@@ -620,11 +636,17 @@ def phase_variants(device, record, rn):
 
 
 def build_models(radarnet_kw, fusionnet_kw, device, seed):
+    """The two models with weights drawn from ``seed``; RadarNet with
+    PerfConfig(pallas_scatter=True), so that the path phases serve through
+    the scatter kernel K1 and its launches and times stay comparable with
+    earlier runs (phase exact serves the default, the exact max)."""
     from rcfd_tpu_torch.models import FusionNetModel, RadarNetModel
     from rcfd_tpu_torch.nn import init_parameters
+    from rcfd_tpu_torch.nn.perf import PerfConfig
 
     gen = torch.Generator().manual_seed(seed)
-    rn = RadarNetModel(**radarnet_kw, device='cpu')
+    rn = RadarNetModel(**radarnet_kw, device='cpu',
+                       perf=PerfConfig(pallas_scatter=True))
     fn = FusionNetModel(**fusionnet_kw, device='cpu')
     init_parameters(rn, gen)
     init_parameters(fn, gen)
@@ -633,9 +655,15 @@ def build_models(radarnet_kw, fusionnet_kw, device, seed):
 
 def radarnet_like(rn, device, **kw):
     """A RadarNet of another patch or perf with ``rn``'s weights (no
-    configuration of the smoke changes a parameter's shape)."""
+    configuration of the smoke changes a parameter's shape) and ``rn``'s
+    scatter route (``perf.pallas_scatter``), unless ``pallas_scatter`` is
+    given."""
+    from dataclasses import replace
+
     from rcfd_tpu_torch.models import RadarNetModel
 
+    pallas = kw.pop('pallas_scatter', rn.perf.pallas_scatter)
+    kw['perf'] = replace(kw.get('perf', rn.perf), pallas_scatter=pallas)
     other = RadarNetModel(**dict(RADARNET, **kw), device='cpu')
     other.load_state_dict(rn.state_dict(), strict=True)
     return other.to(device)
@@ -1048,6 +1076,60 @@ def phase_wide(device, record, slice_pipe, reqs):
                       'batch_column_crop', cc.batch_column_crop_plain)
     stage_times('wide', pipe, reqs[1], device)
     return pipe
+
+
+def phase_exact(device, slice_pipe, reqs):
+    """The slice at the serving default: RadarNet without pallas_scatter,
+    so the exact float max serves (ops/scatter.py, scatter_reduce_ on the
+    card, as the JAX package's XLA scatter). No kernel is launched; the
+    quasi and response maps equal the exact scatter's of the request's own
+    crops, which equal the same function's on the CPU, bit for bit; against
+    the K1 slice on the same weights, the quasi pixels that differ are
+    14-bit ties and the responses are equal; then the exact scatter and K1
+    on the same crops, timed."""
+    from rcfd_tpu_torch.ops import scatter as exact
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline, quantize_bridge
+
+    rn = radarnet_like(slice_pipe.radarnet, device, pallas_scatter=None)
+    pipe = TwoStagePipeline(rn, slice_pipe.fusionnet, H, W, device=device)
+    check(not pipe.pallas_scatter and
+          pipe.scatter is exact.scatter_quasi_dense,
+          'exact: the default pipeline does not serve the exact scatter')
+    outs, _, _, _ = serve_path('exact', pipe, reqs, device, {})
+    req = reqs[1]
+    _, quasi, response = outs[0]
+    crops, xs = radarnet_outputs(pipe, req)
+    zs = torch.from_numpy(req[1][:, 2].copy()).to(device)
+    valid = torch.from_numpy(req[2]).to(device)
+    args = (crops, xs, zs, valid, H, W, PATCH)
+    with torch.inference_mode():
+        maps = exact.scatter_quasi_dense(*args)
+        maps_cpu = exact.scatter_quasi_dense(*[
+            a.cpu() if torch.is_tensor(a) else a for a in args])
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(maps, maps_cpu)),
+              'exact: the exact scatter on the card differs from the CPU')
+        q, r = quantize_bridge(*maps)
+        check(torch.equal(q, quasi) and torch.equal(r, response),
+              'exact: the served maps differ from the exact scatter of the '
+              'same crops')
+        _, quasi_k1, response_k1 = slice_pipe(*req)
+        pixels = torch.nonzero(quasi != quasi_k1).cpu().numpy()
+        bad = unexplained_quasi(crops.cpu().numpy(), xs.cpu().numpy(),
+                                req[2], pixels, 0.0)
+        check(not bad, 'exact: quasi depth differs from K1\'s at {} pixels '
+              'that are no 14-bit tie: {}'.format(len(bad), bad[:10]))
+        check(torch.equal(response, response_k1),
+              'exact: the response differs from K1\'s')
+        ms = device_ms(lambda: exact.scatter_quasi_dense(*args), 20)
+        ms_k1 = device_ms(lambda: sc.scatter_quasi_dense(*args), 20)
+    log('exact: quasi and response == the exact scatter of the same crops, '
+        'on the card == on the CPU, bit for bit; against the K1 slice on '
+        'the same weights: {} of {} quasi pixels differ, each a 14-bit tie; '
+        'responses equal; the scatter alone on these crops: exact {:.3f} '
+        'ms, K1 {:.3f} ms (device, median of 20)'.format(
+            len(pixels), quasi.numel(), ms, ms_k1))
+    stage_times('exact', pipe, req, device)
 
 
 # the JAX package's tolerance for the fold (tests/test_optimize.py): float32
@@ -1648,14 +1730,15 @@ def phase_bf16(device, record, pipes, opt_pipe, reqs):
 # with ground truth, the kernels and launches per frame or per request)
 CLI_FRAMES = 8
 CLI_BATCH = 4
+K1_ENV = {'RCFD_PALLAS_SCATTER': '1'}
 CLI_RUNS = (
     ('cli a', ['--batch_size', '1'], {}, True),
-    ('cli b', ['--batch_size', str(CLI_BATCH)], {}, False),
-    ('cli c', ['--bfloat16', '--batch_size', str(CLI_BATCH)], {}, False),
+    ('cli b', ['--batch_size', str(CLI_BATCH)], K1_ENV, False),
+    ('cli c', ['--bfloat16', '--batch_size', str(CLI_BATCH)], K1_ENV, False),
     ('cli d', ['--patch_size', str(WIDE_PATCH[0]), str(WIDE_PATCH[1]),
-               '--batch_size', '1'], {}, False),
+               '--batch_size', '1'], K1_ENV, False),
     ('cli e', ['--batch_size', '1'],
-     {'RCFD_FUSED_POOL2': '1', 'RCFD_FUSED_POOL4': '1'}, True),
+     dict(K1_ENV, RCFD_FUSED_POOL2='1', RCFD_FUSED_POOL4='1'), True),
 )
 # a JPEG frame of the repository and PIL's decode of it, and the decoders'
 # agreement the JAX package asks of its own codec
@@ -1865,16 +1948,19 @@ def cli_patch(flags):
 
 
 def cli_expect(flags, env):
-    """The launches a CLI run of CLI_FRAMES frames must make: the scatter
-    once a request; at a patch width that is not a multiple of 32 (the
-    900x300 patch) the column crop 3 times a frame; with the fused gates
-    the gather-add twice a frame."""
+    """The launches a CLI run of CLI_FRAMES frames must make: with
+    RCFD_PALLAS_SCATTER=1 the scatter kernel once a request (at the
+    default, the exact max, none); at a patch width that is not a multiple
+    of 32 (the 900x300 patch) the column crop 3 times a frame; with the
+    fused gates the gather-add twice a frame."""
     batch = int(flags[flags.index('--batch_size') + 1])
     k1 = 'scatter_quasi_dense' + (' bf16' if '--bfloat16' in flags else '')
-    expect = {k1: -(-CLI_FRAMES // batch)}
+    expect = {}
+    if env.get('RCFD_PALLAS_SCATTER'):
+        expect[k1] = -(-CLI_FRAMES // batch)
     if cli_patch(flags)[1] % 32:
         expect['column_crop'] = 3 * CLI_FRAMES
-    if env:
+    if env.get('RCFD_FUSED_POOL2'):
         expect['fused_skip_gather_add'] = 2 * CLI_FRAMES
     return expect
 
@@ -2077,18 +2163,340 @@ def phase_cli(device, record, rn, fn, tmp):
                     'read', 'serve', 'write')], sec['setup'],
                 {k: v for k, v in launches.items() if v}, summary['metrics'],
                 counts.tolist(), power))
-    # run a (float writers, one frame a request) against run b (codec
-    # writers, forward_batched): the same frames, served two ways
+    # run a (the exact max, float writers, one frame a request) against run
+    # b (K1, codec writers, forward_batched): the same frames, served two
+    # ways
     ref_pipe = cli_pipeline(checkpoints, CLI_RUNS[0][1], {}, device)
     counts = compare_codes(
         'cli a vs b', files['cli b'], files['cli a'],
         lambda f: tuple(t.float().cpu().numpy() for t in radarnet_outputs(
             ref_pipe, (samples[f][0][None], samples[f][1], samples[f][2]))),
         samples, FOLD_TOL, 1)
-    log('cli a vs b: the same {} frames, one a request with the float writers '
-        'and {} a request with the codec writers: codes that differ (dense, '
-        'quasi, response) {}, each quasi and response difference at a 14-bit '
-        'tie or the threshold'.format(CLI_FRAMES, CLI_BATCH, counts.tolist()))
+    log('cli a vs b: the same {} frames, one a request with the exact max and '
+        'the float writers and {} a request with K1 and the codec writers: '
+        'codes that differ (dense, quasi, response) {}, each quasi and '
+        'response difference at a 14-bit tie or the threshold'.format(
+            CLI_FRAMES, CLI_BATCH, counts.tolist()))
+
+
+# -- FusionNet training ------------------------------------------------------
+
+# phase train: full-size frames the port's writers put in a temporary
+# directory, and bash/train_fusionnet_nuscenes.sh's flags with 10 steps of
+# batch 16 (schedule 10 over 16 frames), a checkpoint and a validation
+# every 5 steps; then a resumed run to step 15
+TRAIN_SCRIPT = os.path.join('bash', 'train_fusionnet_nuscenes.sh')
+TRAIN_FRAMES = 16
+VAL_FRAMES = 4
+TRAIN_STREAMS = ('image', 'depth', 'response', 'ground_truth', 'lidar')
+VAL_STREAMS = ('image', 'depth', 'response', 'ground_truth')
+# steps whose times make the median ms a step (the first two choose cuDNN's
+# algorithms)
+TIMED_STEPS = range(3, 11)
+OVERFIT_STEPS = 30
+# card against CPU, one train step of a narrow FusionNet: loss relative,
+# gradients as a share of each one's max-abs (cuDNN's backward sums in
+# another order), running statistics relative
+CARD_LOSS_RTOL, CARD_GRAD_TOL, CARD_STATS_RTOL = 1e-5, 1e-3, 1e-5
+
+
+def script_flags(path):
+    """The flags of a training script: {'--flag': [values]}."""
+    with open(os.path.join(HERE, path)) as f:
+        text = f.read().replace('\\\n', ' ')
+    tokens = text[text.index('train_fusionnet.py') + 18:].split()
+    flags, key = {}, None
+    for t in tokens:
+        if t.startswith('--'):
+            key = t
+            flags[key] = []
+        elif key is not None:
+            flags[key].append(t)
+    return flags
+
+
+def training_frame(rng, split):
+    """One quintuple (training) or quadruple (validation) of maps like
+    nuScenes': a camera frame; quasi-dense radar depth (integer meters on
+    about 3% of the lower half) and its response; for training an
+    interpolated ground truth (dense below the horizon) and a lidar map (5%
+    of the pixels); for validation the lidar map as the ground truth."""
+    depth = np.zeros((H, W), np.float32)
+    hit = rng.random((H, W)) < 0.03
+    hit[:H // 2] = False
+    depth[hit] = np.floor(rng.random(int(hit.sum())) * 79 + 1)
+    response = np.where(hit, 0.5 + 0.5 * rng.random((H, W)), 0.0).astype(
+        np.float32)
+    lidar = ground_truth(rng)
+    maps = {'image': camera_frame(rng), 'depth': depth, 'response': response}
+    if split == 'val':
+        maps['ground_truth'] = lidar
+        return maps
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    interp = 5 + 70 * (1 - y / H) + 3 * np.sin(x / 50.0)
+    interp[: int(0.4 * H)] = 0.0
+    maps.update(ground_truth=interp.astype(np.float32), lidar=lidar)
+    return maps
+
+
+def write_training_inputs(tmp, rng):
+    """TRAIN_FRAMES training quintuples and VAL_FRAMES validation frames
+    at 900x1600 with the port's writers (RGB PNGs, x256 depth PNGs, x2^14
+    response PNGs), written by 8 threads, and their manifests."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rcfd_tpu_torch import native
+    from rcfd_tpu_torch.data import io
+
+    # each writer takes (path, map)
+    writers = {'image': native.write_rgb,
+               'response': lambda path, r: io.save_response(r, path)}
+    jobs, manifests = [], {}
+    for split, n, streams in (('train', TRAIN_FRAMES, TRAIN_STREAMS),
+                              ('val', VAL_FRAMES, VAL_STREAMS)):
+        paths = {k: [] for k in streams}
+        for i in range(n):
+            maps = training_frame(rng, split)
+            for k in streams:
+                paths[k].append(os.path.join(tmp, '{}_{}_{:02d}.png'.format(
+                    split, k, i)))
+                jobs.append((writers.get(k, lambda path, z: io.save_depth(
+                    z, path)), paths[k][-1], maps[k]))
+        for k in streams:
+            manifests[split, k] = os.path.join(tmp, '{}_{}.txt'.format(
+                split, k))
+            io.write_paths(manifests[split, k], paths[k])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda job: job[0](job[1], job[2]), jobs))
+    log('train: wrote {} PNGs of {}x{} in {:.2f} s'.format(
+        len(jobs), H, W, time.perf_counter() - t0))
+    return manifests
+
+
+def train_argv(manifests, checkpoint_dirpath, schedule, restore=None):
+    """bash/train_fusionnet_nuscenes.sh's flags, with this run's
+    manifests, schedule, checkpoint directory and restore path, a
+    checkpoint and a validation every 5 steps."""
+    flags = script_flags(TRAIN_SCRIPT)
+    for split, streams in (('train', TRAIN_STREAMS), ('val', VAL_STREAMS)):
+        for k in streams:
+            name = 'lidar_map' if k == 'lidar' else k
+            flags['--{}_{}_path'.format(split, name)] = [
+                manifests[split, k]]
+    flags.update({'--learning_schedule': [str(schedule)],
+                  '--n_step_per_checkpoint': ['5'],
+                  '--start_step_validation': ['5'],
+                  '--checkpoint_dirpath': [checkpoint_dirpath]})
+    if restore:
+        flags['--restore_path'] = [restore]
+    return [t for k, v in flags.items() for t in [k] + v]
+
+
+def validation_lines(results_path):
+    """The (step, MAE, RMSE, iMAE, iRMSE) rows under 'Validation results'
+    in a results.txt."""
+    with open(results_path) as f:
+        lines = f.read().splitlines()
+    return [[float(v) for v in lines[i + 2].split()]
+            for i, line in enumerate(lines)
+            if line == 'Validation results:']
+
+
+def check_checkpoint(path, step):
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    check(sorted(ckpt) == ['decoder_state_dict', 'encoder_state_dict',
+                           'optimizer_state_dict', 'train_step'],
+          'train: {} has keys {}'.format(path, sorted(ckpt)))
+    state = ckpt['optimizer_state_dict']['state']
+    check(ckpt['train_step'] == step and state and
+          all(int(e['step']) == step for e in state.values()),
+          'train: {} is not at step {} (Adam steps {})'.format(
+              path, step, sorted({int(e['step']) for e in state.values()})))
+
+
+def train_card_vs_cpu(device):
+    """One train step of a narrow FusionNet on the card and on the CPU from
+    the same weights and batch, augmentation off: loss, gradients and the
+    new running statistics."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.models import FusionNetModel
+    from rcfd_tpu_torch.nn import init_parameters
+
+    kw = dict(FUSIONNET, n_filters_encoder_image=[8, 16, 16, 16, 16, 16],
+              n_filters_encoder_depth=[8, 8, 16, 16, 16, 16],
+              n_filters_decoder=[16, 16, 16, 8, 8, 8])
+    cpu = FusionNetModel(**kw, device='cpu', trainable=True)
+    init_parameters(cpu, torch.Generator().manual_seed(SEED + 20))
+    card = copy.deepcopy(cpu).to(device)
+    rng = np.random.default_rng(SEED + 20)
+    batch = (rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8),
+             *[(rng.random((2, 64, 96, 1)) * 60 * 256).astype(np.uint16)
+               for _ in range(4)])
+    transforms = Transforms(normalized_image_range=[0, 1])
+    out = {}
+    for name, model, dev in (('cpu', cpu, 'cpu'), ('card', card, device)):
+        step = fm.TrainStep(model, transforms,
+                            fm.make_optimizer(model, 1e-3, 0.0), 'l1', 0.0,
+                            2.0, -1, 7, 1.5, -1)
+        with fm.training_numerics():
+            info = step.backward(tuple(torch.from_numpy(a).to(dev)
+                                       for a in batch), {})
+        out[name] = (float(info['loss']),
+                     {n: p.grad.cpu() for n, p in model.named_parameters()
+                      if p.grad is not None},
+                     {n: b.cpu().double() for n, b in model.named_buffers()})
+    (loss_c, grads_c, bufs_c), (loss_g, grads_g, bufs_g) = out['cpu'], \
+        out['card']
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    grad_err = max(float((grads_g[n] - g).abs().max() / g.abs().max())
+                   for n, g in grads_c.items() if g.abs().max() > 0)
+    stats_err = max(float((bufs_g[n] - b).abs().max() /
+                          max(float(b.abs().max()), 1.0))
+                    for n, b in bufs_c.items())
+    check(sorted(grads_g) == sorted(grads_c), 'train: the card and the CPU '
+          'gave gradients to different parameters')
+    check(loss_err <= CARD_LOSS_RTOL and grad_err <= CARD_GRAD_TOL and
+          stats_err <= CARD_STATS_RTOL, 'train: card vs CPU: loss rel err {}, '
+          'gradient err {} of max-abs, running statistics rel err {}'.format(
+              loss_err, grad_err, stats_err))
+    log('train: one step of a narrow FusionNet, card vs CPU from the same '
+        'weights and batch: loss rel err {:.3g} (tolerance {:g}), gradients '
+        'max err {:.3g} of their max-abs over {} tensors (tolerance {:g}), '
+        'running statistics rel err {:.3g} (tolerance {:g})'.format(
+            loss_err, CARD_LOSS_RTOL, grad_err, len(grads_c), CARD_GRAD_TOL,
+            stats_err, CARD_STATS_RTOL))
+
+
+def train_overfit(device):
+    """tests/test_learning_sanity.py's protocol at full width: the canonical
+    FusionNet, one fixed batch of 16 crops of 448x448 with a constant 20 m
+    target, OVERFIT_STEPS steps of Adam at 1e-3; the last loss must be
+    below the first."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.models import FusionNetModel
+    from rcfd_tpu_torch.nn import init_parameters
+
+    model = FusionNetModel(**FUSIONNET, device='cpu', trainable=True)
+    init_parameters(model, torch.Generator().manual_seed(SEED + 21))
+    model.to(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    shape = (16, 448, 448)
+    batch = ((torch.rand(*shape, 3, generator=gen, device=device) * 255),
+             torch.rand(*shape, 1, generator=gen, device=device) * 60,
+             torch.rand(*shape, 1, generator=gen, device=device),
+             torch.full((*shape, 1), 20.0, device=device),
+             torch.zeros((*shape, 1), device=device))
+    transforms = Transforms(normalized_image_range=[0, 1])
+    step = fm.TrainStep(model, transforms, fm.make_optimizer(model, 1e-3,
+                                                             0.0),
+                        'l1', 0.0, 0.0, -1, -1, -1, -1)
+    with fm.training_numerics():
+        losses = [float(step(batch, {}, 1e-3)['loss'])
+                  for _ in range(OVERFIT_STEPS)]
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          'train: overfit at full width: losses {}'.format(losses))
+    log('train: overfit at full width (16 x 448x448, constant 20 m target, '
+        '{} steps): loss {:.4f} -> {:.4f}, last/first {:.4f}; every 5th: '
+        '{}'.format(OVERFIT_STEPS, losses[0], losses[-1],
+                    losses[-1] / losses[0],
+                    ', '.join('{:.3f}'.format(v) for v in losses[::5])))
+
+
+def phase_train(device, rn, tmp):
+    """FusionNet training on the card: python -m
+    rcfd_tpu_torch.train_fusionnet's main, in process, with
+    bash/train_fusionnet_nuscenes.sh's flags on full-size files (10 steps
+    of batch 16, checkpoints and validation at steps 5 and 10), resumed
+    from the newest checkpoint to step 15; model-10.pth served by
+    TwoStagePipeline.from_checkpoints beside the smoke's RadarNet; one step
+    card against CPU; overfitting a fixed batch at full width. Prints ms a
+    step, the host's wait for data, samples/s and peak memory."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch import train_fusionnet
+    from rcfd_tpu_torch.models import radarnet
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline
+
+    with fm.training_numerics():
+        log('train: ' + fm.numerics_line())
+    manifests = write_training_inputs(tmp, np.random.default_rng(SEED + 22))
+    ckpt = os.path.join(tmp, 'checkpoints')
+    timings = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    train_fusionnet.main(train_argv(manifests, ckpt, 10), timings=timings)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    losses = [t['loss'] for t in timings]
+    check([t['step'] for t in timings] == list(range(1, 11)) and
+          all(math.isfinite(v) for v in losses),
+          'train: steps {} losses {}'.format(
+              [t['step'] for t in timings], losses))
+    for step in (5, 10):
+        check_checkpoint(os.path.join(ckpt, 'model-{}.pth'.format(step)),
+                         step)
+    rows = validation_lines(os.path.join(ckpt, 'results.txt'))
+    check(len(rows) >= 2 and all(len(r) == 5 and all(map(math.isfinite, r))
+                                 for r in rows),
+          'train: validation rows {}'.format(rows))
+    timed = [t for t in timings if t['step'] in TIMED_STEPS]
+    step_ms = float(np.median([t['step_ms'] for t in timed]))
+    wait_ms = float(np.median([t['wait_ms'] for t in timed]))
+    per_step = float(np.median([t['step_ms'] + t['wait_ms'] for t in timed]))
+    log('train: 10 steps of batch 16 at 448x448 from {} full-size frames in '
+        '{:.2f} s of main (validation of {} frames at steps 5 and 10 and at '
+        'the end included): ms a step, median of steps 3-10 (synchronized) '
+        '{:.2f}; host wait for data a step, median {:.2f} ms; samples/s '
+        '{:.2f} (16 over the median step plus wait); peak memory {} bytes; '
+        'losses {}; validation (step, MAE, RMSE, iMAE, iRMSE) {}; per step '
+        '(ms, wait ms): {}; {}'.format(
+            TRAIN_FRAMES, wall, VAL_FRAMES, step_ms, wait_ms,
+            16e3 / per_step, peak,
+            ', '.join('{:.4f}'.format(v) for v in losses), rows,
+            ', '.join('{:.1f}/{:.1f}'.format(t['step_ms'], t['wait_ms'])
+                      for t in timings), gpu_name_and_power()))
+
+    resumed = []
+    train_fusionnet.main(train_argv(manifests, ckpt, 15, 'latest'),
+                         timings=resumed)
+    check([t['step'] for t in resumed] == list(range(11, 16)) and
+          all(math.isfinite(t['loss']) for t in resumed),
+          'train: the resumed run took steps {}'.format(
+              [t['step'] for t in resumed]))
+    check_checkpoint(os.path.join(ckpt, 'model-15.pth'), 15)
+    log('train: resumed from model-10.pth (--restore_path latest) at step '
+        '10, took steps 11-15, saved model-15.pth with an Adam step of 15; '
+        'losses {}'.format(', '.join('{:.4f}'.format(t['loss'])
+                                     for t in resumed)))
+
+    rn_path = os.path.join(tmp, 'radarnet.pth')
+    torch.save(dict({radarnet.PTH_KEYS[part]: {
+        k: v.cpu() for k, v in getattr(rn, part).state_dict().items()}
+        for part in radarnet.PTH_KEYS}, train_step=0), rn_path)
+    pipe = TwoStagePipeline.from_checkpoints(
+        rn_path, os.path.join(ckpt, 'model-10.pth'), image_height=H,
+        image_width=W, device=device)
+    req = requests(np.random.default_rng(SEED + 23), 1, H, W, K,
+                   N_INVALID)[0]
+    dense = pipe(*req)[0]
+    # FusionNet's range, min_d / (sigmoid(x) + min_d / max_d): (0.990, 100]
+    # m at min_d 1 and max_d 100, below 1 m where the sigmoid nears 1
+    lo = 1.0 / (1.0 + 1.0 / 100.0)
+    check(bool(torch.isfinite(dense).all()) and float(dense.min()) >= lo and
+          float(dense.max()) <= 100.0, 'train: model-10.pth serves dense '
+          'depth in [{}, {}]'.format(float(dense.min()), float(dense.max())))
+    log('train: model-10.pth served by TwoStagePipeline.from_checkpoints '
+        'beside the smoke\'s RadarNet: dense depth finite, in [{:.4f}, '
+        '{:.4f}] m (FusionNet\'s range [{:.4f}, 100])'.format(
+            float(dense.min()), float(dense.max()), lo))
+    del pipe
+    torch.cuda.empty_cache()
+    train_card_vs_cpu(device)
+    train_overfit(device)
+    torch.cuda.empty_cache()
 
 
 def native_codes(maps):
@@ -2188,6 +2596,8 @@ def main():
         fused_pipe = phase_fused(device, record, slice_pipe, reqs)
     with Phase('wide'):
         wide_pipe = phase_wide(device, record, slice_pipe, reqs)
+    with Phase('exact'):
+        phase_exact(device, slice_pipe, reqs)
     with Phase('optimize'):
         opt_pipe = phase_optimize(device, record, slice_pipe, reqs)
     torch.cuda.empty_cache()
@@ -2202,6 +2612,9 @@ def main():
     torch.cuda.empty_cache()
     with Phase('cli'), tempfile.TemporaryDirectory() as tmp:
         phase_cli(device, record, rn, fn, tmp)
+    torch.cuda.empty_cache()
+    with Phase('train'), tempfile.TemporaryDirectory() as tmp:
+        phase_train(device, rn, tmp)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

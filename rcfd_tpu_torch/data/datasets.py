@@ -1,17 +1,62 @@
-"""Inference dataset on the host (counterpart of the inference half of
-rcfd_tpu/data/datasets.py): a camera frame, its radar points padded to a
-static count with a validity mask, and the optional ground truth, as the
-integer transport carries them.
+"""Datasets on the host (counterpart of rcfd_tpu/data/datasets.py), as the
+integer transport carries them: RadarNet's inference frames (a camera
+frame, its radar points padded to a static count with a validity mask, the
+optional ground truth), and FusionNet's training quintuples and inference
+frames.
+
+All randomness is the caller's numpy Generator: the loader keys one by
+(seed, epoch, position) as the JAX package does, so the port's batches
+equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
 import warnings
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
 from . import io as data_utils
+
+
+def random_crop(inputs, shape, crop_type=('none',), rng=None):
+    """Joint crop of HWC inputs to ``shape`` (reference
+    src/datasets.py:19-109, rcfd_tpu/data/datasets.py ``random_crop``, the
+    same draws from ``rng``). crop_type: none, horizontal, vertical,
+    anchored, top, bottom, left, right, center; 'vertical' applies with
+    probability 0.3."""
+    rng = rng or np.random.default_rng()
+    n_height, n_width = shape
+    o_height, o_width = inputs[0].shape[0], inputs[0].shape[1]
+    d_height = o_height - n_height
+    d_width = o_width - n_width
+    y_start = d_height // 2
+    x_start = d_width // 2
+
+    if 'left' in crop_type:
+        x_start = 0
+    elif 'right' in crop_type:
+        x_start = d_width
+    elif 'horizontal' in crop_type:
+        if 'anchored' in crop_type:
+            widths = [0.0, 0.50 * d_width, 1.0 * d_width]
+            x_start = int(widths[rng.integers(0, len(widths))])
+        else:
+            x_start = int(rng.integers(0, max(d_width, 1)))
+
+    if 'top' in crop_type:
+        y_start = 0
+    elif 'bottom' in crop_type:
+        y_start = d_height
+    elif 'vertical' in crop_type and rng.random() <= 0.30:
+        if 'anchored' in crop_type:
+            heights = [0.0, 0.50 * d_height, 1.0 * d_height]
+            y_start = int(heights[rng.integers(0, len(heights))])
+        else:
+            y_start = int(rng.integers(0, max(d_height, 1)))
+
+    return [t[y_start:y_start + n_height, x_start:x_start + n_width, :]
+            for t in inputs]
 
 
 def pad_points(points: np.ndarray, max_points: int):
@@ -92,6 +137,79 @@ class RadarNetInferenceDataset:
             radar_points = np.expand_dims(radar_points, axis=0)
         points, valid = pad_points(radar_points, self.max_points)
         out = [image, points, valid]
+        if self.ground_truth_available:
+            out.append(data_utils.load_depth_u16(
+                self.ground_truth_paths[index], data_format='HWC'))
+        return tuple(out)
+
+
+class FusionNetTrainingDataset:
+    """Image, depth, response, interpolated ground truth and lidar map with
+    a joint random crop (reference src/datasets.py:346-443). ``get``
+    returns the integer transport: the image uint8 (h, w, 3) and the four
+    streams as their raw 16-bit PNG integers (h, w, 1). The response is
+    read through the x256 depth codec, as the reference reads it
+    (src/datasets.py:412-415). JPEG frames decode on ``device``."""
+
+    def __init__(self, image_paths, depth_paths, response_paths,
+                 ground_truth_paths, lidar_map_paths,
+                 shape: Optional[Tuple[int, int]] = None,
+                 random_crop_type: Sequence[str] = ('none',), device=None):
+        self.n_sample = len(image_paths)
+        self.streams = (depth_paths, response_paths, ground_truth_paths,
+                        lidar_map_paths)
+        for paths in self.streams:
+            assert len(paths) == self.n_sample
+        self.image_paths = image_paths
+        self.shape = shape
+        self.do_random_crop = \
+            shape is not None and all(x > 0 for x in shape)
+        self.random_crop_type = tuple(random_crop_type)
+        self.device = device
+
+    def __len__(self):
+        return self.n_sample
+
+    def get(self, index: int, rng: np.random.Generator):
+        sample = [data_utils.load_image_u8(self.image_paths[index],
+                                           device=self.device)]
+        sample += [data_utils.load_depth_u16(paths[index], data_format='HWC')
+                   for paths in self.streams]
+        if self.do_random_crop:
+            sample = random_crop(sample, self.shape, self.random_crop_type,
+                                 rng)
+        return tuple(np.ascontiguousarray(t) for t in sample)
+
+
+class FusionNetInferenceDataset:
+    """Image, depth and response (and the optional ground truth) at full
+    resolution (reference src/datasets.py:446-527), as integer transport:
+    the image uint8 (H, W, 3), the streams raw uint16 (H, W, 1), the
+    response read through the x256 codec."""
+
+    def __init__(self, image_paths, depth_paths, response_paths,
+                 ground_truth_paths=None, device=None):
+        self.n_sample = len(image_paths)
+        self.image_paths = image_paths
+        self.depth_paths = depth_paths
+        self.response_paths = response_paths
+        self.ground_truth_available = ground_truth_paths is not None and \
+            None not in ground_truth_paths
+        if self.ground_truth_available:
+            assert self.n_sample == len(ground_truth_paths)
+        self.ground_truth_paths = ground_truth_paths
+        self.device = device
+
+    def __len__(self):
+        return self.n_sample
+
+    def get(self, index: int):
+        out = [data_utils.load_image_u8(self.image_paths[index],
+                                        device=self.device),
+               data_utils.load_depth_u16(self.depth_paths[index],
+                                         data_format='HWC'),
+               data_utils.load_depth_u16(self.response_paths[index],
+                                         data_format='HWC')]
         if self.ground_truth_available:
             out.append(data_utils.load_depth_u16(
                 self.ground_truth_paths[index], data_format='HWC'))

@@ -1,0 +1,138 @@
+"""Threaded host loader and host-to-card prefetch (counterpart of
+rcfd_tpu/data/loader.py ``DataLoader`` and ``device_prefetch``).
+
+The loader is a thread pool (the codec's zlib inflate and file reads
+release the GIL) behind a bounded queue; batches are stacked numpy arrays
+in the integer transport (uint8 images, uint16 streams). Each sample draws
+from a Generator seeded by (seed, epoch, position), and the order of an
+epoch is ``default_rng((seed, epoch)).permutation``, as in the JAX package:
+the batches do not depend on the worker count and equal the JAX package's.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterator
+
+import numpy as np
+import torch
+
+
+class DataLoader:
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False,
+                 num_workers: int = 8, seed: int = 0,
+                 drop_last: bool = False, prefetch: int = 2):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.drop_last = drop_last
+        self.prefetch = prefetch
+        self.epoch = 0
+        self.start_batch = 0
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def set_epoch(self, epoch: int, start_batch: int = 0):
+        """The epoch of the next iteration, which yields its batches from
+        ``start_batch`` on (a run resumed inside an epoch)."""
+        self.epoch = epoch
+        self.start_batch = start_batch
+
+    def _order(self):
+        n = len(self.dataset)
+        if self.shuffle:
+            return np.random.default_rng((self.seed, self.epoch)).permutation(n)
+        return np.arange(n)
+
+    def batches(self):
+        """(first position, sample indices) of each batch of the epoch."""
+        order = self._order()
+        out = []
+        for start in range(0, len(order), self.batch_size):
+            idx = order[start:start + self.batch_size]
+            if len(idx) < self.batch_size and self.drop_last:
+                continue
+            out.append((start, idx))
+        return out
+
+    def __iter__(self) -> Iterator:
+        batches = self.batches()[self.start_batch:]
+        out_q: 'queue.Queue' = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def fetch_sample(pos, index):
+            rng = np.random.default_rng((self.seed, self.epoch, int(pos)))
+            return self.dataset.get(int(index), rng)
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
+                    for start, idx in batches:
+                        if stop.is_set():
+                            return
+                        samples = list(ex.map(
+                            fetch_sample, range(start, start + len(idx)),
+                            idx))
+                        out_q.put(tuple(
+                            np.stack([s[i] for s in samples])
+                            for i in range(len(samples[0]))))
+                out_q.put(None)
+            except BaseException as e:  # surface worker errors
+                out_q.put(e)
+
+        thread = threading.Thread(target=producer, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = out_q.get()
+                if item is None:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+            while thread.is_alive():  # let the producer see the stop
+                try:
+                    out_q.get(timeout=0.1)
+                except queue.Empty:
+                    pass
+        self.epoch += 1
+        self.start_batch = 0
+
+
+def device_prefetch(iterator, device, buffer_size: int = 2):
+    """Host-to-card transfer ahead of use: each numpy batch is copied into
+    pinned memory and sent with a non-blocking copy, ``buffer_size``
+    batches ahead of the one yielded, so the copies overlap the host's wait
+    for the card. Yields tuples of tensors on ``device`` in the transport
+    dtypes (decode with ``transport.decode``). On the CPU the tensors are
+    the arrays themselves."""
+    device = torch.device(device)
+    pending = collections.deque()
+
+    def put(batch):
+        out = []
+        for a in batch:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if device.type == 'cuda':
+                t = t.pin_memory().to(device, non_blocking=True)
+            out.append(t)
+        return tuple(out)
+
+    for batch in iterator:
+        pending.append(put(batch))
+        if len(pending) >= buffer_size:
+            yield pending.popleft()
+    while pending:
+        yield pending.popleft()

@@ -237,9 +237,11 @@ class RadarNetV1Encoder(nn.Module):
             latent_image, x1, box_width=patch_w, box_y1=0,
             box_y2=box_height, spatial_scale=1 / 32.,
             output_size=(latent_height, latent_width))
-        # inference only, so the JAX package's `not training` term holds
-        fuse_pool2 = self.perf.fused_pool2 and skip_sizes[0][1] <= 256
-        fuse_pool4 = self.perf.fused_pool4 and skip_sizes[1][1] <= 256
+        # the deferred pools serve only, as in the JAX package
+        fuse_pool2 = self.perf.fused_pool2 and not self.training and \
+            skip_sizes[0][1] <= 256
+        fuse_pool4 = self.perf.fused_pool4 and not self.training and \
+            skip_sizes[1][1] <= 256
         skips_pooled = [
             roi_pool_column(skip, x1, box_width=patch_w, box_y1=0,
                             box_y2=box_height, spatial_scale=skip_scales[i],

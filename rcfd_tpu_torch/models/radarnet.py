@@ -25,8 +25,9 @@ class RadarNetModel(nn.Module):
     Built on ``device`` (``cuda`` unless ``device='cpu'`` is given) and put
     in eval mode; weights come from ``init_parameters`` or
     ``load_state_dict(state_dict_from_jax(...))`` or ``restore_checkpoint``.
-    ``perf`` (a PerfConfig) turns on the deferred skip pools and sets the
-    batched path's decode chunks; it adds no parameter.
+    ``perf`` (a PerfConfig) turns on the deferred skip pools, chooses the
+    serving pipeline's scatter and sets the batched path's decode chunks;
+    it adds no parameter.
     """
 
     def __init__(self, input_channels_image: int, input_channels_depth: int,

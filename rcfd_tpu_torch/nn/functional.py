@@ -12,7 +12,8 @@ Semantics kept from the JAX package:
   factors it repeats each pixel by a broadcast, as the JAX package does;
 - batch norm (inference) computes ``x * scale + shift`` with
   ``scale = w * rsqrt(var + eps)`` in float32, rounded to x's dtype, as
-  the JAX package does.
+  the JAX package does. Training batch norm (``layers.BatchNorm2d.train()``)
+  is torch's ``batch_norm(training=True)``, as the JAX package's is XLA's.
 """
 
 from __future__ import annotations
@@ -119,6 +120,32 @@ def conv2d(x, w, stride=1, padding: Optional[int] = None):
 def max_pool2d(x, kernel_size: int = 3, stride: int = 2, padding: int = 1):
     """Max pool with -inf padding (torch.nn.MaxPool2d)."""
     return F.max_pool2d(x, kernel_size, stride, padding)
+
+
+def min_pool2d(x, kernel_size: int, stride: int = 1, padding: int = 0,
+               pad_value: float = float('inf')):
+    """Min pool of NCHW x, the border padded with ``pad_value`` (+inf by
+    default, so that it never wins), as rcfd_tpu/nn/functional.py
+    ``min_pool2d``."""
+    if padding > 0:
+        x = F.pad(x, (padding,) * 4, mode='constant', value=pad_value)
+    return -F.max_pool2d(-x, kernel_size, stride)
+
+
+def outlier_removal(depth, kernel_size: int = 7, threshold: float = 1.5):
+    """Zero the sparse depths that stand more than ``threshold`` above the
+    smallest depth of their kernel_size neighbourhood (reference
+    src/net_utils.py:575-638, rcfd_tpu/nn/functional.py
+    ``outlier_removal``). NCHW, C = 1. Empty pixels and the border count
+    as 10 times the batch's largest depth, so they are never the minimum
+    unless the whole neighbourhood is empty."""
+    max_value = 10.0 * depth.max()
+    filled = torch.where(depth > 0.0, depth, max_value)
+    min_values = min_pool2d(filled, kernel_size, 1, kernel_size // 2,
+                            pad_value=float(max_value))
+    return torch.where(min_values < depth - threshold,
+                       torch.zeros((), dtype=depth.dtype,
+                                   device=depth.device), depth)
 
 
 def batch_norm_apply(x, weight, bias, mean, var, eps: float = 1e-5):

@@ -2,8 +2,9 @@
 
 Parameter names follow the JAX package's trees, which follow the
 reference's torch state_dicts, so ``utils.checkpoint.state_dict_from_jax``
-loads with ``strict=True``. All math is NCHW. Inference only: batch norm
-always uses its running statistics. The TPU layout rewrites of the JAX
+loads with ``strict=True``. All math is NCHW. Batch norm uses its running
+statistics in eval mode and the batch's in training mode
+(``nn.Module.train()``). The TPU layout rewrites of the JAX
 package (fused upsample, fast split-conv decoder, packed tails) are not
 ported; these blocks compute the plain math they rewrite. A DecoderBlock
 given a deferred skip (LazyColumnWindows) runs the fused skip gather-add
@@ -31,12 +32,22 @@ def _resolve_activation(activation_func):
 
 
 class BatchNorm2d(nn.Module):
-    """Inference batch norm, eps 1e-5, with torch.nn.BatchNorm2d's
-    parameter and buffer names."""
+    """Batch norm, eps 1e-5, momentum 0.1, with torch.nn.BatchNorm2d's
+    parameter and buffer names (rcfd_tpu/nn/layers.py ``BatchNorm2d``).
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    In eval mode it normalizes by the running statistics
+    (``functional.batch_norm_apply``, bit for bit the JAX package's). In
+    training mode it normalizes by the batch's mean and biased variance,
+    moves the running mean and variance by momentum toward the batch mean
+    and unbiased variance, and counts the batch in
+    ``num_batches_tracked``, as the JAX package does; torch's
+    ``batch_norm(training=True)`` computes it (JAX computes it in XLA)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer('running_mean', torch.zeros(num_features))
@@ -53,6 +64,12 @@ class BatchNorm2d(nn.Module):
         self.num_batches_tracked.zero_()
 
     def forward(self, x):
+        if self.training:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+            return torch.nn.functional.batch_norm(
+                x, self.running_mean, self.running_var, self.weight,
+                self.bias, True, self.momentum, self.eps)
         return F.batch_norm_apply(x, self.weight, self.bias,
                                   self.running_mean, self.running_var,
                                   self.eps)
@@ -122,8 +139,7 @@ class UpConv2d(nn.Module):
 
 
 class FullyConnected(nn.Module):
-    """Linear (+ activation). src/net_utils.py:201-247 (no dropout at
-    inference). The weight and bias are taken in the input's dtype, as in
+    """Linear (+ activation). src/net_utils.py:201-247 (no dropout). The weight and bias are taken in the input's dtype, as in
     the JAX package: bf16 parameters serve float32 points in float32."""
 
     def __init__(self, in_features: int, out_features: int,

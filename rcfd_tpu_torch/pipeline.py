@@ -1,4 +1,4 @@
-"""Two-stage serving pipeline: RadarNet -> quasi-dense scatter kernel ->
+"""Two-stage serving pipeline: RadarNet -> quasi-dense scatter ->
 FusionNet, one frame a call (``__call__``) or a batch of frames
 (``forward_batched``); counterpart of rcfd_tpu/pipeline.py
 ``TwoStagePipeline``.
@@ -24,6 +24,7 @@ from .data import transport
 from .data.transforms import Transforms
 from .models import FusionNetModel, RadarNetModel
 from .nn.optimize import fold_batch_norm
+from .ops import scatter as exact_scatter
 from .ops import scatter_cuda
 
 # load_depth(multiplier=256) applied to a save_response(x2^14) PNG
@@ -100,7 +101,13 @@ class TwoStagePipeline:
     pixel coordinates would move: bf16 steps by 8 above 1024); RadarNet's
     crops reach the scatter in it; FusionNet's input is cast to it after the
     bridge; the dense output comes back as float32. The quasi-dense maps are
-    float32 whatever the dtype."""
+    float32 whatever the dtype.
+
+    The scatter is RadarNet's ``perf.pallas_scatter``, as in the JAX
+    package (rcfd_tpu/pipeline.py:161-175): by default the exact float max
+    (ops/scatter.py), with ``pallas_scatter=True`` the scatter kernel K1
+    (ops/scatter_cuda.py) for up to ``scatter_cuda.MAX_POINTS`` points a
+    frame. ``scatter`` and ``scatter_batched`` are the chosen route."""
 
     def __init__(self, radarnet, fusionnet, image_height: int,
                  image_width: int, normalized_image_range=(0, 1),
@@ -126,8 +133,10 @@ class TwoStagePipeline:
         self.transforms = Transforms(normalized_image_range)
         self.quantize_bridge = quantize_bridge
         self.codec_encode = codec_encode
-        self.scatter = scatter_cuda.scatter_quasi_dense
-        self.scatter_batched = scatter_cuda.scatter_quasi_dense_batched
+        self.pallas_scatter = bool(self.radarnet.perf.pallas_scatter)
+        route = scatter_cuda if self.pallas_scatter else exact_scatter
+        self.scatter = route.scatter_quasi_dense
+        self.scatter_batched = route.scatter_quasi_dense_batched
 
     def _tensor(self, x):
         if isinstance(x, np.ndarray):
@@ -186,9 +195,17 @@ class TwoStagePipeline:
         with serving_numerics():
             return self._serve(image, points, valid)
 
+    def _scatter_for(self, k: int, batched: bool):
+        """The scatter of a request of k points a frame: the chosen route,
+        or the exact max where K1 cannot take k points."""
+        if self.pallas_scatter and k > scatter_cuda.MAX_POINTS:
+            return exact_scatter.scatter_quasi_dense_batched if batched \
+                else exact_scatter.scatter_quasi_dense
+        return self.scatter_batched if batched else self.scatter
+
     def _serve(self, image, points, valid):
         image_t, crops, xs, zs = self.radarnet_stage(image, points)
-        depth_map, response_map = self.scatter(
+        depth_map, response_map = self._scatter_for(crops.shape[0], False)(
             crops, xs, zs, self._tensor(valid).to(torch.bool),
             image_height=self.image_height, image_width=self.image_width,
             patch_size=self.radarnet.input_patch_size_image)
@@ -202,7 +219,7 @@ class TwoStagePipeline:
         """The batched serving path (fps = B / t). images (B, H, W, 3) in
         [0, 255]; points (B, K, 3); valid (B, K). RadarNet's patch decode
         runs in ``decode_chunk_count(B, K, radarnet.perf.decode_chunks)``
-        chunks; the scatter kernel runs once over the B frames. Returns
+        chunks; the scatter runs once over the B frames. Returns
         (dense, quasi, response), each (B, H, W); frame b equals
         ``__call__`` of frame b."""
         with serving_numerics():
@@ -212,7 +229,7 @@ class TwoStagePipeline:
                                           self.radarnet.perf.decode_chunks)
             image_t, crops, xs, zs = self.radarnet_stage_batched(
                 images, points, n_chunks)
-            depth_map, response_map = self.scatter_batched(
+            depth_map, response_map = self._scatter_for(k, True)(
                 crops, xs, zs, self._tensor(valid).to(torch.bool),
                 image_height=self.image_height,
                 image_width=self.image_width,

@@ -14,19 +14,18 @@ three 16-bit PNG streams (output_depth_fusion, output_depth_radar,
 output_response_radar) and the same MAE/RMSE/iMAE/iRMSE table in
 results.txt.
 
-Differences from the JAX CLI, each loud:
+The quasi-dense scatter is the JAX CLI's: the exact float max by default,
+the scatter kernel's 14-bit max (K1: the response quantized to 14 bits
+before the max, the first point winning inside one 2^-14 step) with
+RCFD_PALLAS_SCATTER set true. The run says which in one line.
 
-- The quasi-dense scatter always has the semantics of the port's kernel:
-  the response quantized to 14 bits before the max, the first point winning
-  inside one 2^-14 step (the JAX CLI's RCFD_PALLAS_SCATTER=1). The JAX CLI's
-  default is the exact float max, which the port does not have yet; the run
-  says so in one line, and RCFD_PALLAS_SCATTER set false is refused.
-- ``--data_parallel`` needs sharded serving, which the port does not have
-  yet; it is refused.
+Difference from the JAX CLI: ``--data_parallel`` needs sharded serving,
+which the port does not have yet; it is refused.
 
-Of the JAX package's RCFD_* environment gates this module (and nothing else
-in the package) reads the three the port has, with their JAX meanings:
-RCFD_FUSED_POOL2, RCFD_FUSED_POOL4 and RCFD_DECODE_CHUNKS.
+Of the JAX package's RCFD_* environment gates this module
+reads the four the port has, once, with their JAX
+meanings: RCFD_PALLAS_SCATTER, RCFD_FUSED_POOL2, RCFD_FUSED_POOL4 and
+RCFD_DECODE_CHUNKS.
 """
 
 from __future__ import annotations
@@ -115,18 +114,12 @@ def _flag(environ, name):
 
 
 def perf_from_env(environ=None) -> PerfConfig:
-    """RadarNet's PerfConfig from RCFD_FUSED_POOL2, RCFD_FUSED_POOL4 and
-    RCFD_DECODE_CHUNKS. RCFD_PALLAS_SCATTER set false asks for the exact
-    float max of the JAX package's XLA scatter, which the port does not
-    serve: refused."""
+    """RadarNet's PerfConfig from RCFD_PALLAS_SCATTER, RCFD_FUSED_POOL2,
+    RCFD_FUSED_POOL4 and RCFD_DECODE_CHUNKS."""
     environ = os.environ if environ is None else environ
-    if _flag(environ, 'RCFD_PALLAS_SCATTER') is False:
-        raise SystemExit(
-            'RCFD_PALLAS_SCATTER is set false, which asks for the exact float '
-            'max scatter; the port serves only the 14-bit max of its scatter '
-            'kernel (RCFD_PALLAS_SCATTER=1)')
     chunks = environ.get('RCFD_DECODE_CHUNKS')
     return PerfConfig(
+        pallas_scatter=_flag(environ, 'RCFD_PALLAS_SCATTER'),
         fused_pool2=_flag(environ, 'RCFD_FUSED_POOL2') or False,
         fused_pool4=_flag(environ, 'RCFD_FUSED_POOL4') or False,
         decode_chunks=int(chunks) if chunks else None)
@@ -194,10 +187,13 @@ def main(argv=None, device=None):
         compute_dtype=torch.bfloat16 if args.bfloat16 else None,
         codec_encode=codec_d2h,
         device=device)
-    log('Scatter semantics: the 14-bit max of the scatter kernel (first '
-        'point wins inside one 2^-14 step), as the JAX CLI with '
-        'RCFD_PALLAS_SCATTER=1; its default exact float max is not in the '
-        'port')
+    if pipeline.pallas_scatter:
+        log('Scatter semantics: the 14-bit max of the scatter kernel (first '
+            'point wins inside one 2^-14 step), as the JAX CLI with '
+            'RCFD_PALLAS_SCATTER=1')
+    else:
+        log('Scatter semantics: the exact float max, as the JAX CLI by '
+            'default')
 
     if args.save_outputs:
         dirs = {name: os.path.join(args.output_dirpath, name)

@@ -1,7 +1,8 @@
-"""Weights carried across from the JAX package, and read from checkpoint
-files (counterpart of rcfd_tpu/utils/checkpoint.py
-``tree_to_torch_state_dict``, ``load_torch_checkpoint`` and
-``load_native_checkpoint``).
+"""Weights carried across from the JAX package, and read from and written
+to checkpoint files (counterpart of rcfd_tpu/utils/checkpoint.py
+``tree_to_torch_state_dict``, ``load_torch_checkpoint``,
+``save_torch_checkpoint`` and the native ``.npz`` format, and of
+rcfd_tpu/utils/profiling.py ``find_latest_checkpoint``).
 
 The JAX package keeps parameters as nested dicts in HWIO / (I, O) layout;
 the reference and this port use torch layouts. Conversions:
@@ -10,16 +11,28 @@ the reference and this port use torch layouts. Conversions:
     linear weight (I, O) -> (O, I)
 Batch-norm ``num_batches_tracked`` becomes int64.
 
-Two checkpoint formats are read: the reference's torch ``.pth`` (state
-dicts in torch layout already, under per-model keys, with DataParallel's
-``module.`` prefix stripped) and the JAX package's native ``.npz`` (the
-flattened params and state trees in JAX layout, with a JSON manifest).
+Two checkpoint formats are read and written: the reference's torch
+``.pth`` (state dicts in torch layout already, under per-model keys, with
+DataParallel's ``module.`` prefix stripped on read, beside ``train_step``
+and ``optimizer_state_dict``, a torch.optim.Adam state_dict) and the JAX
+package's native ``.npz`` (the flattened params and state trees in JAX
+layout, with a JSON manifest; no optimizer state).
+
+The Adam state of a ``.pth`` is indexed as the JAX package indexes it, so
+that either package restores the other's exactly: parameter i is the i-th
+of the parameter tree flattened with its keys sorted at every level (JAX's
+dict order after any tree operation), with an entry for every parameter.
+torch indexes by registration order and keeps no state for a parameter
+that never had a gradient; ``optimizer_state_to_file`` and
+``optimizer_state_from_file`` convert.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any, Dict, Mapping, Tuple
+import os
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,7 +95,13 @@ def _from_pth(state_dict) -> Dict[str, torch.Tensor]:
 def load_state_dict_file(path: str, pth_keys: Mapping[str, str]
                          ) -> Tuple[Dict[str, torch.Tensor], int]:
     """A model's state_dict (on the CPU) and train step from a checkpoint
-    file.
+    file: ``load_checkpoint_file`` without the optimizer state."""
+    return load_checkpoint_file(path, pth_keys)[:2]
+
+
+def load_checkpoint_file(path: str, pth_keys: Mapping[str, str]):
+    """A model's state_dict (on the CPU), train step and optimizer
+    state_dict (None if the file has none) from a checkpoint file.
 
     ``.npz``: the JAX package's native format (``params/<key>`` and
     ``state/<key>`` arrays in JAX layout, and ``__manifest__``, a JSON
@@ -111,22 +130,147 @@ def load_state_dict_file(path: str, pth_keys: Mapping[str, str]
             raise ValueError('{}: no params tree in the checkpoint'.format(
                 path))
         state_dict = state_dict_from_jax(trees['params'], trees.get('state'))
-        return state_dict, int(manifest.get('meta', {}).get('train_step', 0))
+        return (state_dict,
+                int(manifest.get('meta', {}).get('train_step', 0)), None)
     checkpoint = torch.load(path, map_location='cpu', weights_only=True)
     state_dict = {}
     for module, key in pth_keys.items():
         for name, value in _from_pth(checkpoint[key]).items():
             state_dict['{}.{}'.format(module, name)] = value
-    return state_dict, int(checkpoint.get('train_step', 0))
+    return (state_dict, int(checkpoint.get('train_step', 0)),
+            checkpoint.get('optimizer_state_dict') or None)
+
+
+def _file_order(module):
+    """Registration indices of ``module``'s parameters in the file's order:
+    their names sorted as tuples of the dotted components."""
+    names = [n for n, _ in module.named_parameters()]
+    return sorted(range(len(names)), key=lambda i: names[i].split('.'))
+
+
+def optimizer_state_to_file(module, state_dict: dict) -> dict:
+    """An Adam state_dict of ``module``'s parameters (torch's registration
+    indices) in the file's order, every entry at the common step (JAX keeps
+    one count), with zero moments for the parameters torch kept no state
+    for and the common step for those whose state it stopped updating
+    (they never had a gradient; JAX keeps zeros for them)."""
+    state = state_dict.get('state') or {}
+    if not state:
+        return state_dict
+    params = list(module.parameters())
+    step = max(float(s['step']) for s in state.values())
+    out = {}
+    for j, i in enumerate(_file_order(module)):
+        zeros = torch.zeros_like(params[i])
+        entry = state.get(i) or {'exp_avg': zeros,
+                                 'exp_avg_sq': zeros.clone()}
+        out[j] = dict(entry, step=torch.tensor(step))
+    return dict(state_dict, state=out)
+
+
+def optimizer_state_from_file(module, state_dict: dict) -> dict:
+    """The inverse of ``optimizer_state_to_file``: an Adam state_dict in
+    the file's order back in registration indices, for
+    ``torch.optim.Adam.load_state_dict``."""
+    state = state_dict.get('state') or {}
+    if not state:
+        return state_dict
+    out = {i: state[j] for j, i in enumerate(_file_order(module))}
+    return dict(state_dict, state=dict(sorted(out.items())))
 
 
 def restore_module(module, path: str, pth_keys: Mapping[str, str],
-                   device=None) -> int:
-    """Load ``load_state_dict_file(path, pth_keys)`` into ``module`` with
+                   device=None, return_optimizer_state: bool = False):
+    """Load ``load_checkpoint_file(path, pth_keys)`` into ``module`` with
     ``load_state_dict(strict=True)`` and move it to ``device`` (``cuda``
-    unless ``device='cpu'`` is given). Returns the train step."""
+    unless ``device='cpu'`` is given). Returns the train step, or with
+    ``return_optimizer_state`` (train step, optimizer state_dict or
+    None)."""
     device = default_device(device)
-    state_dict, step = load_state_dict_file(path, pth_keys)
+    state_dict, step, optimizer_state = load_checkpoint_file(path, pth_keys)
     module.load_state_dict(state_dict, strict=True)
     module.to(device)
-    return step
+    if not return_optimizer_state:
+        return step
+    if optimizer_state:
+        optimizer_state = optimizer_state_from_file(module, optimizer_state)
+    return step, optimizer_state
+
+
+def _to_jax_layout(key: str, arr: np.ndarray) -> np.ndarray:
+    """A torch-layout parameter as the JAX package keeps it: the inverse
+    of ``state_dict_from_jax``'s transposes."""
+    if key.rsplit('.', 1)[-1] == 'weight':
+        if arr.ndim == 4:
+            return np.transpose(arr, (2, 3, 0, 1) if _is_deconv_key(key)
+                                else (2, 3, 1, 0))
+        if arr.ndim == 2:
+            return arr.T
+    return arr
+
+
+def save_checkpoint(module, path: str, pth_keys: Mapping[str, str],
+                    step: int, optimizer_state_dict: Optional[dict] = None,
+                    model_name: str = ''):
+    """Write ``module``'s weights as the JAX package's ``save_checkpoint``
+    does: a path ending ``.npz`` gets the native format (``params/<key>``
+    and ``state/<key>`` in JAX layout, ``__manifest__`` with the train step
+    and ``model_name``; no optimizer state), any other path the reference
+    ``.pth``: ``train_step``, ``optimizer_state_dict`` (the
+    torch.optim.Adam state_dict of ``module.parameters()``, written in the
+    file's order by ``optimizer_state_to_file``, or {}) and the
+    submodules' state_dicts under ``pth_keys``. Tensors are written from
+    the CPU."""
+    path = str(path)
+    if path.endswith('.npz'):
+        buffers = dict(module.named_buffers())
+        arrays = {}
+        for key, value in module.state_dict().items():
+            arr = value.detach().cpu().numpy()
+            if key in buffers:
+                if key.endswith('num_batches_tracked'):
+                    arr = arr.astype(np.int32)
+                arrays['state/' + key] = arr
+            else:
+                arrays['params/' + key] = _to_jax_layout(key, arr)
+        manifest = {'trees': ['params', 'state'],
+                    'meta': {'train_step': int(step), 'model': model_name}}
+        arrays['__manifest__'] = np.frombuffer(
+            json.dumps(manifest).encode('utf-8'), dtype=np.uint8)
+        tmp = path + '.tmp'
+        with open(tmp, 'wb') as f:
+            np.savez(f, **arrays)
+        os.replace(tmp, path)
+        return
+
+    def cpu(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.detach().cpu()
+        if isinstance(obj, dict):
+            return {k: cpu(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(cpu(v) for v in obj)
+        return obj
+
+    if optimizer_state_dict:
+        optimizer_state_dict = optimizer_state_to_file(module,
+                                                       optimizer_state_dict)
+    checkpoint = {'train_step': int(step),
+                  'optimizer_state_dict': cpu(optimizer_state_dict or {})}
+    for part, key in pth_keys.items():
+        checkpoint[key] = cpu(getattr(module, part).state_dict())
+    torch.save(checkpoint, path)
+
+
+def find_latest_checkpoint(checkpoint_dirpath: str) -> Optional[str]:
+    """The newest ``model-<step>.pth`` or ``.npz`` of a checkpoint
+    directory (the highest step), or None: ``--restore_path latest``."""
+    if not os.path.isdir(checkpoint_dirpath):
+        return None
+    best_step, best_path = -1, None
+    for fname in os.listdir(checkpoint_dirpath):
+        m = re.match(r'model-(\d+)\.(pth|npz)$', fname)
+        if m and int(m.group(1)) > best_step:
+            best_step = int(m.group(1))
+            best_path = os.path.join(checkpoint_dirpath, fname)
+    return best_path

@@ -379,13 +379,15 @@ def test_batched_scatter_wrapper_refuses_bad_cuda_tensors(cuda_device,
 
 
 # tiny batched pipelines on the card: (RadarNet config, perf, kernel,
-# launches of that kernel a chunk)
+# launches of that kernel a chunk); pallas_scatter=True routes the scatter
+# through K1 (the default is the exact max, no kernel)
 BATCHED_PATHS = {
     'fused': (RADARNET_TINY, PerfConfig(fused_pool2=True, fused_pool4=True,
-                                        decode_chunks=2),
+                                        decode_chunks=2,
+                                        pallas_scatter=True),
               fs.fused_skip_gather_add, 2),
     # patch 64x40: the 1/16 and 1/32 pools are variable-bin
-    'wide': (RADARNET_WIDE, PerfConfig(decode_chunks=2),
+    'wide': (RADARNET_WIDE, PerfConfig(decode_chunks=2, pallas_scatter=True),
              cc.batch_column_crop, 2),
 }
 
@@ -641,13 +643,16 @@ def test_bf16_row_tiles_refuse_rows_too_wide(cuda_device):
 
 
 # tiny bf16 pipelines on the card: (RadarNet config, perf, the launches of
-# one request by instance)
+# one request by instance); the scatter through K1 (pallas_scatter=True)
 BF16_PATHS = {
-    'canonical': (RADARNET_TINY, None, dict(K1_bf16=1)),
-    'fused': (RADARNET_TINY, PerfConfig(fused_pool2=True, fused_pool4=True),
+    'canonical': (RADARNET_TINY, PerfConfig(pallas_scatter=True),
+                  dict(K1_bf16=1)),
+    'fused': (RADARNET_TINY, PerfConfig(fused_pool2=True, fused_pool4=True,
+                                        pallas_scatter=True),
               dict(K1_bf16=1, K3_bf16=2)),
     # patch 64x40: the 1/16 and 1/32 pools are variable-bin
-    'wide': (RADARNET_WIDE, None, dict(K1_bf16=1, K2_bf16=2)),
+    'wide': (RADARNET_WIDE, PerfConfig(pallas_scatter=True),
+             dict(K1_bf16=1, K2_bf16=2)),
 }
 # bf16 on the card against bf16 on the CPU: RadarNet's crops within a few
 # bf16 steps (cuDNN and the CPU round bf16 convolutions at other places),
@@ -744,3 +749,69 @@ def test_nvjpeg_decode_on_card(cuda_device, tmp_path):
     batch = native.batch_read_images([path, path], 96, 160,
                                      device=cuda_device)
     assert np.array_equal(batch[1], got.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+def test_exact_scatter_on_card_matches_cpu(cuda_device, rng, dtype):
+    """The exact scatter (the serving default, scatter_reduce_ on the card)
+    on the card against the CPU for every scatter case, single-frame and
+    batched: bit for bit."""
+    from rcfd_tpu_torch.ops import scatter as exact
+
+    for name in SCATTER_CASES:
+        crops, x, z, valid, h, w, patch = scatter_case(name, rng)
+        args = [torch.from_numpy(a) for a in (crops, x, z, valid)]
+        args[0] = args[0].to(dtype)
+        ref = exact.scatter_quasi_dense(*args, h, w, patch)
+        out = exact.scatter_quasi_dense(*[a.to(cuda_device) for a in args],
+                                        h, w, patch)
+        assert all(torch.equal(o.cpu(), r) for o, r in zip(out, ref)), name
+        out_b = exact.scatter_quasi_dense_batched(
+            *[torch.stack([a, a]).to(cuda_device) for a in args], h, w,
+            patch)
+        assert all(torch.equal(o[1].cpu(), r) for o, r in zip(out_b, ref))
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda_device, rng):
+    """One train step of a narrow FusionNet (chip_smoke.py's phase train
+    configuration) on the card and on the CPU from the same weights and
+    batch, augmentation off, float32 with TF32 off: loss within 1e-5
+    relative, every gradient within 1e-3 of its max-abs (cuDNN's backward
+    sums in another order), running statistics within 1e-5."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch.data.transforms import Transforms
+
+    config = dict(FUSIONNET_TINY,
+                  n_filters_encoder_image=[8, 16, 16, 16, 16, 16],
+                  n_filters_encoder_depth=[8, 8, 16, 16, 16, 16],
+                  n_filters_decoder=[16, 16, 16, 8, 8, 8])
+    cpu = FusionNetModel(**config, device='cpu', trainable=True)
+    init_parameters(cpu, torch.Generator().manual_seed(7))
+    card = copy.deepcopy(cpu).to(cuda_device)
+    batch = (rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8),
+             *[(rng.random((2, 64, 96, 1)) * 60 * 256).astype(np.uint16)
+               for _ in range(4)])
+    out = []
+    for model, device in ((cpu, 'cpu'), (card, cuda_device)):
+        step = fm.TrainStep(model, Transforms(normalized_image_range=[0, 1]),
+                            fm.make_optimizer(model, 1e-3, 0.0), 'l1', 0.0,
+                            2.0, -1, 7, 1.5, -1)
+        with fm.training_numerics():
+            info = step.backward(tuple(torch.from_numpy(a).to(device)
+                                       for a in batch), {})
+        out.append((float(info['loss']), {
+            n: p.grad.cpu() for n, p in model.named_parameters()
+            if p.grad is not None}, {n: b.cpu() for n, b in
+                                     model.named_buffers()}))
+    (loss_c, grads_c, bufs_c), (loss_g, grads_g, bufs_g) = out
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    assert sorted(grads_g) == sorted(grads_c)
+    for n, g in grads_c.items():
+        err = float((grads_g[n] - g).abs().max())
+        assert err <= 1e-3 * float(g.abs().max()), (n, err,
+                                                     float(g.abs().max()))
+    for n, b in bufs_c.items():
+        assert torch.allclose(bufs_g[n].double(), b.double(), rtol=1e-5,
+                              atol=1e-6), n

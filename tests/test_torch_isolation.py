@@ -32,7 +32,12 @@ def test_port_sources_include_the_measurement_tool():
                  'rcfd_tpu_torch/data/datasets.py',
                  'rcfd_tpu_torch/utils/eval_utils.py',
                  'rcfd_tpu_torch/utils/log_utils.py',
-                 'rcfd_tpu_torch/run_pipeline.py'):
+                 'rcfd_tpu_torch/run_pipeline.py',
+                 'rcfd_tpu_torch/fusionnet_main.py',
+                 'rcfd_tpu_torch/train_fusionnet.py',
+                 'rcfd_tpu_torch/data/loader.py',
+                 'rcfd_tpu_torch/models/losses.py',
+                 'rcfd_tpu_torch/utils/summary.py'):
         assert path in paths
 
 

@@ -16,6 +16,7 @@ from rcfd_tpu.data.transforms import Transforms as JaxTransforms  # noqa: E402
 from rcfd_tpu.models.fusionnet import FusionNetModel as JaxFusionNet  # noqa
 from rcfd_tpu.models.radarnet import RadarNetModel as JaxRadarNet  # noqa
 from rcfd_tpu.nn.perf import PerfConfig  # noqa: E402
+from rcfd_tpu.ops.scatter import scatter_quasi_dense as xla_scatter  # noqa
 from rcfd_tpu.ops.scatter_pallas import scatter_quasi_dense_pallas  # noqa
 
 from rcfd_tpu_torch import pipeline  # noqa: E402
@@ -46,9 +47,10 @@ def models():
     return jr, jf, rv, fv, port, ref
 
 
-def _jax_stages(jr, jf, rv, fv, image, points, valid):
-    """rcfd_tpu/pipeline.py:121-196, step by step, with the Pallas scatter
-    kernel in interpret mode: returns (crops, dense, quasi, response)."""
+def _jax_stages(jr, jf, rv, fv, image, points, valid, pallas=False):
+    """rcfd_tpu/pipeline.py:121-196, step by step, with the default XLA
+    scatter (or, with ``pallas``, the Pallas scatter kernel in interpret
+    mode): returns (crops, dense, quasi, response)."""
     patch = jr.input_patch_size_image
     pad = patch[1] // 2
     (image_t,) = JaxTransforms(normalized_image_range=[0, 1]).transform(
@@ -62,9 +64,13 @@ def _jax_stages(jr, jf, rv, fv, image, points, valid):
                             (x_shifted - pad)[None, :], box_height=H,
                             training=False, return_logits=False)
     crops = responses[..., 0]
-    depth, response = scatter_quasi_dense_pallas(
-        crops, x_shifted, points[:, 2], jnp.asarray(valid), H, W, patch,
-        interpret=True)
+    if pallas:
+        depth, response = scatter_quasi_dense_pallas(
+            crops, x_shifted, points[:, 2], jnp.asarray(valid), H, W, patch,
+            interpret=True)
+    else:
+        depth, response = xla_scatter(crops, x_shifted, points[:, 2],
+                                      jnp.asarray(valid), H, W, patch)
     depth = jnp.floor(depth * 256.0) / 256.0
     response = jnp.floor(response * Q) / Q
     input_depth = jnp.stack(
@@ -109,18 +115,62 @@ def _port_downstream_of_jax_crops(port, crops, image, points, valid):
 
 def test_slice_stage_by_stage(models, request_overlapping):
     """The JAX crops through the port's scatter, bridge and FusionNet
-    against the JAX composition with the interpret-mode kernel: quasi and
+    against the JAX composition: at the default the exact scatter against
+    the XLA scatter, and with pallas_scatter=True the scatter kernel's
+    plain version against the interpret-mode Pallas kernel; quasi and
     response exact, dense within 1e-4 m (float32 sums in another order)."""
     jr, jf, rv, fv, port, _ = models
     image, points, valid = request_overlapping
-    crops, dense_ref, quasi_ref, response_ref = _jax_stages(
-        jr, jf, rv, fv, image, points, valid)
-    quasi, response, dense = _port_downstream_of_jax_crops(
-        port, crops, image, points, valid)
-    np.testing.assert_array_equal(quasi, quasi_ref)
-    np.testing.assert_array_equal(response, response_ref)
-    np.testing.assert_allclose(dense, dense_ref, atol=1e-4, rtol=0)
-    assert (response_ref > 0).sum() > 100
+    k1 = _with_k1(port)
+    for pipe, pallas in ((port, False), (k1, True)):
+        crops, dense_ref, quasi_ref, response_ref = _jax_stages(
+            jr, jf, rv, fv, image, points, valid, pallas=pallas)
+        quasi, response, dense = _port_downstream_of_jax_crops(
+            pipe, crops, image, points, valid)
+        np.testing.assert_array_equal(quasi, quasi_ref)
+        np.testing.assert_array_equal(response, response_ref)
+        np.testing.assert_allclose(dense, dense_ref, atol=1e-4, rtol=0)
+        assert (response_ref > 0).sum() > 100
+
+
+def _with_k1(port):
+    """The port's pipeline on the same weights with RadarNet's
+    PerfConfig(pallas_scatter=True): the scatter kernel's route."""
+    rn = RadarNetModel(**RADARNET_TINY, device='cpu',
+                       perf=PortPerfConfig(pallas_scatter=True))
+    rn.load_state_dict(port.radarnet.state_dict(), strict=True)
+    pipe = pipeline.TwoStagePipeline(rn, port.fusionnet, H, W, device='cpu')
+    assert pipe.pallas_scatter and not port.pallas_scatter
+    return pipe
+
+
+def test_pipeline_routes_the_scatter_by_pallas_scatter(models,
+                                                       request_overlapping):
+    """pallas_scatter None (the default) or False serves the exact scatter,
+    True the scatter kernel's route, as rcfd_tpu/pipeline.py:161-175; the
+    maps of each equal the route's own function on the same crops."""
+    from rcfd_tpu_torch.ops import scatter as exact_scatter
+    from rcfd_tpu_torch.ops import scatter_cuda
+
+    _, _, _, _, port, _ = models
+    assert port.scatter is exact_scatter.scatter_quasi_dense
+    assert port.scatter_batched is exact_scatter.scatter_quasi_dense_batched
+    k1 = _with_k1(port)
+    assert k1.scatter is scatter_cuda.scatter_quasi_dense
+    assert k1.scatter_batched is scatter_cuda.scatter_quasi_dense_batched
+    image, points, valid = request_overlapping
+    pad = PATCH[1] // 2
+    with torch.inference_mode():
+        crops = port.radarnet_stage(image, points)[1]
+    args = (crops, torch.from_numpy(points[:, 0] + pad),
+            torch.from_numpy(points[:, 2].copy()), torch.from_numpy(valid),
+            H, W, PATCH)
+    for pipe, fn in ((port, exact_scatter.scatter_quasi_dense),
+                     (k1, scatter_cuda.scatter_quasi_dense)):
+        _, quasi, response = pipe(image, points, valid)
+        depth_map, response_map = pipeline.quantize_bridge(*fn(*args))
+        assert torch.equal(quasi, depth_map)
+        assert torch.equal(response, response_map)
 
 
 # RadarNet configurations beside the canonical one: (config, JAX perf, port
@@ -165,6 +215,23 @@ def test_slice_stage_by_stage_radarnet_configs(models, config,
     assert (response_ref > 0).sum() > 100
 
 
+@pytest.mark.parametrize('case', ['overlapping', 'separate'])
+def test_slice_end_to_end(models, case, request):
+    """The port's slice at the default against
+    rcfd_tpu.pipeline.TwoStagePipeline at its default (both the exact float
+    max): quasi depth and response bit for bit, dense within 1e-3 m."""
+    _, _, _, _, port, ref = models
+    image, points, valid = request.getfixturevalue('request_' + case)
+    dense_ref, quasi_ref, response_ref = [np.asarray(a) for a in ref(
+        jnp.asarray(image), jnp.asarray(points), jnp.asarray(valid))]
+    dense, quasi, response = [a.numpy() for a in port(image, points, valid)]
+    assert dense.shape == quasi.shape == response.shape == (H, W)
+    np.testing.assert_array_equal(response, response_ref)
+    np.testing.assert_array_equal(quasi, quasi_ref)
+    np.testing.assert_allclose(dense, dense_ref, atol=1e-3, rtol=0)
+    assert (response_ref > 0).sum() > 100
+
+
 def _explained(crops, points, valid, pixels):
     """For each (row, col): does a tie inside one 2^-14 step, or a top
     response within 1e-5 of the 0.5 threshold or of a step edge, explain a
@@ -189,14 +256,16 @@ def _explained(crops, points, valid, pixels):
 
 
 @pytest.mark.parametrize('case', ['overlapping', 'separate'])
-def test_slice_end_to_end(models, case, request):
-    """The port's slice against rcfd_tpu.pipeline.TwoStagePipeline (XLA
-    scatter, exact float max). The response agrees within one 2^-14 step
+def test_slice_end_to_end_pallas_scatter(models, case, request):
+    """The port's slice with pallas_scatter=True (the scatter kernel)
+    against rcfd_tpu.pipeline.TwoStagePipeline's default (XLA scatter,
+    exact float max). The response agrees within one 2^-14 step
     everywhere. The quasi depth differs only where the kernel's rule (first
     index wins inside one 2^-14 step) and the float max pick different
     points: every such pixel must be a same-step tie or sit within 1e-5 of
     the threshold or a step edge. Where none differ, dense within 1e-3 m."""
     jr, jf, rv, fv, port, ref = models
+    port = _with_k1(port)
     image, points, valid = request.getfixturevalue('request_' + case)
     dense_ref, quasi_ref, response_ref = [np.asarray(a) for a in ref(
         jnp.asarray(image), jnp.asarray(points), jnp.asarray(valid))]

@@ -1,6 +1,7 @@
 """The quasi-dense scatter of rcfd_tpu_torch: the kernel's plain version
 against the JAX package's Pallas kernel (interpret mode, as
-tests/test_scatter_pallas.py runs it) and its XLA scatter; the legacy
+tests/test_scatter_pallas.py runs it) and its XLA scatter; the exact
+scatter (the serving default) against the XLA scatter; the legacy
 rewrite; the build and the wrapper's refusals. The CUDA kernel itself is
 held against its plain version on the card by chip_smoke.py and
 tests/test_torch_cuda.py."""
@@ -20,6 +21,7 @@ from rcfd_tpu.ops.scatter import scatter_quasi_dense as xla_scatter  # noqa
 from rcfd_tpu.ops.scatter_pallas import scatter_quasi_dense_pallas  # noqa
 
 from rcfd_tpu_torch.ops import _build  # noqa: E402
+from rcfd_tpu_torch.ops import scatter as exact_scatter  # noqa: E402
 from rcfd_tpu_torch.ops import scatter_cuda as sc  # noqa: E402
 from rcfd_tpu_torch.ops.scatter import legacy_rewrite  # noqa: E402
 
@@ -90,6 +92,64 @@ def test_plain_matches_xla_scatter(name, rng):
     np.testing.assert_array_equal(d[~ties], d_ref[~ties])
     if name == 'ties':
         assert ties.any()
+
+
+def _exact_case(name, rng):
+    """A scatter case with exact float ties planted as well: point 5 copies
+    point 0's crop and window, so wherever point 0 is on top the two tie
+    and the smaller index must win."""
+    crops, x, z, valid, h, w, patch = _case(name, rng)
+    crops[5], x[5] = crops[0], x[0]
+    return crops, x, z, valid, h, w, patch
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('legacy', [True, False], ids=['legacy', 'float_z'])
+@pytest.mark.parametrize('name', SCATTER_CASES)
+def test_exact_scatter_matches_xla_scatter_bit_exact(name, legacy, dtype,
+                                                     rng):
+    """The port's exact scatter (the serving default) against the JAX
+    package's XLA scatter, with f32 and bf16 crops, the legacy rewrite and
+    the float gather: equal bits. The batched form gives each frame's maps
+    of the one-frame form."""
+    crops, x, z, valid, h, w, patch = _exact_case(name, rng)
+    jdtype = jnp.bfloat16 if dtype == 'bfloat16' else jnp.float32
+    d_ref, r_ref = [np.asarray(a) for a in xla_scatter(
+        jnp.asarray(crops, jdtype), jnp.asarray(x), jnp.asarray(z),
+        jnp.asarray(valid), h, w, patch, legacy_depth_semantics=legacy)]
+    args = [torch.from_numpy(a) for a in (crops, x, z, valid)]
+    args[0] = args[0].to(getattr(torch, dtype))
+    d, r = exact_scatter.scatter_quasi_dense(
+        *args, h, w, patch, legacy_depth_semantics=legacy)
+    assert d.dtype == r.dtype == torch.float32
+    np.testing.assert_array_equal(r.numpy(), r_ref)
+    np.testing.assert_array_equal(d.numpy(), d_ref)
+    assert (r_ref > 0).sum() > 0
+    # two frames in one call: the second is the first with its points
+    # reversed
+    flip = [a.flip(0) for a in args]
+    d_b, r_b = exact_scatter.scatter_quasi_dense_batched(
+        *[torch.stack([a, f]) for a, f in zip(args, flip)], h, w, patch,
+        legacy_depth_semantics=legacy)
+    d_f, r_f = exact_scatter.scatter_quasi_dense(
+        *flip, h, w, patch, legacy_depth_semantics=legacy)
+    assert torch.equal(d_b[0], d) and torch.equal(r_b[0], r)
+    assert torch.equal(d_b[1], d_f) and torch.equal(r_b[1], r_f)
+
+
+def test_exact_scatter_ties_go_to_the_smaller_index(rng):
+    """Planted exact ties change the winner's depth: with point 5 a copy of
+    point 0 at another depth, the maps show point 0's depth wherever it is
+    on top, as the JAX package's scatter-min of the index gives."""
+    crops, x, z, valid, h, w, patch = _exact_case('random', rng)
+    z[0], z[5] = 11.0, 17.0
+    args = [torch.from_numpy(a) for a in (crops, x, z, valid)]
+    d, _ = exact_scatter.scatter_quasi_dense(*args, h, w, patch)
+    d = d.numpy()
+    assert (d == 11.0).any() and not (d == 17.0).any()
+    d_ref, _ = xla_scatter(*[jnp.asarray(a) for a in (crops, x, z, valid)],
+                           h, w, patch)
+    np.testing.assert_array_equal(d, np.asarray(d_ref))
 
 
 def test_legacy_rewrite_cascade_matches_jax(rng):
