@@ -88,6 +88,23 @@ Phases, each printed as it starts and ends:
              RadarNet; one step of a narrow FusionNet card vs CPU; 30
              steps of the canonical model on one fixed batch. Prints ms a
              step, the host's wait for data, samples/s and peak memory
+  train_radarnet  RadarNet training: (a) rcfd_tpu_torch.train_radarnet.main,
+             in process, with bash/train_radarnet_nuscenes.sh's flags on
+             30 full-size frames and 4 validation frames the port's
+             writers made (10 steps of batch 6, K = 4, in 2 epochs of 5
+             steps; checkpoints and a
+             validation through K1 at steps 5 and 10), resumed from the
+             newest checkpoint to step 15; K1 held against its plain
+             version on the trained model's crops; model-15.pth served
+             beside the smoke's FusionNet; ms a step, host wait,
+             samples/s, peak memory. (b) one step at the 900x300 patch
+             through K2 (3 launches, with its gradient) and the same step
+             through the plain crop: loss, every gradient, and a nonzero
+             gradient in each used parameter of the image encoder; K2's
+             forward and its plain backward timed at the step's shapes.
+             (c) one step and one validation under RCFD_FUSED_POOL2/4: K3
+             in the validation only. (d) one step of a narrow RadarNet
+             card vs CPU at three seeds, in float32 and in float64
 
 Each path phase (and each configuration of the batched phase) sets every
 kernel's launch count to 0 before its counted requests, reads them after,
@@ -516,6 +533,33 @@ def phase_kernel_fused_skip(device, record, rn, dtype=torch.float32):
         'rcfd_tpu/ops/fused_skip.py:174', parts, library=False)
 
 
+def crop_bytes(rows, starts, win):
+    """The bytes the column crop must move: each column of the rows that a
+    window covers, read once (the windows' columns past W are zeros, read
+    from nowhere), the windows written once, and the starts."""
+    n, c, ph, w = rows.shape
+    k = starts.shape[1]
+    cols = torch.clamp(starts.long().cpu(), 0, w)[:, :, None] + \
+        torch.arange(win)
+    covered = torch.zeros((n, w + win), dtype=torch.bool)
+    covered.scatter_(1, cols.reshape(n, k * win), True)
+    read = int(covered[:, :w].sum())
+    return rows.element_size() * c * ph * (read + n * k * win) + 4 * n * k
+
+
+def padded_gather(rows, starts, win):
+    """The yardstick of the crop: torch.gather from the zero-padded rows,
+    each image's map repeated for its K windows (a view), with the index
+    computed beforehand. Returns the call and its index's owner."""
+    n, c, ph, w = rows.shape
+    k = starts.shape[1]
+    rows_p = torch.nn.functional.pad(rows, (0, win))[:, None].expand(
+        n, k, c, ph, w + win)
+    cols = starts.long()[:, :, None] + torch.arange(win, device=rows.device)
+    index = cols[:, :, None, None, :].expand(n, k, c, ph, win).contiguous()
+    return lambda: torch.gather(rows_p, 4, index).view(n * k, c, ph, win)
+
+
 def phase_kernel_column_crop(device, record, rn, dtype=torch.float32):
     """The column crop's instance for ``dtype`` rows at the 1/8, 1/16 and
     1/32 pools of the 900x300 patch (the variable-bin ones; 64 windows of
@@ -547,20 +591,15 @@ def phase_kernel_column_crop(device, record, rn, dtype=torch.float32):
         ms = device_ms(lambda: cc.batch_column_crop(rows, starts, win), 20)
         plain_ms = device_ms(
             lambda: cc.batch_column_crop_plain(rows, starts, win), 5, 1)
-        # yardstick: one torch.gather from the zero-padded rows with the
-        # index computed beforehand
-        rows_p = torch.nn.functional.pad(rows, (0, win)).expand(K, -1, -1,
-                                                               -1)
-        cols = starts[0].long()[:, None] + torch.arange(win, device=device)
-        index = cols[:, None, None, :].expand(K, c, ph, win).contiguous()
-        check(torch.equal(torch.gather(rows_p, 3, index), out),
+        gather = padded_gather(rows, starts, win)
+        check(torch.equal(gather(), out),
               'the torch.gather yardstick differs from the kernel')
-        library_ms = device_ms(lambda: torch.gather(rows_p, 3, index), 20)
+        library_ms = device_ms(gather, 20)
         # the write-only floor: PyTorch filling a tensor of the output's
         # bytes, the most of the kernel's work (the rows are 3-9% of it)
         fill = torch.empty_like(out)
         write_ms = device_ms(fill.zero_, 20)
-        nbytes = rows.element_size() * (out.numel() + rows.numel()) + 4 * K
+        nbytes = crop_bytes(rows, starts, win)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         tiles = row_tile_geometry(dtype, c * ph, w_f + win, 1)
         log('{} at 1/{}: rows {} -> {} windows of {}, kernel == plain '
@@ -579,7 +618,7 @@ def phase_kernel_column_crop(device, record, rn, dtype=torch.float32):
                           library_ms=library_ms, bytes=nbytes,
                           gb_per_s=nbytes / ms * 1e-6, write_floor_ms=write_ms,
                           **tiles))
-        del out, ref, rows_p, index, fill
+        del out, ref, gather, fill
     name = 'column_crop' + dtype_label(dtype)
     record[name] = kernel_entry(
         name, 'rcfd_tpu_torch/csrc/column_crop.cu',
@@ -2201,10 +2240,11 @@ CARD_LOSS_RTOL, CARD_GRAD_TOL, CARD_STATS_RTOL = 1e-5, 1e-3, 1e-5
 
 
 def script_flags(path):
-    """The flags of a training script: {'--flag': [values]}."""
+    """The flags of a training script's python command: {'--flag':
+    [values]}."""
     with open(os.path.join(HERE, path)) as f:
-        text = f.read().replace('\\\n', ' ')
-    tokens = text[text.index('train_fusionnet.py') + 18:].split()
+        tokens = f.read().replace('\\\n', ' ').split()
+    tokens = tokens[tokens.index('python') + 2:]
     flags, key = {}, None
     for t in tokens:
         if t.startswith('--'):
@@ -2294,8 +2334,9 @@ def train_argv(manifests, checkpoint_dirpath, schedule, restore=None):
 
 
 def validation_lines(results_path):
-    """The (step, MAE, RMSE, iMAE, iRMSE) rows under 'Validation results'
-    in a results.txt."""
+    """The rows under 'Validation results' in a results.txt: (step, MAE,
+    RMSE, iMAE, iRMSE) of FusionNet's, and the three pixel counts after
+    them in RadarNet's."""
     with open(results_path) as f:
         lines = f.read().splitlines()
     return [[float(v) for v in lines[i + 2].split()]
@@ -2446,7 +2487,8 @@ def phase_train(device, rn, tmp):
     step_ms = float(np.median([t['step_ms'] for t in timed]))
     wait_ms = float(np.median([t['wait_ms'] for t in timed]))
     per_step = float(np.median([t['step_ms'] + t['wait_ms'] for t in timed]))
-    log('train: 10 steps of batch 16 at 448x448 from {} full-size frames in '
+    log('train: 10 steps of batch 16 at 448x448 from {} full-size frames (one '
+        'batch an epoch: every step waits for a loader started afresh) in '
         '{:.2f} s of main (validation of {} frames at steps 5 and 10 and at '
         'the end included): ms a step, median of steps 3-10 (synchronized) '
         '{:.2f}; host wait for data a step, median {:.2f} ms; samples/s '
@@ -2496,6 +2538,690 @@ def phase_train(device, rn, tmp):
     torch.cuda.empty_cache()
     train_card_vs_cpu(device)
     train_overfit(device)
+    torch.cuda.empty_cache()
+
+
+# phase train_radarnet: bash/train_radarnet_nuscenes.sh's flags on
+# RN_TRAIN_FRAMES full-size frames (batch 6: 5 batches an epoch, so that
+# the loader runs ahead of the step within an epoch), schedule 2 (10
+# steps), a checkpoint and a validation of RN_VAL_FRAMES frames every 5
+# steps; then a resumed run to schedule 3 (step 15)
+RN_TRAIN_SCRIPT = os.path.join('bash', 'train_radarnet_nuscenes.sh')
+RN_TRAIN_FRAMES = 30
+RN_STEPS_PER_EPOCH = RN_TRAIN_FRAMES // 6
+RN_VAL_FRAMES = 4
+RN_STREAMS = ('image', 'radar', 'ground_truth')
+RN_KEYS = ['radarnet_decoder_state_dict', 'radarnet_encoder_state_dict',
+           'radarnet_optimizer_state_dict', 'train_step']
+# (b): the step through K2 against the same step through the plain crop,
+# every parameter's gradient as a share of its max-abs (the backward's
+# index_add_ adds overlapping windows with atomics, in another order than
+# autograd of the plain crop, and the order changes from run to run:
+# 6.2e-6 to 7.5e-6 measured in five runs on an H100); and the crop's
+# backward alone against autograd of the plain crop (1.2e-7 measured)
+RN_CROP_GRAD_TOL = 2e-5
+# (d): a narrow RadarNet at a 128x100 patch (the variable-bin pools: K2 on
+# the card, its plain version on the CPU), at each of RN_SEEDS. The card's
+# float64 step (the plain crop: K2 has no float64 instance) equals the
+# CPU's, gradients, loss and statistics, within RN_FLOAT64_TOL. Each
+# device's float32 gradients are held to the CPU's float64 step's within
+# RN_GRAD_TOL of the largest gradient of the model: each tensor's own
+# max-abs is no scale for them, since some (the batch-norm biases before a
+# leaky ReLU and another batch norm) are small sums of large terms that
+# cancel, and float32 misses them by 1.5e-2 of their max-abs on the card
+# (an H100, 700 W; seed 37) and 1.4e-3 on the CPU
+RN_GRAD_TOL = 1e-3
+RN_FLOAT64_TOL = 1e-10
+RN_SEEDS = tuple(SEED + 35 + i for i in range(5))
+RN_NARROW = dict(RADARNET, input_patch_size_image=(128, 100),
+                 n_filters_encoder_image=[8, 16, 16, 16, 16],
+                 n_neurons_encoder_depth=[8, 16, 16, 16, 16],
+                 n_filters_decoder=[16, 16, 8, 8, 8])
+
+
+def radarnet_training_frame(rng):
+    """A camera-like frame, 40 to 64 radar points in its lower half with
+    depths near the ground truth's, and a dense interpolated ground truth
+    below the horizon."""
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    gt = (5 + 70 * (1 - y / H) + 3 * np.sin(x / 50.0)).astype(np.float32)
+    gt[: int(0.4 * H)] = 0.0
+    k = int(rng.integers(40, K + 1))
+    xs, ys = rng.integers(0, W, k), rng.integers(int(0.45 * H), H, k)
+    zs = np.maximum(gt[ys, xs] + rng.normal(0, 0.3, k), 1.0)
+    points = np.stack([xs, ys, zs], 1).astype(np.float32)
+    return camera_frame(rng), points, gt
+
+
+def write_radarnet_inputs(tmp, rng):
+    """RN_TRAIN_FRAMES training and RN_VAL_FRAMES validation frames at
+    900x1600 with the port's writers (RGB PNGs, .npy point sets, x256 depth
+    PNGs), written by 8 threads, and their manifests."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rcfd_tpu_torch import native
+    from rcfd_tpu_torch.data import io
+
+    writers = {'image': native.write_rgb, 'radar': np.save,
+               'ground_truth': lambda path, z: io.save_depth(z, path)}
+    jobs, manifests = [], {}
+    for split, n in (('train', RN_TRAIN_FRAMES), ('val', RN_VAL_FRAMES)):
+        paths = {k: [] for k in RN_STREAMS}
+        for i in range(n):
+            for k, value in zip(RN_STREAMS, radarnet_training_frame(rng)):
+                paths[k].append(os.path.join(tmp, 'rn_{}_{}_{:02d}.{}'.format(
+                    split, k, i, 'npy' if k == 'radar' else 'png')))
+                jobs.append((writers[k], paths[k][-1], value))
+        for k in RN_STREAMS:
+            manifests[split, k] = os.path.join(tmp, 'rn_{}_{}.txt'.format(
+                split, k))
+            io.write_paths(manifests[split, k], paths[k])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as ex:
+        list(ex.map(lambda job: job[0](job[1], job[2]), jobs))
+    log('train_radarnet: wrote {} files of {}x{} frames in {:.2f} s'.format(
+        len(jobs), H, W, time.perf_counter() - t0))
+    return manifests
+
+
+def radarnet_train_argv(manifests, checkpoint_dirpath, schedule,
+                        restore=None):
+    """bash/train_radarnet_nuscenes.sh's flags, with this run's manifests,
+    schedule, checkpoint directory and restore path, a checkpoint and a
+    validation every 5 steps."""
+    flags = script_flags(RN_TRAIN_SCRIPT)
+    for split in ('train', 'val'):
+        for k in RN_STREAMS:
+            flags['--{}_{}_path'.format(split, k)] = [manifests[split, k]]
+    flags.update({'--learning_schedule': [str(schedule)],
+                  '--n_step_per_checkpoint': ['5'],
+                  '--start_step_validation': ['5'],
+                  '--checkpoint_dirpath': [checkpoint_dirpath]})
+    if restore:
+        flags['--restore_path'] = [restore]
+    return [t for k, v in flags.items() for t in [k] + v]
+
+
+def check_radarnet_checkpoint(path, step):
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    check(sorted(ckpt) == RN_KEYS and ckpt['train_step'] == step and
+          ckpt['radarnet_optimizer_state_dict'] == {},
+          'train_radarnet: {} has keys {} at step {}'.format(
+              path, sorted(ckpt), ckpt.get('train_step')))
+
+
+def radarnet_batch(manifests, patch, device, n=6, k=4):
+    """A training batch of the first n training frames at ``patch`` (K = 4,
+    lidar probability 0.10), on the card in the integer transport."""
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.data.datasets import RadarNetTrainingDataset
+
+    ds = RadarNetTrainingDataset(
+        *[io.read_paths(manifests['train', s]) for s in RN_STREAMS],
+        patch_size=patch, total_points_sampled=k,
+        sample_probability_of_lidar=0.10, device=device)
+    samples = [ds.get(i, np.random.default_rng((SEED, i))) for i in range(n)]
+    return tuple(torch.from_numpy(np.stack(f)).to(device)
+                 for f in zip(*samples))
+
+
+def canonical_radarnet(patch, device, seed, perf=None):
+    """The canonical RadarNet for training at ``patch``, weights from
+    ``seed``."""
+    from rcfd_tpu_torch import radarnet_main as rm
+    from rcfd_tpu_torch.nn import init_parameters
+
+    kw = {k: v for k, v in RADARNET.items()
+          if k != 'input_patch_size_image'}
+    model = rm.build_model(patch_size=patch, device='cpu', perf=perf,
+                           weight_initializer='kaiming_uniform',
+                           activation_func='leaky_relu', **kw)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(device)
+
+
+def unused_parameters(model):
+    """The parameters the forward never uses: the projections of ResNet
+    blocks that keep their input's shape."""
+    return {'{}.projection.{}'.format(name, n)
+            for name, block in model.named_modules()
+            if getattr(block, 'use_projection', True) is False
+            for n, _ in block.projection.named_parameters()}
+
+
+def radarnet_train_augmentation():
+    """The script's augmentation: brightness, contrast and saturation
+    0.8-1.2 and horizontal flips."""
+    from rcfd_tpu_torch.data.transforms import Transforms
+
+    return Transforms(normalized_image_range=[0, 1],
+                      random_brightness=[0.8, 1.2],
+                      random_contrast=[0.8, 1.2],
+                      random_saturation=[0.8, 1.2],
+                      random_flip_type=['horizontal'])
+
+
+def train_radarnet_canonical(device, record, fn, manifests, tmp):
+    """(a): the training CLI with the script's flags, 10 steps (2 epochs)
+    and validations at 5 and 10, then resumed to 15; K1 counted and held
+    against its plain version on one validation frame's crops of the
+    trained model; model-15.pth served."""
+    from rcfd_tpu_torch import train_radarnet
+    from rcfd_tpu_torch.data import io, transforms
+    from rcfd_tpu_torch.data.datasets import RadarNetInferenceDataset
+    from rcfd_tpu_torch.models import RadarNetModel
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline, radarnet_crops
+
+    ckpt = os.path.join(tmp, 'rn_checkpoints')
+    timings = []
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    train_radarnet.main(radarnet_train_argv(manifests, ckpt, 2),
+                        timings=timings)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = read_launches()
+    losses = [t['loss'] for t in timings]
+    check([t['step'] for t in timings] == list(range(1, 11)) and
+          all(math.isfinite(v) for v in losses),
+          'train_radarnet: steps {} losses {}'.format(
+              [t['step'] for t in timings], losses))
+    for step in (5, 10):
+        check_radarnet_checkpoint(os.path.join(
+            ckpt, 'model-{}.pth'.format(step)), step)
+    rows = validation_lines(os.path.join(ckpt, 'results.txt'))
+    # an error is the mean over the frames' intersections with the ground
+    # truth, NaN (as in the JAX package) where no frame has one
+    check([r[0] for r in rows] == [5, 10, 10] and all(
+        len(r) == 8 and all(map(math.isfinite, r[5:])) and
+        (all(map(math.isfinite, r[1:5])) or r[6] == 0) for r in rows),
+          'train_radarnet: validation rows {}'.format(rows))
+    # three validations of RN_VAL_FRAMES frames, one K1 launch a frame
+    want = 3 * RN_VAL_FRAMES
+    check(launches['scatter_quasi_dense'] == want and
+          sum(launches.values()) == want,
+          'train_radarnet: launches {} (K1 {} expected, nothing else)'.format(
+              launches, want))
+    count_launches(record, 'train_radarnet', launches,
+                   ['scatter_quasi_dense'])
+    # steps 3-10 but the first of an epoch (6), which waits for a loader
+    # started afresh
+    first = [t for t in timings if (t['step'] - 1) % RN_STEPS_PER_EPOCH == 0]
+    timed = [t for t in timings
+             if t['step'] in TIMED_STEPS and t not in first]
+    step_ms = float(np.median([t['step_ms'] for t in timed]))
+    wait_ms = float(np.median([t['wait_ms'] for t in timed]))
+    per_step = float(np.median([t['step_ms'] + t['wait_ms'] for t in timed]))
+    log('train_radarnet: 10 steps of batch 6 (K = 4, 24 patches of 900x288) '
+        'in 2 epochs of {} full-size frames in {:.2f} s of main (validation '
+        'of {} frames at steps 5 and 10 and at the end included): over steps '
+        '{} (3-10 but the first of an epoch), medians: ms a step '
+        '(synchronized) {:.2f}; host wait for data a step {:.2f} ms; '
+        'samples/s {:.2f} (6 over the median step plus wait); the first step '
+        'of each epoch (steps {}) waits {} ms for a loader started afresh; '
+        'peak memory {} bytes; K1 launches {}; losses {}; validation (step, '
+        'MAE, RMSE, iMAE, iRMSE, n_output, n_isect, n_gt) {}; per step (ms, '
+        'wait ms): {}; {}'.format(
+            RN_TRAIN_FRAMES, wall, RN_VAL_FRAMES,
+            [t['step'] for t in timed], step_ms, wait_ms, 6e3 / per_step,
+            [t['step'] for t in first],
+            ', '.join('{:.1f}'.format(t['wait_ms']) for t in first), peak,
+            launches['scatter_quasi_dense'],
+            ', '.join('{:.4f}'.format(v) for v in losses), rows,
+            ', '.join('{:.1f}/{:.1f}'.format(t['step_ms'], t['wait_ms'])
+                      for t in timings), gpu_name_and_power()))
+
+    resumed = []
+    train_radarnet.main(radarnet_train_argv(manifests, ckpt, 3, 'latest'),
+                        timings=resumed)
+    check([t['step'] for t in resumed] == list(range(11, 16)) and
+          all(math.isfinite(t['loss']) for t in resumed),
+          'train_radarnet: the resumed run took steps {}'.format(
+              [t['step'] for t in resumed]))
+    check_radarnet_checkpoint(os.path.join(ckpt, 'model-15.pth'), 15)
+    with open(os.path.join(ckpt, 'results.txt')) as f:
+        check('Auto-resume from: {}'.format(os.path.join(
+            ckpt, 'model-10.pth')) in f.read(),
+              'train_radarnet: the resumed run did not restore model-10.pth')
+    log('train_radarnet: resumed from model-10.pth (--restore_path latest), '
+        'took steps 11-15 with Adam afresh (the checkpoints hold an empty '
+        'optimizer state, as the JAX package\'s), saved model-15.pth; '
+        'losses {}'.format(', '.join('{:.4f}'.format(t['loss'])
+                                     for t in resumed)))
+
+    # K1 against its plain version on the trained model's crops of one
+    # validation frame
+    model = RadarNetModel(**RADARNET, device=device)
+    model.restore_checkpoint(os.path.join(ckpt, 'model-15.pth'),
+                             device=device)
+    val = RadarNetInferenceDataset(
+        *[io.read_paths(manifests['val', s]) for s in RN_STREAMS],
+        max_points=None, device=device)
+    image, points, valid = (torch.from_numpy(a[None]).to(device)
+                            for a in val.get(0)[:3])
+    with torch.inference_mode():
+        _, crops, xs, zs = radarnet_crops(
+            model, transforms.Transforms([0, 1]), image, points, H)
+        args = (crops, xs, zs, valid, H, W, PATCH)
+        out = sc.scatter_quasi_dense_batched(*args)
+        ref = sc.scatter_quasi_dense_batched_plain(*args)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(out, ref))
+    check(all(torch.equal(a, b) for a, b in zip(out, ref)),
+          'train_radarnet: K1 differs from its plain version on the trained '
+          'model\'s crops: max abs err {}'.format(err))
+    log('train_radarnet: K1 == scatter_quasi_dense_batched_plain on the '
+        'trained model-15.pth\'s crops of validation frame 0 ({} points), '
+        'bit for bit (tolerance 0); {} covered pixels'.format(
+            int(valid.sum()), int((out[1] > 0).sum())))
+
+    fn_path = os.path.join(tmp, 'fusionnet.pth')
+    fn.save_checkpoint(fn_path, 0)
+    pipe = TwoStagePipeline.from_checkpoints(
+        os.path.join(ckpt, 'model-15.pth'), fn_path, image_height=H,
+        image_width=W, device=device)
+    req = requests(np.random.default_rng(SEED + 31), 1, H, W, K,
+                   N_INVALID)[0]
+    dense, quasi, _ = pipe(*req)
+    lo = 1.0 / (1.0 + 1.0 / 100.0)
+    check(bool(torch.isfinite(dense).all()) and float(dense.min()) >= lo and
+          float(dense.max()) <= 100.0, 'train_radarnet: model-15.pth serves '
+          'dense depth in [{}, {}]'.format(float(dense.min()),
+                                           float(dense.max())))
+    log('train_radarnet: model-15.pth served by '
+        'TwoStagePipeline.from_checkpoints beside the smoke\'s FusionNet: '
+        'dense depth finite, in [{:.4f}, {:.4f}] m; {} quasi-dense pixels'
+        .format(float(dense.min()), float(dense.max()),
+                int((quasi > 0).sum())))
+    del pipe, model
+
+
+def crop_training_times(device, record, model, batch):
+    """K2 at the training step's shapes (6 frames, 4 windows each, at the
+    1/8, 1/16 and 1/32 pools of the 900x300 patch): the kernel, its plain
+    version and torch.gather forward, beside the bytes the windows need;
+    the backward's plain PyTorch version (one index_add_) and one
+    scatter_add_ on a precomputed index, beside the bytes of the windows'
+    gradient read and the whole rows' gradient written."""
+    from rcfd_tpu_torch.ops import crop_cuda as cc
+    from rcfd_tpu_torch.ops.roi_pool import variable_bin_window
+
+    n, k = batch[1].shape[0], batch[1].shape[1]
+    with torch.inference_mode():
+        image = torch.zeros((n, 3, WIDE_PATCH[0], batch[0].shape[2]),
+                            device=device)
+        latent, skips = model.encoder.encode_image(image)
+        maps = [tuple(t.shape) for t in list(skips) + [latent]]
+    rng = np.random.default_rng(SEED + 32)
+    parts = []
+    for i in (2, 3, 4):
+        c, w_f = maps[i][1], maps[i][3]
+        ph, pw = int(WIDE_PATCH[0] * SCALES[i]), int(WIDE_PATCH[1] *
+                                                     SCALES[i])
+        _, win = variable_bin_window(WIDE_PATCH[1], SCALES[i], pw)
+        rows = torch.from_numpy(rng.standard_normal(
+            (n, c, ph, w_f), dtype=np.float32)).to(device)
+        starts = torch.from_numpy(rng.integers(0, w_f + 1, (n, k)).astype(
+            np.int32)).to(device)
+        grad = torch.from_numpy(rng.standard_normal(
+            (n * k, c, ph, win), dtype=np.float32)).to(device)
+        fwd_ms = device_ms(lambda: cc.batch_column_crop(rows, starts, win),
+                           20)
+        fwd_plain_ms = device_ms(
+            lambda: cc.batch_column_crop_plain(rows, starts, win), 5, 1)
+        gather = padded_gather(rows, starts, win)
+        check(torch.equal(gather(), cc.batch_column_crop(rows, starts, win)),
+              'train_radarnet: the torch.gather yardstick differs from K2')
+        fwd_library_ms = device_ms(gather, 20)
+        back = cc.batch_column_crop_backward_plain(grad, starts, rows.shape,
+                                                   win)
+        rows_g = rows.clone().requires_grad_(True)
+        ref, = torch.autograd.grad(cc.batch_column_crop_plain(
+            rows_g, starts, win), rows_g, grad)
+        err = float((back - ref).abs().max() / ref.abs().max())
+        check(err <= RN_CROP_GRAD_TOL, 'train_radarnet: the crop\'s backward '
+              'differs from autograd of the plain crop by {} of its '
+              'max-abs'.format(err))
+        back_ms = device_ms(lambda: cc.batch_column_crop_backward_plain(
+            grad, starts, rows.shape, win), 20)
+        # yardstick: one scatter_add_ of the windows' gradients, laid out
+        # per frame, on a precomputed index of their columns
+        cols = starts.long()[:, :, None] + torch.arange(win, device=device)
+        g = grad.reshape(n, k, c, ph, win).permute(0, 2, 3, 1, 4).reshape(
+            n, c, ph, k * win).contiguous()
+        index = cols.reshape(n, 1, 1, k * win).expand(n, c, ph,
+                                                      k * win).contiguous()
+        acc = torch.zeros((n, c, ph, w_f + win), device=device)
+        library_ms = device_ms(lambda: acc.zero_().scatter_add_(3, index, g),
+                               20)
+        fwd_bytes = crop_bytes(rows, starts, win)
+        back_bytes = 4 * (grad.numel() + rows.numel()) + 4 * n * k
+        parts.append(dict(
+            shape='1/{}'.format(int(1 / SCALES[i])), rows=list(rows.shape),
+            win=win, ms=fwd_ms, plain_ms=fwd_plain_ms,
+            library_ms=fwd_library_ms, bytes=fwd_bytes,
+            bound_ms=fwd_bytes / HBM_BYTES_PER_S * 1e3,
+            backward_plain_ms=back_ms, backward_library_ms=library_ms,
+            backward_bytes=back_bytes,
+            backward_bound_ms=back_bytes / HBM_BYTES_PER_S * 1e3,
+            backward_err=err))
+        log('train_radarnet: K2 at the step\'s 1/{} pool: rows {} -> {} '
+            'windows of {}; forward kernel {:.4f} ms, plain {:.4f} ms, '
+            'torch.gather {:.4f} ms, bound {:.4f} ms ({} bytes: the covered '
+            'columns read, the windows written); backward (plain PyTorch, '
+            'one index_add_) {:.4f} ms, scatter_add_ on a precomputed index '
+            '{:.4f} ms, bound {:.4f} ms ({} bytes: the windows\' gradient '
+            'read, the rows\' written); backward vs autograd of the plain '
+            'crop {:.3g} of its max-abs'.format(
+                int(1 / SCALES[i]), tuple(rows.shape), n * k, win, fwd_ms,
+                fwd_plain_ms, fwd_library_ms, fwd_bytes / HBM_BYTES_PER_S *
+                1e3, fwd_bytes, back_ms, library_ms,
+                back_bytes / HBM_BYTES_PER_S * 1e3, back_bytes, err))
+        del rows, grad, back, ref, acc, index, g, gather
+    total = lambda key: float(sum(p[key] for p in parts))
+    record['column_crop']['training'] = dict(
+        parts=parts, ms=total('ms'), plain_ms=total('plain_ms'),
+        library_ms=total('library_ms'), bound_ms=total('bound_ms'),
+        bytes=int(total('bytes')),
+        backward_plain_ms=total('backward_plain_ms'),
+        backward_library_ms=total('backward_library_ms'),
+        backward_bound_ms=total('backward_bound_ms'),
+        backward_bytes=int(total('backward_bytes')))
+
+
+def train_radarnet_wide(device, record, manifests):
+    """(b): one step at the 900x300 patch through K2 and the same step
+    (same weights, batch and draws) through the plain crop, cuDNN's
+    convolutions deterministic for both: K2 launched 3 times in the
+    forward, the losses, every gradient, and a nonzero gradient in every
+    parameter of the image encoder that the forward uses."""
+    from unittest import mock
+
+    from rcfd_tpu_torch import radarnet_main as rm
+    from rcfd_tpu_torch.ops import crop_cuda as cc
+    from rcfd_tpu_torch.ops import roi_pool
+
+    batch = radarnet_batch(manifests, WIDE_PATCH, device)
+    transforms = radarnet_train_augmentation()
+    gen = torch.Generator(device=device).manual_seed(SEED + 33)
+    draws = transforms.draws(gen, 6, 1.0, (6, 4, 3))
+    model_k = canonical_radarnet(WIDE_PATCH, device, SEED + 33)
+    model_p = copy.deepcopy(model_k)
+    out = {}
+    cudnn = torch.backends.cudnn
+    with rm.training_numerics():
+        cudnn.benchmark, cudnn.deterministic = False, True
+        for name, model in (('kernel', model_k), ('plain', model_p)):
+            step = rm.TrainStep(model, transforms,
+                                rm.make_optimizer(model, 2e-4, 0.0),
+                                WIDE_PATCH, 0.4, True, 2.0)
+            reset_launches()
+            if name == 'plain':
+                with mock.patch.object(roi_pool, 'batch_column_crop',
+                                       cc.batch_column_crop_plain):
+                    info = step.backward(batch, draws)
+            else:
+                info = step.backward(batch, draws)
+            torch.cuda.synchronize()
+            out[name] = (float(info['loss']), read_launches(),
+                         {n: p.grad for n, p in model.named_parameters()})
+    (loss_k, launches, grads_k), (loss_p, plain_launches, grads_p) = \
+        out['kernel'], out['plain']
+    check(launches['column_crop'] == 3 and sum(launches.values()) == 3 and
+          sum(plain_launches.values()) == 0,
+          'train_radarnet wide: launches {} (K2 3 expected), plain step {}'
+          .format(launches, plain_launches))
+    count_launches(record, 'train_radarnet wide', launches, ['column_crop'])
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    check(sorted(n for n, g in grads_k.items() if g is not None) ==
+          sorted(n for n, g in grads_p.items() if g is not None),
+          'train_radarnet wide: the two steps gave gradients to different '
+          'parameters')
+    grad_err = max(float((grads_k[n] - g).abs().max() / g.abs().max())
+                   for n, g in grads_p.items()
+                   if g is not None and g.abs().max() > 0)
+    unused = unused_parameters(model_k.encoder.encoder_image)
+    dead = [n for n, p in model_k.encoder.encoder_image.named_parameters()
+            if n not in unused and (p.grad is None or
+                                    float(p.grad.abs().max()) == 0.0)]
+    check(loss_err <= 1e-6 and grad_err <= RN_CROP_GRAD_TOL and not dead,
+          'train_radarnet wide: loss rel err {}, gradient err {} of max-abs, '
+          'image-encoder parameters without a gradient {}'.format(
+              loss_err, grad_err, dead))
+    log('train_radarnet wide: one step at 900x300 (batch 6, K = 4) through '
+        'K2 against the plain crop, same weights, batch and draws, '
+        'deterministic convolutions: K2 launches {} (forward; the backward is '
+        'plain PyTorch); loss {:.6f} vs {:.6f} (rel err {:.3g}, tolerance '
+        '1e-6); gradients max err {:.3g} of their max-abs over {} tensors '
+        '(tolerance {:g}); every one of the image encoder\'s {} used '
+        'parameters has a nonzero gradient ({} unused projections)'.format(
+            launches['column_crop'], loss_k, loss_p, loss_err, grad_err,
+            len(grads_p), RN_CROP_GRAD_TOL,
+            sum(1 for n, _ in model_k.encoder.encoder_image.named_parameters()
+                if n not in unused), len(unused)))
+    crop_training_times(device, record, model_k, batch)
+    del model_k, model_p, out
+
+
+def train_radarnet_fused(device, record, manifests):
+    """(c): RadarNet under RCFD_FUSED_POOL2=1 RCFD_FUSED_POOL4=1 (the CLI's
+    perf_from_env): one train step (K3 off in training, as in the JAX
+    package) and one validation of RN_VAL_FRAMES frames (K3 twice a frame,
+    K1 once)."""
+    from rcfd_tpu_torch import radarnet_main as rm
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.data.datasets import RadarNetInferenceDataset
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.nn.perf import perf_from_env
+
+    perf = perf_from_env({'RCFD_FUSED_POOL2': '1', 'RCFD_FUSED_POOL4': '1'})
+    model = canonical_radarnet(PATCH, device, SEED + 34, perf=perf)
+    transforms = radarnet_train_augmentation()
+    gen = torch.Generator(device=device).manual_seed(SEED + 34)
+    draws = transforms.draws(gen, 6, 1.0, (6, 4, 3))
+    step = rm.TrainStep(model, transforms, rm.make_optimizer(model, 2e-4,
+                                                             0.0),
+                        PATCH, 0.4, True, 2.0)
+    batch = radarnet_batch(manifests, PATCH, device)
+    with rm.training_numerics():
+        reset_launches()
+        info = step(batch, draws, 2e-4)
+        torch.cuda.synchronize()
+        step_launches = read_launches()
+        val = RadarNetInferenceDataset(
+            *[io.read_paths(manifests['val', s]) for s in RN_STREAMS],
+            max_points=None, device=device)
+        forward_fn = rm.make_forward_fn_batched(model, Transforms([0, 1]), H,
+                                                W)
+        reset_launches()
+        best = rm.validate(
+            forward_fn, val, 1, dict({k: np.inf for k in rm.METRICS},
+                                     step=-1, n_valid_points_output=0,
+                                     n_valid_points_ground_truth=0,
+                                     n_valid_points_intersection=0),
+            0.0, 100.0, device=device)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    check(sum(step_launches.values()) == 0 and math.isfinite(
+        float(info['loss'])), 'train_radarnet fused: the step launched {}'
+          .format(step_launches))
+    check(launches['fused_skip_gather_add'] == 2 * RN_VAL_FRAMES and
+          launches['scatter_quasi_dense'] == RN_VAL_FRAMES and
+          sum(launches.values()) == 3 * RN_VAL_FRAMES and
+          all(math.isfinite(best[k]) for k in rm.METRICS),
+          'train_radarnet fused: validation launched {}, results {}'.format(
+              launches, best))
+    count_launches(record, 'train_radarnet fused', launches,
+                   ['fused_skip_gather_add', 'scatter_quasi_dense'])
+    log('train_radarnet fused: RCFD_FUSED_POOL2=1 RCFD_FUSED_POOL4=1: one '
+        'step (loss {:.4f}) launched no kernel (K3 serves only, as in the '
+        'JAX package); one validation of {} frames launched K3 {} times and '
+        'K1 {}; MAE {:.3f}'.format(
+            float(info['loss']), RN_VAL_FRAMES,
+            launches['fused_skip_gather_add'],
+            launches['scatter_quasi_dense'], best['mae_intersection']))
+    del model, step
+
+
+def train_radarnet_card_vs_cpu(device, seed):
+    """(d): one train step of a narrow RadarNet (RN_NARROW, 128x100: K2 on
+    the card, its plain version on the CPU) on the card and on the CPU
+    from the same weights and batch (from ``seed``), augmentation off, and
+    the same step in float64 on both (the plain crop on the card): loss and
+    running statistics card vs CPU within CARD_LOSS_RTOL and
+    CARD_STATS_RTOL; each float32 step's gradients within RN_GRAD_TOL of
+    the largest of the CPU's float64 step's; the card's float64 step equal
+    to the CPU's within RN_FLOAT64_TOL. Returns the readings."""
+    from unittest import mock
+
+    from rcfd_tpu_torch import radarnet_main as rm
+    from rcfd_tpu_torch.data import transport
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.nn import init_parameters
+    from rcfd_tpu_torch.ops import crop_cuda as cc
+    from rcfd_tpu_torch.ops import roi_pool
+
+    ph, pw = RN_NARROW['input_patch_size_image']
+    kw = {k: v for k, v in RN_NARROW.items()
+          if k != 'input_patch_size_image'}
+    cpu = rm.build_model(patch_size=(ph, pw), device='cpu',
+                         weight_initializer='kaiming_uniform',
+                         activation_func='leaky_relu', **kw)
+    init_parameters(cpu, torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    b, k, w = 2, 4, 256
+    x = rng.integers(0, w, (b, k)).astype(np.float32)
+    points = np.stack([x + pw // 2, rng.random((b, k)) * ph,
+                       rng.random((b, k)) * 60 + 5], -1).astype(np.float32)
+    boxes = np.stack([x, np.zeros_like(x), x + 2 * (pw // 2),
+                      np.full_like(x, ph)], -1).astype(np.float32)
+    gt = points[..., 2, None, None, None] + rng.uniform(-0.8, 0.8,
+                                                        (b, k, ph, pw, 1))
+    gt[rng.random(gt.shape) < 0.4] = 0.0
+    batch = tuple(torch.from_numpy(a) for a in (
+        rng.integers(0, 256, (b, ph, w + pw, 3), dtype=np.uint8), points,
+        boxes, (gt * 256).astype(np.uint16)))
+    decoded = tuple(t.double() for t in transport.decode(batch))
+    runs = (('cpu', copy.deepcopy(cpu), batch),
+            ('card', copy.deepcopy(cpu).to(device),
+             tuple(t.to(device) for t in batch)),
+            ('cpu float64', copy.deepcopy(cpu).double(), decoded),
+            ('card float64', copy.deepcopy(cpu).double().to(device),
+             tuple(t.to(device) for t in decoded)))
+    out = {}
+    for name, model, inputs in runs:
+        step = rm.TrainStep(model, Transforms([0, 1]),
+                            rm.make_optimizer(model, 1e-3, 0.0), (ph, pw),
+                            0.4, False, 2.0)
+        reset_launches()
+        with rm.training_numerics(), mock.patch.object(
+                roi_pool, 'batch_column_crop', cc.batch_column_crop_plain
+                if name == 'card float64' else cc.batch_column_crop):
+            info = step.backward(inputs, {})
+        out[name] = (float(info['loss']),
+                     {n: p.grad.cpu().double()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+                     {n: t.cpu().double() for n, t in model.named_buffers()},
+                     read_launches()['column_crop'])
+    (loss_c, grads_c, bufs_c, _), (loss_g, grads_g, bufs_g, crops) = \
+        out['cpu'], out['card']
+    loss_x, grads_x, bufs_x, _ = out['cpu float64']
+    loss_gx, grads_gx, bufs_gx, crops_x = out['card float64']
+
+    def stats_err(bufs, ref):
+        return max(float((bufs[n] - t).abs().max() /
+                         max(float(t.abs().max()), 1.0))
+                   for n, t in ref.items())
+
+    def grad_err(grads, ref):
+        """The largest distance of a tensor's gradient from ref's, over
+        ref's max-abs, and that tensor."""
+        return max((float((grads[n] - g).abs().max() / g.abs().max()), n)
+                   for n, g in ref.items() if g.abs().max() > 0)
+
+    scale = max(float(g.abs().max()) for g in grads_x.values())
+
+    def model_err(grads, ref):
+        """The largest distance of a gradient from ref's, over the largest
+        of ref's."""
+        return max(float((grads[n] - g).abs().max())
+                   for n, g in ref.items()) / scale
+
+    check(sorted(grads_g) == sorted(grads_c) == sorted(grads_x) ==
+          sorted(grads_gx) and crops == 3 and crops_x == 0,
+          'train_radarnet: card vs CPU: gradients of different parameters, '
+          'or K2 launched {} times (3 expected), {} in float64 (0)'.format(
+              crops, crops_x))
+    r = dict(seed=seed, loss_err=abs(loss_g - loss_c) / abs(loss_c),
+             stats_err=stats_err(bufs_g, bufs_c),
+             card_err=model_err(grads_g, grads_x),
+             cpu_err=model_err(grads_c, grads_x),
+             card_tensor_err=grad_err(grads_g, grads_x),
+             cpu_tensor_err=grad_err(grads_c, grads_x),
+             apart=grad_err(grads_g, grads_c),
+             float64_err=max(grad_err(grads_gx, grads_x)[0],
+                             abs(loss_gx - loss_x) / abs(loss_x),
+                             stats_err(bufs_gx, bufs_x)))
+    check(r['loss_err'] <= CARD_LOSS_RTOL and
+          r['stats_err'] <= CARD_STATS_RTOL and
+          r['card_err'] <= RN_GRAD_TOL and r['cpu_err'] <= RN_GRAD_TOL and
+          r['float64_err'] <= RN_FLOAT64_TOL,
+          'train_radarnet: card vs CPU: {}'.format(r))
+    log('train_radarnet: one step of a narrow RadarNet at 128x100 (K2 3 '
+        'launches on the card), seed {}, card vs CPU from the same weights '
+        'and batch: loss rel err {:.3g} (tolerance {:g}), running statistics '
+        'rel err {:.3g} (tolerance {:g}); gradients over {} tensors from the '
+        'CPU\'s float64 step\'s, of the largest of its gradients: card '
+        '{:.3g}, CPU {:.3g} (tolerance {:g}); of each tensor\'s own max-abs '
+        '(not held): card at most {:.3g} ({}), CPU {:.3g} ({}), card vs CPU '
+        '{:.3g} ({}); the card\'s float64 step (the plain crop) vs the '
+        'CPU\'s: gradients, loss and statistics at most {:.3g} (tolerance '
+        '{:g})'.format(
+            seed, r['loss_err'], CARD_LOSS_RTOL, r['stats_err'],
+            CARD_STATS_RTOL, len(grads_x), r['card_err'], r['cpu_err'],
+            RN_GRAD_TOL, r['card_tensor_err'][0], r['card_tensor_err'][1],
+            r['cpu_tensor_err'][0], r['cpu_tensor_err'][1], r['apart'][0],
+            r['apart'][1], r['float64_err'], RN_FLOAT64_TOL))
+    return r
+
+
+def phase_train_radarnet(device, record, fn, tmp):
+    """RadarNet training on the card: (a) python -m
+    rcfd_tpu_torch.train_radarnet's main, in process, with
+    bash/train_radarnet_nuscenes.sh's flags on full-size files (10 steps of
+    batch 6 in 2 epochs, checkpoints and validation with K1 at steps 5 and
+    10),
+    resumed from the newest checkpoint to step 15, K1 held against its
+    plain version on the trained model's crops, model-15.pth served; (b)
+    one step at 900x300 through K2 against the plain crop, and K2's
+    training times; (c) one step and one validation under the fused-pool
+    gates; (d) one step card against CPU at each of RN_SEEDS."""
+    from rcfd_tpu_torch import radarnet_main as rm
+
+    with rm.training_numerics():
+        log('train_radarnet: ' + rm.numerics_line())
+    manifests = write_radarnet_inputs(tmp, np.random.default_rng(SEED + 30))
+    train_radarnet_canonical(device, record, fn, manifests, tmp)
+    torch.cuda.empty_cache()
+    train_radarnet_wide(device, record, manifests)
+    torch.cuda.empty_cache()
+    train_radarnet_fused(device, record, manifests)
+    torch.cuda.empty_cache()
+    readings = [train_radarnet_card_vs_cpu(device, seed) for seed in RN_SEEDS]
+    span = lambda values: '{:.3g}-{:.3g}'.format(min(values), max(values))
+    log('train_radarnet: card vs CPU over seeds {}: float32 gradients from '
+        'float64, of the model\'s largest: card {}, CPU {} (tolerance {:g}); '
+        'of each tensor\'s own max-abs: card {}, CPU {}; card float64 vs '
+        'CPU float64 at most {:.3g} (tolerance {:g})'.format(
+            list(RN_SEEDS), span([r['card_err'] for r in readings]),
+            span([r['cpu_err'] for r in readings]), RN_GRAD_TOL,
+            span([r['card_tensor_err'][0] for r in readings]),
+            span([r['cpu_tensor_err'][0] for r in readings]),
+            max(r['float64_err'] for r in readings), RN_FLOAT64_TOL))
     torch.cuda.empty_cache()
 
 
@@ -2615,6 +3341,9 @@ def main():
     torch.cuda.empty_cache()
     with Phase('train'), tempfile.TemporaryDirectory() as tmp:
         phase_train(device, rn, tmp)
+    torch.cuda.empty_cache()
+    with Phase('train_radarnet'), tempfile.TemporaryDirectory() as tmp:
+        phase_train_radarnet(device, record, fn, tmp)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

@@ -17,12 +17,11 @@ __version__ = '0.1.0'
 
 def default_device(device=None) -> torch.device:
     """Resolve an entry point's device: ``cuda`` by default, and the CPU
-    only when asked for. Without a card and without ``device='cpu'`` this
-    raises instead of running on the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    only when asked for. Without a card, ``None`` or a CUDA device raises
+    instead of running on the CPU."""
+    device = torch.device('cuda' if device is None else device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(
             'rcfd_tpu_torch runs on a CUDA device and none is available; '
             "pass device='cpu' to run on the CPU")
-    return torch.device('cuda')
+    return device

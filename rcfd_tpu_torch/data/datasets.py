@@ -1,8 +1,9 @@
 """Datasets on the host (counterpart of rcfd_tpu/data/datasets.py), as the
-integer transport carries them: RadarNet's inference frames (a camera
-frame, its radar points padded to a static count with a validity mask, the
-optional ground truth), and FusionNet's training quintuples and inference
-frames.
+integer transport carries them: RadarNet's training samples (an edge-padded
+frame's bottom rows, K sampled radar points, their boxes and ground-truth
+crops) and inference frames (a camera frame, its radar points padded to a
+static count with a validity mask, the optional ground truth), and
+FusionNet's training quintuples and inference frames.
 
 All randomness is the caller's numpy Generator: the loader keys one by
 (seed, epoch, position) as the JAX package does, so the port's batches
@@ -96,6 +97,114 @@ def max_points_in_files(radar_paths) -> int:
         n = shape[0] if len(shape) > 1 else 1
         best = max(best, int(n))
     return best
+
+
+class RadarNetTrainingDataset:
+    """Per sample: the image edge-padded by ``patch_w // 2`` columns each
+    side and cut to its bottom ``patch_h`` rows, K sampled radar points
+    with x shifted by the pad, their full-height boxes and ground-truth
+    crops (reference src/datasets.py:112-271, rcfd_tpu/data/datasets.py
+    ``RadarNetTrainingDataset``; ``get`` draws from ``rng`` what the JAX
+    package's ``get`` draws, in the same order).
+
+    ``get`` returns (image (ph, W + 2 pad, 3), points (K, 3) float32,
+    boxes (K, 4) float32 as (x1, 0, x1 + patch_w, ph), ground truth
+    (K, ph, patch_w, 1)); under integer transport (the default) the image
+    is uint8 and the crops the raw uint16 PNG integers, else both float32.
+    JPEG frames decode on ``device`` (rcfd_tpu_torch/data/io.py)."""
+
+    def __init__(self, image_paths, radar_paths, ground_truth_paths,
+                 patch_size: Tuple[int, int], total_points_sampled: int,
+                 sample_probability_of_lidar: float, transport: bool = True,
+                 device=None):
+        self.n_sample = len(image_paths)
+        assert self.n_sample == len(ground_truth_paths)
+        assert self.n_sample == len(radar_paths)
+        self.image_paths = image_paths
+        self.radar_paths = radar_paths
+        self.ground_truth_paths = ground_truth_paths
+        self.patch_size = tuple(patch_size)
+        self.pad_size_x = patch_size[1] // 2
+        self.total_points_sampled = total_points_sampled
+        self.sample_probability_of_lidar = sample_probability_of_lidar
+        self.transport = transport
+        self.device = device
+
+    def __len__(self):
+        return self.n_sample
+
+    def get(self, index: int, rng: np.random.Generator):
+        if self.transport:
+            image = data_utils.load_image_u8(self.image_paths[index],
+                                             device=self.device)
+            ground_truth = data_utils.load_depth_u16(
+                self.ground_truth_paths[index], data_format='HWC')
+        else:
+            image = data_utils.load_image(self.image_paths[index],
+                                          device=self.device)
+            ground_truth = data_utils.load_depth(
+                self.ground_truth_paths[index], data_format='HWC')
+        return self._assemble(index, rng, image, ground_truth)
+
+    def _sample_points(self, index: int, rng: np.random.Generator,
+                       gt2d) -> np.ndarray:
+        """K radar points of the frame (a set of at most K points repeated
+        100 times first), replaced with probability
+        ``sample_probability_of_lidar`` by K fake points at ground-truth
+        pixels beyond 1 m: x plus N(0, 25) noise, clipped to [0, W] and
+        truncated, z plus U(0, 0.4), y the radar point's on purpose
+        (reference src/datasets.py:216)."""
+        k = self.total_points_sampled
+        radar_points = np.load(self.radar_paths[index])
+        if radar_points.ndim == 1:
+            radar_points = np.expand_dims(radar_points, axis=0)
+        if radar_points.shape[0] <= k:
+            radar_points = np.repeat(radar_points, 100, axis=0)
+        radar_points = radar_points[rng.integers(radar_points.shape[0],
+                                                 size=k), :].astype(np.float32)
+        if rng.random() < self.sample_probability_of_lidar:
+            # under integer transport gt2d holds raw x256 integers: more
+            # than 1 m is more than 256, and meters are raw / 256 exactly
+            gt_is_raw = gt2d.dtype != np.float32
+            idx_y, idx_x = np.where(gt2d > (256 if gt_is_raw else 1))
+            if len(idx_y) >= k:
+                sel = rng.choice(len(idx_y), size=k, replace=False)
+                points_x, points_y = idx_x[sel], idx_y[sel]
+                points_z = gt2d[points_y, points_x]
+                if gt_is_raw:
+                    points_z = points_z.astype(np.float32) / np.float32(256.0)
+                noise_x = rng.normal(0, 25, k)
+                noise_z = rng.uniform(0.0, 0.4, k)
+                fake = np.copy(radar_points)
+                fake[:, 0] = np.clip(points_x + noise_x, 0, gt2d.shape[1])
+                fake[:, 2] = points_z + noise_z
+                fake[:, 0] = fake[:, 0].astype(int)
+                fake[:, 1] = fake[:, 1].astype(int)
+                radar_points = fake
+        return radar_points
+
+    def _assemble(self, index: int, rng: np.random.Generator, image,
+                  ground_truth):
+        pad = self.pad_size_x
+        ph = self.patch_size[0]
+        image = np.pad(image, ((0, 0), (pad, pad), (0, 0)), mode='edge')
+        radar_points = self._sample_points(index, rng, ground_truth[..., 0])
+        # x shifted by the pad; full-height boxes of the patch's width
+        radar_points[:, 0] = radar_points[:, 0] + pad
+        x1 = radar_points[:, 0] - pad
+        bboxes = np.stack([x1, np.zeros_like(x1), radar_points[:, 0] + pad,
+                           np.full_like(x1, ph)], axis=1).astype(np.float32)
+        ground_truth = np.pad(ground_truth, ((0, 0), (pad, pad), (0, 0)),
+                              mode='constant')
+        start_y = image.shape[0] - ph
+        crops = np.stack([
+            ground_truth[start_y:, int(x - pad):int(x + pad), :]
+            for x in radar_points[:, 0]])                  # (K, ph, pw, 1)
+        image = np.ascontiguousarray(image[start_y:])
+        if not self.transport:
+            image, crops = image.astype(np.float32), crops.astype(np.float32)
+        return (image, radar_points.astype(np.float32), bboxes,
+                np.ascontiguousarray(crops))
 
 
 class RadarNetInferenceDataset:

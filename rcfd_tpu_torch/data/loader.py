@@ -1,5 +1,6 @@
 """Threaded host loader and host-to-card prefetch (counterpart of
-rcfd_tpu/data/loader.py ``DataLoader`` and ``device_prefetch``).
+rcfd_tpu/data/loader.py ``DataLoader``, ``device_prefetch`` and
+``iter_device_batches``).
 
 The loader is a thread pool (the codec's zlib inflate and file reads
 release the GIL) behind a bounded queue; batches are stacked numpy arrays
@@ -67,48 +68,62 @@ class DataLoader:
 
     def __iter__(self) -> Iterator:
         batches = self.batches()[self.start_batch:]
-        out_q: 'queue.Queue' = queue.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
 
         def fetch_sample(pos, index):
             rng = np.random.default_rng((self.seed, self.epoch, int(pos)))
             return self.dataset.get(int(index), rng)
 
-        def producer():
-            try:
-                with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
-                    for start, idx in batches:
-                        if stop.is_set():
-                            return
-                        samples = list(ex.map(
-                            fetch_sample, range(start, start + len(idx)),
-                            idx))
-                        out_q.put(tuple(
-                            np.stack([s[i] for s in samples])
-                            for i in range(len(samples[0]))))
-                out_q.put(None)
-            except BaseException as e:  # surface worker errors
-                out_q.put(e)
+        def produce():
+            with ThreadPoolExecutor(max_workers=self.num_workers) as ex:
+                for start, idx in batches:
+                    samples = list(ex.map(
+                        fetch_sample, range(start, start + len(idx)), idx))
+                    yield tuple(np.stack([s[i] for s in samples])
+                                for i in range(len(samples[0])))
 
-        thread = threading.Thread(target=producer, daemon=True)
-        thread.start()
-        try:
-            while True:
-                item = out_q.get()
-                if item is None:
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
-        finally:
-            stop.set()
-            while thread.is_alive():  # let the producer see the stop
-                try:
-                    out_q.get(timeout=0.1)
-                except queue.Empty:
-                    pass
+        yield from background(produce, self.prefetch)
         self.epoch += 1
         self.start_batch = 0
+
+
+def background(produce, prefetch: int):
+    """Yield the items of the generator ``produce()``, which runs in a
+    thread, at most ``prefetch`` ahead of the consumer; an exception in
+    it is raised here. Leaving early stops it after its current item."""
+    out_q: 'queue.Queue' = queue.Queue(maxsize=max(1, prefetch))
+    stop = threading.Event()
+    end = object()
+
+    def producer():
+        items = produce()
+        try:
+            for item in items:
+                out_q.put(item)
+                if stop.is_set():
+                    return
+            out_q.put(end)
+        except BaseException as e:  # surface the producer's errors
+            out_q.put(e)
+        finally:
+            items.close()
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = out_q.get()
+            if item is end:
+                break
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+        while thread.is_alive():  # let the producer see the stop
+            try:
+                out_q.get(timeout=0.1)
+            except queue.Empty:
+                pass
 
 
 def device_prefetch(iterator, device, buffer_size: int = 2):
@@ -136,3 +151,38 @@ def device_prefetch(iterator, device, buffer_size: int = 2):
             yield pending.popleft()
     while pending:
         yield pending.popleft()
+
+
+def iter_device_batches(dataset, batch_size: int, device, fields=None,
+                        prefetch: int = 2):
+    """The bulk-inference feeder of validation: yields (idxs, the host
+    samples, the batch's tensors on ``device``) in order, while a thread
+    reads the next batches and copies them to the device (pinned,
+    non-blocking), ``prefetch`` ahead, so that the host's reads overlap the
+    consumer's device work. The tail batch is padded by repeating its last
+    sample, so that every batch has one shape; the consumer drops the
+    padded outputs (``len(idxs)`` is the real count). ``fields`` picks the
+    sample positions that are stacked and sent (all by default); the
+    samples are yielded as the dataset made them, in the integer
+    transport. The JAX package's optional s2d packing is a TPU layout
+    rewrite and is not ported."""
+    device = torch.device(device)
+    n_sample = len(dataset)
+    bsz = max(1, min(batch_size, n_sample))
+
+    def put(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == 'cuda':
+            t = t.pin_memory().to(device, non_blocking=True)
+        return t
+
+    def produce():
+        for start in range(0, n_sample, bsz):
+            idxs = list(range(start, min(start + bsz, n_sample)))
+            samples = [dataset.get(i) for i in idxs]
+            padded = samples + [samples[-1]] * (bsz - len(samples))
+            use = fields if fields is not None else range(len(padded[0]))
+            yield idxs, samples, tuple(
+                put(np.stack([s[j] for s in padded])) for j in use)
+
+    return background(produce, prefetch)

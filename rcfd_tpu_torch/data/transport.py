@@ -36,7 +36,11 @@ def encode_png_int(raw) -> np.ndarray:
 
 
 def decode(x):
-    """Decode one transported tensor to float32."""
+    """Decode a transported tensor to float32, or each tensor of a tuple
+    or list of them (a training batch: RadarNet's uint8 image, float32
+    points and boxes and uint16 ground-truth crops)."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(decode(t) for t in x)
     if x.dtype == torch.uint8:
         return x.to(torch.float32)
     if x.dtype in (torch.uint16, torch.uint32):

@@ -18,18 +18,12 @@ more than one card (``n_data_parallel`` > 1), bf16 training
 (RCFD_TRAIN_DTYPE=bfloat16), ``device='tpu'``. The TensorBoard image
 panels of the JAX training loop are not written; scalars are.
 
-One deliberate difference from the JAX training loop: a run restored at step s
-skips the s steps it has done (the epochs before step s, and the first
-batches of the epoch it stops in) and ends at the schedule's last step, as
-a resumed run should; the JAX loop runs the whole schedule again from
-step s. Since each batch is a function of (seed, epoch, position) and each
-step's augmentation of (seed, step), the resumed run feeds and draws what
-an uninterrupted run would.
+A run restored at step s resumes at step s + 1 (rcfd_tpu_torch/training.py
+says how this differs from the JAX training loop).
 """
 
 from __future__ import annotations
 
-import contextlib
 import os
 import time
 from typing import Optional
@@ -46,38 +40,13 @@ from .data.transforms import Transforms
 from .models.fusionnet import FusionNetModel
 from .nn import functional as NF
 from .nn.layers import init_parameters
+from .training import (OptimizerStep, epochs, eval_mode, make_optimizer,
+                       numerics_line, refuse_unported, step_seed,
+                       step_timing, timed, training_numerics)
 from .utils import eval_utils
 from .utils.checkpoint import find_latest_checkpoint
 from .utils.log_utils import log
 from .utils.summary import SummaryWriter
-
-
-@contextlib.contextmanager
-def training_numerics():
-    """The numerics of training, restored on exit: float32 throughout (TF32
-    off for convolutions and matmuls, as in serving) and cuDNN algorithms
-    chosen by timing at the first step of each shape. Unlike serving,
-    cuDNN may choose nondeterministic backward algorithms (atomics), which
-    are faster; two runs then differ in the last bits of the gradients."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
-             matmul.allow_tf32)
-    cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32 = True, False, False
-    matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
-         matmul.allow_tf32) = saved
-
-
-def numerics_line() -> str:
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    return ('Numerics: float32, TF32 {} for convolutions and {} for matmuls; '
-            'cuDNN benchmark {}, deterministic {}'.format(
-                'on' if cudnn.allow_tf32 else 'off',
-                'on' if matmul.allow_tf32 else 'off', cudnn.benchmark,
-                cudnn.deterministic))
 
 
 def build_model(input_channels_image, input_channels_depth, encoder_type,
@@ -102,7 +71,7 @@ def build_model(input_channels_image, input_channels_depth, encoder_type,
         max_predict_depth=max_predict_depth, device=device, trainable=True)
 
 
-class TrainStep:
+class TrainStep(OptimizerStep):
     """One optimizer step of FusionNet on a batch (rcfd_tpu/fusionnet_main.py
     ``_make_train_step``). ``batch`` is the loader's (image, depth,
     response, ground_truth, lidar_map) on the model's device, NHWC, in the
@@ -167,38 +136,6 @@ class TrainStep:
             validity_map_loss_smoothness=validity,
             w_lidar_loss=self.w_lidar_loss)
 
-    def backward(self, batch, draws):
-        """The loss and its gradients in the parameters' ``.grad``; returns
-        loss_info with detached values."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, loss_info = self.loss(batch, draws)
-        loss.backward()
-        return {k: v.detach() if torch.is_tensor(v) else torch.tensor(v)
-                for k, v in loss_info.items()}
-
-    def __call__(self, batch, draws, learning_rate: float):
-        loss_info = self.backward(batch, draws)
-        for group in self.optimizer.param_groups:
-            group['lr'] = learning_rate
-        self.optimizer.step()
-        return loss_info
-
-
-def step_seed(seed: int, step: int) -> int:
-    """The seed of train step ``step``'s augmentation draws: a function of
-    (seed, step) alone, so that a restored run draws what an uninterrupted
-    run draws at the same step."""
-    return int(np.random.SeedSequence((seed, step)).generate_state(
-        1, np.uint64)[0]) >> 1
-
-
-def make_optimizer(model, learning_rate: float, weight_decay: float):
-    """Adam as the reference configures it (src/fusionnet_main.py:307-312):
-    betas (0.9, 0.999), eps 1e-8, L2 weight decay."""
-    return torch.optim.Adam(model.parameters(), lr=learning_rate,
-                            betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=weight_decay)
-
 
 def make_forward_fn(model: FusionNetModel, transforms: Transforms):
     """The inference forward of full-resolution frames: (image, depth,
@@ -213,12 +150,8 @@ def make_forward_fn(model: FusionNetModel, transforms: Transforms):
         image = transforms.transform(image).permute(0, 3, 1, 2).contiguous()
         input_depth = torch.cat([depth, response], -1).permute(
             0, 3, 1, 2).contiguous()
-        was_training = model.training
-        model.eval()
-        try:
+        with eval_mode(model):
             return model(image, input_depth)[:, 0].float()
-        finally:
-            model.train(was_training)
 
     return forward
 
@@ -280,22 +213,6 @@ def validate(forward_fn, dataset, step, best_results, min_evaluate_depth,
     return best_results
 
 
-def _refuse_unported(device, n_data_parallel):
-    if str(device).lower() == 'tpu':
-        raise ValueError("device 'tpu': rcfd_tpu_torch trains on a CUDA "
-                         "device ('cuda') or the CPU ('cpu')")
-    if n_data_parallel is not None and n_data_parallel > 1:
-        raise ValueError(
-            'n_data_parallel={}: rcfd_tpu_torch trains on one card; data '
-            'parallelism across cards is not ported yet'.format(
-                n_data_parallel))
-    if os.environ.get('RCFD_TRAIN_DTYPE', '') not in ('', 'float32'):
-        raise ValueError(
-            'RCFD_TRAIN_DTYPE={}: rcfd_tpu_torch trains in float32 only; '
-            'bf16 training is not ported yet'.format(
-                os.environ['RCFD_TRAIN_DTYPE']))
-
-
 def train(train_image_path, train_depth_path, train_response_path,
           train_ground_truth_path, train_lidar_map_path, val_image_path,
           val_depth_path, val_response_path, val_ground_truth_path,
@@ -339,7 +256,7 @@ def train(train_image_path, train_depth_path, train_response_path,
     ``timings``, a list, receives a dict per step: the step's milliseconds
     (the card synchronized after it, which it then is every step) and the
     host's wait for its batch. Returns the best validation results."""
-    _refuse_unported(device, n_data_parallel)
+    refuse_unported(device, n_data_parallel)
     device = default_device(device)
     os.makedirs(checkpoint_dirpath, exist_ok=True)
     checkpoint_path = os.path.join(checkpoint_dirpath, 'model-{}.pth')
@@ -418,10 +335,6 @@ def train(train_image_path, train_depth_path, train_response_path,
         encoder_type=encoder_type, decoder_type=decoder_type,
         fusion_type=fusion_type, loss_func=loss_func, n_devices=1)
 
-    learning_schedule_pos = 0
-    augmentation_schedule_pos = 0
-    learning_rate = learning_rates[0]
-    augmentation_probability = augmentation_probabilities[0]
     generator = torch.Generator(device=device)
     done = train_step  # steps restored from the checkpoint
     time_start = time.time()
@@ -436,38 +349,20 @@ def train(train_image_path, train_depth_path, train_response_path,
     with training_numerics():
         log(numerics_line())
         log('Begin training...', log_path)
-        for epoch in range(1, learning_schedule[-1] + 1):
-            if epoch > learning_schedule[learning_schedule_pos]:
-                learning_schedule_pos += 1
-                learning_rate = learning_rates[learning_schedule_pos]
-            if -1 not in augmentation_schedule and \
-                    epoch > augmentation_schedule[augmentation_schedule_pos]:
-                augmentation_schedule_pos += 1
-                augmentation_probability = \
-                    augmentation_probabilities[augmentation_schedule_pos]
-            skip = min(done - (epoch - 1) * steps_per_epoch, steps_per_epoch)
-            if skip >= steps_per_epoch:
-                continue  # an epoch the restored run has done
-            train_loader.set_epoch(epoch, start_batch=max(skip, 0))
-            batches = device_prefetch(train_loader, device)
-            while True:
-                t0 = time.perf_counter()
-                batch = next(batches, None)
-                wait_ms = (time.perf_counter() - t0) * 1e3
-                if batch is None:
-                    break
+        for epoch, start, learning_rate, augmentation_probability in epochs(
+                learning_rates, learning_schedule, augmentation_probabilities,
+                augmentation_schedule, done, steps_per_epoch):
+            train_loader.set_epoch(epoch, start_batch=start)
+            for batch, wait_ms, t0 in timed(device_prefetch(train_loader,
+                                                             device)):
                 train_step += 1
                 generator.manual_seed(step_seed(seed, train_step))
                 draws = train_transforms.draws(generator, batch_size,
                                                augmentation_probability)
                 loss_info = step_fn(batch, draws, learning_rate)
                 if timings is not None:
-                    if device.type == 'cuda':
-                        torch.cuda.synchronize(device)
-                    timings.append(dict(
-                        step=train_step, wait_ms=wait_ms,
-                        step_ms=(time.perf_counter() - t0) * 1e3 - wait_ms,
-                        loss=float(loss_info['loss'])))
+                    timings.append(step_timing(device, train_step, t0,
+                                               wait_ms, loss_info['loss']))
                 if train_step % n_step_per_summary == 0:
                     for name, value in loss_info.items():
                         train_summary_writer.add_scalar(

@@ -1,30 +1,37 @@
 """RadarNet (counterpart of rcfd_tpu/models/radarnet.py): per-radar-point
-correspondence network, inference."""
+correspondence network; inference, and training with ``trainable=True``."""
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .. import default_device
 from ..nn.perf import PerfConfig
-from ..utils.checkpoint import restore_module
+from ..utils.checkpoint import restore_module, save_checkpoint
+from . import losses
 from .networks import MultiScaleDecoder, RadarNetV1Encoder
 
-# the reference .pth keys of the two halves (src/radarnet_model.py:225-233)
+# the reference .pth keys of the two halves and of the optimizer
+# (src/radarnet_model.py:225-233)
 PTH_KEYS = {'encoder': 'radarnet_encoder_state_dict',
             'decoder': 'radarnet_decoder_state_dict'}
+OPTIMIZER_KEY = 'radarnet_optimizer_state_dict'
 
 
 class RadarNetModel(nn.Module):
     """ResNet image encoder + per-point ROI pooling + MLP point encoder +
     multiscale decoder (src/radarnet_model.py:36-124).
 
-    Built on ``device`` (``cuda`` unless ``device='cpu'`` is given) and put
-    in eval mode; weights come from ``init_parameters`` or
+    Built on ``device`` (``cuda`` unless ``device='cpu'`` is given); weights
+    come from ``init_parameters`` or
     ``load_state_dict(state_dict_from_jax(...))`` or ``restore_checkpoint``.
+    By default the model serves: every parameter is frozen and it is in
+    eval mode. ``trainable=True`` leaves the parameters trainable and the
+    model in training mode (batch norm by the batch's statistics; the
+    deferred skip pools off, as in the JAX package).
     ``perf`` (a PerfConfig) turns on the deferred skip pools, chooses the
     serving pipeline's scatter and sets the batched path's decode chunks;
     it adds no parameter.
@@ -37,7 +44,7 @@ class RadarNetModel(nn.Module):
                  n_filters_decoder: List[int],
                  weight_initializer: str = 'kaiming_uniform',
                  activation_func: str = 'leaky_relu', device=None,
-                 perf: PerfConfig = None):
+                 perf: PerfConfig = None, trainable: bool = False):
         super().__init__()
         device = default_device(device)
         self.perf = perf if perf is not None else PerfConfig()
@@ -64,9 +71,12 @@ class RadarNetModel(nn.Module):
             latent_channels, 1, 1, n_filters_decoder, n_skips,
             weight_initializer, activation_func, 'linear',
             use_batch_norm='batch_norm' in decoder_type, deconv_type='up')
-        # inference only in this slice: no autograd graph is recorded
-        self.requires_grad_(False)
-        self.to(device).eval()
+        if trainable:
+            self.to(device).train()
+        else:
+            # serving: no autograd graph is recorded
+            self.requires_grad_(False)
+            self.to(device).eval()
 
     def forward(self, image, points, x1, box_height=None,
                 return_logits: bool = True):
@@ -129,10 +139,38 @@ class RadarNetModel(nn.Module):
                                    n_chunks, box_height, return_logits)
         return out.permute(0, 1, 3, 4, 2)
 
-    def restore_checkpoint(self, path: str, device=None) -> int:
+    def compute_loss(self, logits, ground_truth, validity_map,
+                     w_positive_class: float = 1.0):
+        """Masked positive-weighted BCE normalized by the validity count
+        (src/radarnet_model.py:126-167, rcfd_tpu/models/radarnet.py
+        ``compute_loss``): logits, labels and validity of one shape.
+        Returns (loss, {'loss': loss})."""
+        loss = losses.binary_cross_entropy_with_logits(
+            logits, ground_truth, pos_weight=w_positive_class)
+        loss = (validity_map * loss).sum() / validity_map.sum()
+        return loss, {'loss': loss}
+
+    def n_parameters(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def save_checkpoint(self, path: str, step: int,
+                        optimizer_state_dict: Optional[dict] = None):
+        """Write the reference ``.pth`` (``train_step``,
+        ``radarnet_optimizer_state_dict``, ``radarnet_encoder_state_dict``,
+        ``radarnet_decoder_state_dict``) or, for a path ending ``.npz``,
+        the JAX package's native format; either restores in the JAX
+        package's ``RadarNetModel.restore_checkpoint``."""
+        save_checkpoint(self, path, PTH_KEYS, step, optimizer_state_dict,
+                        model_name='radarnet', optimizer_key=OPTIMIZER_KEY)
+
+    def restore_checkpoint(self, path: str, device=None,
+                           return_optimizer_state: bool = False):
         """Load the weights of a reference ``.pth`` (keys
         ``radarnet_encoder_state_dict``, ``radarnet_decoder_state_dict``)
         or a JAX ``.npz`` checkpoint with ``load_state_dict(strict=True)``,
         and move the model to ``device`` (``cuda`` unless ``device='cpu'``
-        is given). Returns the train step."""
-        return restore_module(self, path, PTH_KEYS, device)
+        is given). Returns the train step, or with ``return_optimizer_state``
+        (train step, the file's optimizer state_dict or None: None also for
+        the empty one the JAX package's training writes)."""
+        return restore_module(self, path, PTH_KEYS, device,
+                              return_optimizer_state, OPTIMIZER_KEY)

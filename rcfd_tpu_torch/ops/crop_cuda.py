@@ -14,6 +14,14 @@ there, it runs ``batch_column_crop_plain``. ``batch_column_crop.launches``
 counts the float32 instance's launches, ``batch_column_crop.launches_bf16``
 the bf16 instance's. The bf16 instance stages row tiles in shared memory
 (``fused_skip.row_tile``, which refuses a row too wide for it).
+
+The crop is differentiable on both routes. On the CPU autograd
+differentiates the plain version. On the card, where the rows need a
+gradient, the launch runs inside ``ColumnCrop``, a torch.autograd.Function
+whose backward is ``batch_column_crop_backward_plain``: each window's
+gradient added into its rows' columns, those past W dropped. That is the
+gradient of the JAX package's XLA formulation (rcfd_tpu/ops/roi_pool.py:
+234-256), which has no backward kernel to port.
 """
 
 from __future__ import annotations
@@ -51,6 +59,47 @@ def batch_column_crop_plain(rows, starts, win: int):
     return gather_windows(F.pad(rows, (0, win)), starts, win)
 
 
+def batch_column_crop_backward_plain(grad_windows, starts, rows_shape,
+                                     win: int):
+    """The gradient of the crop in the rows: ``grad_windows`` (N * K, C, ph,
+    win), image-major, added into zeros of ``rows_shape`` (N, C, ph, W) at
+    columns ``s_k .. s_k + win - 1`` of each window's image (starts clipped
+    to [0, W] as the forward clips them); the columns past W, the forward's
+    zero padding, are dropped. One ``index_add_`` over the images' padded
+    rows laid side by side, column ``n * (W + win) + s_k + j``."""
+    n, c, ph, w = rows_shape
+    k = starts.shape[1]
+    span = w + win
+    device = grad_windows.device
+    cols = (torch.clamp(starts.long(), 0, w)[:, :, None] +
+            torch.arange(win, device=device) +
+            span * torch.arange(n, device=device)[:, None, None])
+    # (N * K, C, ph, win) -> (C, ph, N * K * win), the order of cols
+    g = grad_windows.reshape(n, k, c, ph, win).permute(2, 3, 0, 1, 4)
+    out = grad_windows.new_zeros((c, ph, n * span))
+    out.index_add_(2, cols.reshape(-1), g.reshape(c, ph, n * k * win))
+    return out.view(c, ph, n, span).permute(2, 0, 1, 3)[..., :w]
+
+
+class ColumnCrop(torch.autograd.Function):
+    """The crop on the card with its gradient in the rows (none in the
+    starts): the kernel's launch forward, ``batch_column_crop_backward_plain``
+    backward. It saves the starts and the rows' shape, never the rows."""
+
+    @staticmethod
+    def forward(ctx, rows, starts, win):
+        ctx.save_for_backward(starts)
+        ctx.rows_shape = tuple(rows.shape)
+        ctx.win = win
+        return _launch(rows, starts, win)
+
+    @staticmethod
+    def backward(ctx, grad_windows):
+        starts, = ctx.saved_tensors
+        return (batch_column_crop_backward_plain(
+            grad_windows, starts, ctx.rows_shape, ctx.win), None, None)
+
+
 def batch_column_crop(rows, starts, win: int):
     """Crop K contiguous column windows from each image's row-pooled map.
 
@@ -63,7 +112,10 @@ def batch_column_crop(rows, starts, win: int):
         device.
     Returns:
         (N * K, C, ph, win) windows, image-major:
-        ``out[n * K + k] == rows[n, :, :, s_k : s_k + win]``, zero past W.
+        ``out[n * K + k] == rows[n, :, :, s_k : s_k + win]``, zero past W;
+        with a gradient in ``rows`` where they need one and autograd is on
+        (on the card through ``ColumnCrop``; a crop that needs none records
+        no graph).
     """
     n, c, ph, w = rows.shape
     if starts.dim() != 2 or starts.shape[0] != n or win < 1:
@@ -97,6 +149,17 @@ def batch_column_crop(rows, starts, win: int):
 
     if rows.dtype == torch.bfloat16:
         row_tile(c * ph, w + win, n)  # raises if a row does not fit
+    if rows.requires_grad and torch.is_grad_enabled():
+        return ColumnCrop.apply(rows, starts, win)
+    return _launch(rows, starts, win)
+
+
+def _launch(rows, starts, win: int):
+    """One launch of the kernel's instance for the rows' dtype on checked
+    inputs, counted."""
+    n, c, ph, w = rows.shape
+    device = rows.device
+    nk = n * starts.shape[1]
     out = torch.empty((nk, c, ph, win), dtype=rows.dtype, device=device)
     fn = _kernel(rows.dtype)
     with torch.cuda.device(device):

@@ -146,7 +146,12 @@ def roi_pool_column(feat, x1, box_width: int, box_y1: int, box_y2: int,
 
     shifts, win = variable_bin_window(box_width, spatial_scale, pooled_w)
 
-    bin_w = roi_width.float() / pooled_w                         # (N, K)
+    # a true division, as torchvision's and the JAX package's: divided by a
+    # Python number, a CUDA tensor is multiplied by its reciprocal, which
+    # can put a bin's end one column further (14 / 12 at the 1/8 pool of a
+    # 100-wide patch)
+    bin_w = roi_width.float() / torch.full_like(roi_width, pooled_w,
+                                                dtype=torch.float32)
     j = torch.arange(pooled_w, dtype=torch.float32, device=feat.device)
     wstart = torch.floor(j * bin_w[..., None])                   # (N, K, pw)
     wend = torch.ceil((j + 1.0) * bin_w[..., None])

@@ -85,6 +85,29 @@ def serving_numerics():
          matmul.allow_tf32) = saved
 
 
+def radarnet_crops(radarnet, transforms, images, points, image_height: int,
+                   n_chunks: int = 1, compute_dtype=torch.float32):
+    """Decode, normalize, edge-pad and run RadarNet, in its mode, on B
+    frames: images (B, H, W, 3) in [0, 255] (uint8 under integer
+    transport), points (B, K, 3) as (x, y, z), tensors on the model's
+    device. RadarNet decodes the B*K patches in ``n_chunks`` chunks of
+    K / n_chunks points of every frame (at once for one). Returns
+    (image_t (B, 3, H, W), crops (B, K, ph, pw), xs (B, K) padded x, zs
+    (B, K)): the image and the crops in ``compute_dtype``, xs and zs
+    float32."""
+    pad = radarnet.input_patch_size_image[1] // 2
+    image_t = transforms.transform(transport.decode(images)).permute(
+        0, 3, 1, 2).to(compute_dtype)
+    image_pad = F.pad(image_t, (pad, pad, 0, 0), mode='replicate')
+    points = points.float()
+    xs = points[..., 0] + pad
+    points_shifted = torch.stack([xs, points[..., 1], points[..., 2]], -1)
+    responses = radarnet.forward_chunked(
+        image_pad, points_shifted, xs - pad, n_chunks,
+        box_height=image_height, return_logits=False)
+    return image_t, responses.squeeze(2), xs, points[..., 2].contiguous()
+
+
 class TwoStagePipeline:
     """Camera frames + radar points -> dense depth, on ``device`` (``cuda``
     unless ``device='cpu'`` is given). The two models carry their weights;
@@ -154,23 +177,11 @@ class TwoStagePipeline:
 
     def radarnet_stage_batched(self, images, points, n_chunks: int = 1):
         """``radarnet_stage`` over B frames: images (B, H, W, 3), points
-        (B, K, 3). RadarNet decodes the B*K patches in ``n_chunks`` chunks
-        of K / n_chunks points of every frame (at once for one). Returns
-        (image_t (B, 3, H, W), crops (B, K, ph, pw), xs (B, K), zs (B, K)):
-        the image and the crops in the compute dtype, xs and zs float32."""
-        pad = self.radarnet.input_patch_size_image[1] // 2
-        images = transport.decode(self._tensor(images))
-        image_t = self.transforms.transform(images).permute(0, 3, 1, 2).to(
-            self.compute_dtype)
-        image_pad = F.pad(image_t, (pad, pad, 0, 0), mode='replicate')
-        points = self._tensor(points).float()
-        xs = points[..., 0] + pad
-        points_shifted = torch.stack([xs, points[..., 1], points[..., 2]],
-                                     -1)
-        responses = self.radarnet.forward_chunked(
-            image_pad, points_shifted, xs - pad, n_chunks,
-            box_height=self.image_height, return_logits=False)
-        return image_t, responses.squeeze(2), xs, points[..., 2].contiguous()
+        (B, K, 3); ``radarnet_crops`` in the compute dtype."""
+        return radarnet_crops(self.radarnet, self.transforms,
+                              self._tensor(images), self._tensor(points),
+                              self.image_height, n_chunks,
+                              self.compute_dtype)
 
     def bridge(self, depth_map, response_map):
         """The codec bridge: optional PNG quantization, then FusionNet's

@@ -42,7 +42,7 @@ from . import native
 from .data import io as data_utils
 from .data.datasets import RadarNetInferenceDataset
 from .data.transport import decode_np
-from .nn.perf import PerfConfig
+from .nn.perf import perf_from_env
 from .pipeline import TwoStagePipeline
 from .utils import eval_utils
 from .utils.log_utils import log
@@ -95,34 +95,6 @@ parser.add_argument('--data_parallel', action='store_true',
 METRICS = ['mae', 'rmse', 'imae', 'irmse']
 STREAMS = ['output_depth_fusion', 'output_depth_radar',
            'output_response_radar']
-
-
-def _flag(environ, name):
-    """An RCFD_* gate as the JAX package reads it (rcfd_tpu/nn/perf.py):
-    unset or empty is None; 0/false/off/no and 1/true/on/yes (any case);
-    anything else raises."""
-    v = environ.get(name)
-    if v in (None, ''):
-        return None
-    low = v.strip().lower()
-    if low in ('0', 'false', 'off', 'no'):
-        return False
-    if low in ('1', 'true', 'on', 'yes'):
-        return True
-    raise ValueError('{}={!r}: expected one of 0/false/off/no or '
-                     '1/true/on/yes'.format(name, v))
-
-
-def perf_from_env(environ=None) -> PerfConfig:
-    """RadarNet's PerfConfig from RCFD_PALLAS_SCATTER, RCFD_FUSED_POOL2,
-    RCFD_FUSED_POOL4 and RCFD_DECODE_CHUNKS."""
-    environ = os.environ if environ is None else environ
-    chunks = environ.get('RCFD_DECODE_CHUNKS')
-    return PerfConfig(
-        pallas_scatter=_flag(environ, 'RCFD_PALLAS_SCATTER'),
-        fused_pool2=_flag(environ, 'RCFD_FUSED_POOL2') or False,
-        fused_pool4=_flag(environ, 'RCFD_FUSED_POOL4') or False,
-        decode_chunks=int(chunks) if chunks else None)
 
 
 def main(argv=None, device=None):

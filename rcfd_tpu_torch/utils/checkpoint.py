@@ -99,9 +99,11 @@ def load_state_dict_file(path: str, pth_keys: Mapping[str, str]
     return load_checkpoint_file(path, pth_keys)[:2]
 
 
-def load_checkpoint_file(path: str, pth_keys: Mapping[str, str]):
+def load_checkpoint_file(path: str, pth_keys: Mapping[str, str],
+                         optimizer_key: str = 'optimizer_state_dict'):
     """A model's state_dict (on the CPU), train step and optimizer
-    state_dict (None if the file has none) from a checkpoint file.
+    state_dict (None if the file has none or an empty one) from a
+    checkpoint file.
 
     ``.npz``: the JAX package's native format (``params/<key>`` and
     ``state/<key>`` arrays in JAX layout, and ``__manifest__``, a JSON
@@ -110,7 +112,8 @@ def load_checkpoint_file(path: str, pth_keys: Mapping[str, str]):
     and JAX and are refused. Any other path is a reference ``.pth``, read
     with ``torch.load(weights_only=True)``; ``pth_keys`` maps each
     submodule of the model (``'encoder'``, ``'decoder'``) to the key of the
-    checkpoint that holds its state_dict.
+    checkpoint that holds its state_dict, and ``optimizer_key`` is the key
+    of the optimizer's.
     """
     path = str(path)
     if path.rstrip('/').endswith('.orbax'):
@@ -138,7 +141,7 @@ def load_checkpoint_file(path: str, pth_keys: Mapping[str, str]):
         for name, value in _from_pth(checkpoint[key]).items():
             state_dict['{}.{}'.format(module, name)] = value
     return (state_dict, int(checkpoint.get('train_step', 0)),
-            checkpoint.get('optimizer_state_dict') or None)
+            checkpoint.get(optimizer_key) or None)
 
 
 def _file_order(module):
@@ -180,14 +183,17 @@ def optimizer_state_from_file(module, state_dict: dict) -> dict:
 
 
 def restore_module(module, path: str, pth_keys: Mapping[str, str],
-                   device=None, return_optimizer_state: bool = False):
-    """Load ``load_checkpoint_file(path, pth_keys)`` into ``module`` with
+                   device=None, return_optimizer_state: bool = False,
+                   optimizer_key: str = 'optimizer_state_dict'):
+    """Load ``load_checkpoint_file(path, pth_keys, optimizer_key)`` into
+    ``module`` with
     ``load_state_dict(strict=True)`` and move it to ``device`` (``cuda``
     unless ``device='cpu'`` is given). Returns the train step, or with
     ``return_optimizer_state`` (train step, optimizer state_dict or
     None)."""
     device = default_device(device)
-    state_dict, step, optimizer_state = load_checkpoint_file(path, pth_keys)
+    state_dict, step, optimizer_state = load_checkpoint_file(
+        path, pth_keys, optimizer_key)
     module.load_state_dict(state_dict, strict=True)
     module.to(device)
     if not return_optimizer_state:
@@ -211,14 +217,15 @@ def _to_jax_layout(key: str, arr: np.ndarray) -> np.ndarray:
 
 def save_checkpoint(module, path: str, pth_keys: Mapping[str, str],
                     step: int, optimizer_state_dict: Optional[dict] = None,
-                    model_name: str = ''):
+                    model_name: str = '',
+                    optimizer_key: str = 'optimizer_state_dict'):
     """Write ``module``'s weights as the JAX package's ``save_checkpoint``
     does: a path ending ``.npz`` gets the native format (``params/<key>``
     and ``state/<key>`` in JAX layout, ``__manifest__`` with the train step
     and ``model_name``; no optimizer state), any other path the reference
-    ``.pth``: ``train_step``, ``optimizer_state_dict`` (the
-    torch.optim.Adam state_dict of ``module.parameters()``, written in the
-    file's order by ``optimizer_state_to_file``, or {}) and the
+    ``.pth``: ``train_step``, the optimizer's state under ``optimizer_key``
+    (the torch.optim.Adam state_dict of ``module.parameters()``, written in
+    the file's order by ``optimizer_state_to_file``, or {}) and the
     submodules' state_dicts under ``pth_keys``. Tensors are written from
     the CPU."""
     path = str(path)
@@ -256,7 +263,7 @@ def save_checkpoint(module, path: str, pth_keys: Mapping[str, str],
         optimizer_state_dict = optimizer_state_to_file(module,
                                                        optimizer_state_dict)
     checkpoint = {'train_step': int(step),
-                  'optimizer_state_dict': cpu(optimizer_state_dict or {})}
+                  optimizer_key: cpu(optimizer_state_dict or {})}
     for part, key in pth_keys.items():
         checkpoint[key] = cpu(getattr(module, part).state_dict())
     torch.save(checkpoint, path)

@@ -815,3 +815,76 @@ def test_train_step_on_card_matches_cpu(cuda_device, rng):
     for n, b in bufs_c.items():
         assert torch.allclose(bufs_g[n].double(), b.double(), rtol=1e-5,
                               atol=1e-6), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scale', [8, 16, 32])
+def test_column_crop_gradient_on_card(cuda_device, rng, scale):
+    """K2's autograd Function on the card against autograd of the plain
+    crop, float32, at the training step's shapes of the 900x300 patch (6
+    frames of 4 windows at the 1/8, 1/16 and 1/32 pools, starts at 0 and at
+    W among them): the windows bit for bit, one launch, and the rows'
+    gradient within 1e-5 of its max-abs (index_add_ adds overlapping
+    windows with atomics, in another order); the node saves the starts
+    only."""
+    from rcfd_tpu_torch.ops.roi_pool import variable_bin_window
+
+    ph, pw = 900 // scale, 300 // scale
+    w_f = -(-1900 // scale)  # the map of a 900x1900 padded frame
+    _, win = variable_bin_window(300, 1.0 / scale, pw)
+    rows = torch.from_numpy(rng.standard_normal(
+        (6, 128, ph, w_f), dtype=np.float32)).to(cuda_device)
+    starts = rng.integers(0, w_f + 1, (6, 4)).astype(np.int32)
+    starts[0, :2] = [0, w_f]
+    starts = torch.from_numpy(starts).to(cuda_device)
+    rows_k = rows.clone().requires_grad_(True)
+    rows_p = rows.clone().requires_grad_(True)
+    before = cc.batch_column_crop.launches
+    out = cc.batch_column_crop(rows_k, starts, win)
+    assert cc.batch_column_crop.launches == before + 1
+    assert type(out.grad_fn).__name__ == 'ColumnCropBackward'
+    # the backward keeps the starts, never the rows
+    assert [t is starts for t in out.grad_fn.saved_tensors] == [True]
+    ref = cc.batch_column_crop_plain(rows_p, starts, win)
+    assert torch.equal(out, ref)
+    grad = torch.randn(out.shape, device=cuda_device,
+                       generator=torch.Generator(
+                           device=cuda_device).manual_seed(1))
+    g_k, = torch.autograd.grad(out, rows_k, grad)
+    g_p, = torch.autograd.grad(ref, rows_p, grad)
+    torch.cuda.synchronize()
+    assert cc.batch_column_crop.launches == before + 1  # none backward
+    assert float((g_k - g_p).abs().max()) <= 1e-5 * float(g_p.abs().max())
+
+
+@pytest.mark.cuda
+def test_column_crop_without_a_gradient_records_no_graph(cuda_device, rng):
+    """Under no_grad, or for rows that need no gradient, the crop is the
+    bare launch: no autograd node."""
+    rows, starts = _crop_inputs(rng, cuda_device)
+    with torch.no_grad():
+        out = cc.batch_column_crop(rows.requires_grad_(True), starts, 15)
+    assert out.grad_fn is None and not out.requires_grad
+    out = cc.batch_column_crop(rows.detach(), starts, 15)
+    assert out.grad_fn is None and not out.requires_grad
+    with torch.inference_mode():
+        assert cc.batch_column_crop(rows, starts, 15).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('scale, hw', [(1 / 8., (16, 45)), (1 / 16., (8, 23)),
+                                       (1 / 32., (4, 12))])
+def test_variable_bin_pool_on_card_equals_cpu(cuda_device, rng, scale, hw):
+    """The variable-bin column pool of a 100-wide patch on the card against
+    the CPU, bit for bit: its bins are a true division (14 / 12 taken as a
+    multiplication by the reciprocal ends a bin one column further)."""
+    from rcfd_tpu_torch.ops.roi_pool import roi_pool_column
+
+    feat = torch.from_numpy(rng.standard_normal((2, 16) + hw,
+                                                dtype=np.float32))
+    x1 = torch.tensor([[11., 170., 3., 242.], [40., 0., 200., 99.]])
+    size = (int(128 * scale), int(100 * scale))
+    ref = roi_pool_column(feat, x1, 100, 0, 128, scale, size)
+    out = roi_pool_column(feat.to(cuda_device), x1.to(cuda_device), 100, 0,
+                          128, scale, size)
+    assert torch.equal(out.cpu(), ref)
