@@ -105,6 +105,26 @@ Phases, each printed as it starts and ends:
              (c) one step and one validation under RCFD_FUSED_POOL2/4: K3
              in the validation only. (d) one step of a narrow RadarNet
              card vs CPU at three seeds, in float32 and in float64
+  train_bf16 both training CLIs under RCFD_TRAIN_DTYPE=bfloat16 on the
+             files of train and train_radarnet, with their flags and
+             schedules (10 steps, checkpoints and validation at 5 and 10):
+             ms a step, host wait, samples/s and peak memory beside the
+             float32 phases'; float32 checkpoints; validation in float32
+             (K1's float32 instance); one 900x300 RadarNet step through K2's
+             bf16 instance (3 launches, its bf16 gradient) against the plain
+             crop, and K2 bf16's forward and backward timed at the step's
+             shapes; one bf16 step of a narrow model of each kind card vs
+             CPU at three seeds, against the CPU's float64 step
+  run        the standalone run drivers (rcfd_tpu_torch.run_radarnet.main
+             and run_fusionnet.main, in process) with
+             bash/run_{radarnet,fusionnet}_nuscenes.sh's flags on 8
+             full-size frames, FusionNet on RadarNet's outputs: a with
+             ground truth and metrics, b without (codes made on the card;
+             its files equal a's byte for byte), c under
+             RCFD_COMPUTE_DTYPE=bfloat16, and for RadarNet d at the 900x300
+             patch (K2) and e under the fused gates (K3); each after a
+             warm-up run: launches, frames/s and the read / serve / write
+             split; RadarNet's a against stage 1 of TwoStagePipeline
 
 Each path phase (and each configuration of the batched phase) sets every
 kernel's launch count to 0 before its counted requests, reads them after,
@@ -129,6 +149,7 @@ phase also traces one request with torch.profiler and prints the device
 time by kernel.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -200,6 +221,21 @@ class Phase:
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+@contextlib.contextmanager
+def environ(values):
+    """os.environ with ``values`` set, as they were again on exit."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def device_ms(fn, n, warmup=2):
@@ -1187,19 +1223,29 @@ def radarnet_outputs(pipe, req):
     return crops, xs
 
 
-def top_responses(crops, xs, valid, pixels):
-    """For each pixel (row, col) of ``pixels``: (row, col, the crop values
-    of the valid points whose windows cover it, largest first)."""
+def top_responses(crops, xs, valid, pixels, chunk=1 << 18):
+    """For the pixels (row, col) of ``pixels``, an (n, 2) array: the two
+    largest crop values of the valid points whose windows cover each pixel
+    (-inf where fewer cover it), and how many cover it; float64, over
+    chunks of ``chunk`` pixels."""
     from rcfd_tpu_torch.ops import scatter_cuda as sc
 
     k, ph, pw = crops.shape
     x_start = sc.point_tables(torch.as_tensor(xs), torch.zeros(k),
                               torch.as_tensor(valid), pw, W)[0].numpy()
-    for r, c in pixels:
-        j = c + pw - x_start
-        hit = np.flatnonzero(valid & (j >= 0) & (j < pw))
-        yield r, c, np.sort(crops[hit, r - (H - ph), j[hit]].astype(
-            np.float64))[::-1]
+    pixels = np.asarray(pixels, np.int64).reshape(-1, 2)
+    top = np.full((len(pixels), 2), -np.inf)
+    count = np.zeros(len(pixels), np.int64)
+    for lo in range(0, len(pixels), chunk):
+        r, c = pixels[lo:lo + chunk, 0], pixels[lo:lo + chunk, 1]
+        j = c[:, None] + pw - x_start[None, :]                  # (n, K)
+        hit = np.asarray(valid, bool)[None, :] & (j >= 0) & (j < pw)
+        vals = np.where(hit, crops[np.arange(k)[None, :], (r - (H - ph))[
+            :, None], np.clip(j, 0, pw - 1)].astype(np.float64), -np.inf)
+        vals.partition(k - 2, axis=1)
+        top[lo:lo + chunk] = np.sort(vals[:, -2:], axis=1)[:, ::-1]
+        count[lo:lo + chunk] = hit.sum(1)
+    return top, count
 
 
 def off_threshold(crops, xs, valid, pixels, tol):
@@ -1207,9 +1253,10 @@ def off_threshold(crops, xs, valid, pixels, tol):
     than ``tol`` from the 0.5 threshold: a perturbation of the crops by at
     most ``tol`` cannot switch their response between 0 and 0.5 or
     more."""
-    return [(int(r), int(c))
-            for r, c, vals in top_responses(crops, xs, valid, pixels)
-            if not (len(vals) and abs(vals[0] - 0.5) <= tol)]
+    top, count = top_responses(crops, xs, valid, pixels)
+    near = (count > 0) & (np.abs(top[:, 0] - 0.5) <= tol)
+    return [tuple(int(v) for v in p) for p in np.asarray(
+        pixels).reshape(-1, 2)[~near]]
 
 
 def unexplained_quasi(crops, xs, valid, pixels, tol):
@@ -1218,13 +1265,12 @@ def unexplained_quasi(crops, xs, valid, pixels, tol):
     is farther than ``tol`` from the 0.5 threshold, and the top two are
     farther apart than one 2^-14 step plus 2 * tol (so K1's 14-bit max
     keeps its winner)."""
-    out = []
-    for r, c, vals in top_responses(crops, xs, valid, pixels):
-        near_threshold = len(vals) and abs(vals[0] - 0.5) <= tol
-        tie = len(vals) > 1 and vals[0] - vals[1] <= 2.0 ** -14 + 2 * tol
-        if not (near_threshold or tie):
-            out.append((int(r), int(c)))
-    return out
+    top, count = top_responses(crops, xs, valid, pixels)
+    near = (count > 0) & (np.abs(top[:, 0] - 0.5) <= tol)
+    with np.errstate(invalid='ignore'):  # -inf - -inf where none covers
+        tie = (count > 1) & (top[:, 0] - top[:, 1] <= 2.0 ** -14 + 2 * tol)
+    return [tuple(int(v) for v in p) for p in np.asarray(
+        pixels).reshape(-1, 2)[~(near | tie)]]
 
 
 def fold_deviation(name, pipe, ref_pipe, req):
@@ -2147,9 +2193,7 @@ def phase_cli(device, record, rn, fn, tmp):
         argv = base + flags + (['--ground_truth_path',
                                 manifests['ground_truth']] if with_gt else [])
         out_dir = os.path.join(tmp, name.replace(' ', '_'))
-        saved = {k: os.environ.get(k) for k in env}
-        os.environ.update(env)
-        try:
+        with environ(env):
             run_pipeline.main(argv + ['--output_dirpath', out_dir + '_warm'],
                               device=device)
             torch.cuda.synchronize()
@@ -2159,12 +2203,6 @@ def phase_cli(device, record, rn, fn, tmp):
                 argv + ['--output_dirpath', out_dir], device=device)
             wall = time.perf_counter() - t0
             launches = read_launches()
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
         expect = cli_expect(flags, env)
         for kernel, n in launches.items():
             check(n == expect.get(kernel, 0), '{}: {} launched {} times for '
@@ -2454,7 +2492,8 @@ def phase_train(device, rn, tmp):
     from the newest checkpoint to step 15; model-10.pth served by
     TwoStagePipeline.from_checkpoints beside the smoke's RadarNet; one step
     card against CPU; overfitting a fixed batch at full width. Prints ms a
-    step, the host's wait for data, samples/s and peak memory."""
+    step, the host's wait for data, samples/s and peak memory, and returns
+    them with the manifests of the files it wrote."""
     from rcfd_tpu_torch import fusionnet_main as fm
     from rcfd_tpu_torch import train_fusionnet
     from rcfd_tpu_torch.models import radarnet
@@ -2539,6 +2578,8 @@ def phase_train(device, rn, tmp):
     train_card_vs_cpu(device)
     train_overfit(device)
     torch.cuda.empty_cache()
+    return dict(manifests=manifests, step_ms=step_ms, wait_ms=wait_ms,
+                samples_per_s=16e3 / per_step, peak=peak)
 
 
 # phase train_radarnet: bash/train_radarnet_nuscenes.sh's flags on
@@ -2705,7 +2746,8 @@ def train_radarnet_canonical(device, record, fn, manifests, tmp):
     """(a): the training CLI with the script's flags, 10 steps (2 epochs)
     and validations at 5 and 10, then resumed to 15; K1 counted and held
     against its plain version on one validation frame's crops of the
-    trained model; model-15.pth served."""
+    trained model; model-15.pth served. Returns the medians of the first
+    run's steps."""
     from rcfd_tpu_torch import train_radarnet
     from rcfd_tpu_torch.data import io, transforms
     from rcfd_tpu_torch.data.datasets import RadarNetInferenceDataset
@@ -2791,6 +2833,8 @@ def train_radarnet_canonical(device, record, fn, manifests, tmp):
         'optimizer state, as the JAX package\'s), saved model-15.pth; '
         'losses {}'.format(', '.join('{:.4f}'.format(t['loss'])
                                      for t in resumed)))
+    numbers = dict(step_ms=step_ms, wait_ms=wait_ms,
+                   samples_per_s=6e3 / per_step, peak=peak)
 
     # K1 against its plain version on the trained model's crops of one
     # validation frame
@@ -2837,17 +2881,23 @@ def train_radarnet_canonical(device, record, fn, manifests, tmp):
         .format(float(dense.min()), float(dense.max()),
                 int((quasi > 0).sum())))
     del pipe, model
+    return numbers
 
 
-def crop_training_times(device, record, model, batch):
+def crop_training_times(device, record, model, batch, dtype=torch.float32):
     """K2 at the training step's shapes (6 frames, 4 windows each, at the
-    1/8, 1/16 and 1/32 pools of the 900x300 patch): the kernel, its plain
-    version and torch.gather forward, beside the bytes the windows need;
-    the backward's plain PyTorch version (one index_add_) and one
+    1/8, 1/16 and 1/32 pools of the 900x300 patch), its instance for
+    ``dtype`` rows: the kernel, its plain version and torch.gather forward,
+    beside the bytes the windows need; the backward's plain PyTorch version
+    (one index_add_, in float32 for bf16 gradients, rounded once) and one
     scatter_add_ on a precomputed index, beside the bytes of the windows'
-    gradient read and the whole rows' gradient written."""
+    gradient read and the whole rows' gradient written. The backward is
+    held to autograd of the plain crop (float32) or to the float32 sum of
+    the same bf16 gradients rounded once (bf16)."""
     from rcfd_tpu_torch.ops import crop_cuda as cc
     from rcfd_tpu_torch.ops.roi_pool import variable_bin_window
+
+    label = 'K2' + dtype_label(dtype)
 
     n, k = batch[1].shape[0], batch[1].shape[1]
     with torch.inference_mode():
@@ -2863,11 +2913,11 @@ def crop_training_times(device, record, model, batch):
                                                      SCALES[i])
         _, win = variable_bin_window(WIDE_PATCH[1], SCALES[i], pw)
         rows = torch.from_numpy(rng.standard_normal(
-            (n, c, ph, w_f), dtype=np.float32)).to(device)
+            (n, c, ph, w_f), dtype=np.float32)).to(device, dtype)
         starts = torch.from_numpy(rng.integers(0, w_f + 1, (n, k)).astype(
             np.int32)).to(device)
         grad = torch.from_numpy(rng.standard_normal(
-            (n * k, c, ph, win), dtype=np.float32)).to(device)
+            (n * k, c, ph, win), dtype=np.float32)).to(device, dtype)
         fwd_ms = device_ms(lambda: cc.batch_column_crop(rows, starts, win),
                            20)
         fwd_plain_ms = device_ms(
@@ -2878,13 +2928,20 @@ def crop_training_times(device, record, model, batch):
         fwd_library_ms = device_ms(gather, 20)
         back = cc.batch_column_crop_backward_plain(grad, starts, rows.shape,
                                                    win)
-        rows_g = rows.clone().requires_grad_(True)
-        ref, = torch.autograd.grad(cc.batch_column_crop_plain(
-            rows_g, starts, win), rows_g, grad)
-        err = float((back - ref).abs().max() / ref.abs().max())
-        check(err <= RN_CROP_GRAD_TOL, 'train_radarnet: the crop\'s backward '
-              'differs from autograd of the plain crop by {} of its '
-              'max-abs'.format(err))
+        if dtype == torch.float32:
+            rows_g = rows.clone().requires_grad_(True)
+            ref, = torch.autograd.grad(cc.batch_column_crop_plain(
+                rows_g, starts, win), rows_g, grad)
+            tol = RN_CROP_GRAD_TOL
+        else:
+            ref = cc.batch_column_crop_backward_plain(
+                grad.float(), starts, rows.shape, win).to(dtype)
+            tol = BF16_EPS
+        err = float((back.float() - ref.float()).abs().max() /
+                    ref.float().abs().max())
+        check(err <= tol, 'train_radarnet: {}\'s backward differs from its '
+              'reference by {} of its max-abs (tolerance {})'.format(
+                  label, err, tol))
         back_ms = device_ms(lambda: cc.batch_column_crop_backward_plain(
             grad, starts, rows.shape, win), 20)
         # yardstick: one scatter_add_ of the windows' gradients, laid out
@@ -2894,11 +2951,12 @@ def crop_training_times(device, record, model, batch):
             n, c, ph, k * win).contiguous()
         index = cols.reshape(n, 1, 1, k * win).expand(n, c, ph,
                                                       k * win).contiguous()
-        acc = torch.zeros((n, c, ph, w_f + win), device=device)
+        acc = torch.zeros((n, c, ph, w_f + win), device=device, dtype=dtype)
         library_ms = device_ms(lambda: acc.zero_().scatter_add_(3, index, g),
                                20)
         fwd_bytes = crop_bytes(rows, starts, win)
-        back_bytes = 4 * (grad.numel() + rows.numel()) + 4 * n * k
+        back_bytes = rows.element_size() * (grad.numel() + rows.numel()) + \
+            4 * n * k
         parts.append(dict(
             shape='1/{}'.format(int(1 / SCALES[i])), rows=list(rows.shape),
             win=win, ms=fwd_ms, plain_ms=fwd_plain_ms,
@@ -2908,21 +2966,22 @@ def crop_training_times(device, record, model, batch):
             backward_bytes=back_bytes,
             backward_bound_ms=back_bytes / HBM_BYTES_PER_S * 1e3,
             backward_err=err))
-        log('train_radarnet: K2 at the step\'s 1/{} pool: rows {} -> {} '
+        log('train_radarnet: {} at the step\'s 1/{} pool: rows {} -> {} '
             'windows of {}; forward kernel {:.4f} ms, plain {:.4f} ms, '
             'torch.gather {:.4f} ms, bound {:.4f} ms ({} bytes: the covered '
             'columns read, the windows written); backward (plain PyTorch, '
             'one index_add_) {:.4f} ms, scatter_add_ on a precomputed index '
             '{:.4f} ms, bound {:.4f} ms ({} bytes: the windows\' gradient '
-            'read, the rows\' written); backward vs autograd of the plain '
-            'crop {:.3g} of its max-abs'.format(
-                int(1 / SCALES[i]), tuple(rows.shape), n * k, win, fwd_ms,
+            'read, the rows\' written); backward vs its reference {:.3g} of '
+            'its max-abs'.format(
+                label, int(1 / SCALES[i]), tuple(rows.shape), n * k, win,
+                fwd_ms,
                 fwd_plain_ms, fwd_library_ms, fwd_bytes / HBM_BYTES_PER_S *
                 1e3, fwd_bytes, back_ms, library_ms,
                 back_bytes / HBM_BYTES_PER_S * 1e3, back_bytes, err))
         del rows, grad, back, ref, acc, index, g, gather
     total = lambda key: float(sum(p[key] for p in parts))
-    record['column_crop']['training'] = dict(
+    record['column_crop' + dtype_label(dtype)]['training'] = dict(
         parts=parts, ms=total('ms'), plain_ms=total('plain_ms'),
         library_ms=total('library_ms'), bound_ms=total('bound_ms'),
         bytes=int(total('bytes')),
@@ -2932,18 +2991,27 @@ def crop_training_times(device, record, model, batch):
         backward_bytes=int(total('backward_bytes')))
 
 
-def train_radarnet_wide(device, record, manifests):
+def train_radarnet_wide(device, record, manifests, dtype=torch.float32):
     """(b): one step at the 900x300 patch through K2 and the same step
     (same weights, batch and draws) through the plain crop, cuDNN's
-    convolutions deterministic for both: K2 launched 3 times in the
-    forward, the losses, every gradient, and a nonzero gradient in every
-    parameter of the image encoder that the forward uses."""
+    convolutions deterministic for both; in bf16 training (``dtype``
+    bf16, RCFD_TRAIN_DTYPE=bfloat16) through K2's bf16 instance. K2
+    launched 3 times in the forward, the losses, every gradient, and a
+    nonzero gradient in every parameter of the image encoder that the
+    forward uses. float32 gradients are held to the plain step's within
+    RN_CROP_GRAD_TOL of each one's max-abs; bf16 ones within
+    BF16_CROP_STEP_TOL of the plain step's largest gradient (the two
+    backwards of the crop round the windows' sums to bf16 apart, and bf16
+    carries that through the rest of the backward)."""
     from unittest import mock
 
     from rcfd_tpu_torch import radarnet_main as rm
     from rcfd_tpu_torch.ops import crop_cuda as cc
     from rcfd_tpu_torch.ops import roi_pool
 
+    bf16 = dtype == torch.bfloat16
+    path = 'train_bf16 wide' if bf16 else 'train_radarnet wide'
+    kernel = 'column_crop' + dtype_label(dtype)
     batch = radarnet_batch(manifests, WIDE_PATCH, device)
     transforms = radarnet_train_augmentation()
     gen = torch.Generator(device=device).manual_seed(SEED + 33)
@@ -2952,7 +3020,8 @@ def train_radarnet_wide(device, record, manifests):
     model_p = copy.deepcopy(model_k)
     out = {}
     cudnn = torch.backends.cudnn
-    with rm.training_numerics():
+    with rm.training_numerics(), environ(
+            {'RCFD_TRAIN_DTYPE': 'bfloat16' if bf16 else 'float32'}):
         cudnn.benchmark, cudnn.deterministic = False, True
         for name, model in (('kernel', model_k), ('plain', model_p)):
             step = rm.TrainStep(model, transforms,
@@ -2970,39 +3039,49 @@ def train_radarnet_wide(device, record, manifests):
                          {n: p.grad for n, p in model.named_parameters()})
     (loss_k, launches, grads_k), (loss_p, plain_launches, grads_p) = \
         out['kernel'], out['plain']
-    check(launches['column_crop'] == 3 and sum(launches.values()) == 3 and
+    check(launches[kernel] == 3 and sum(launches.values()) == 3 and
           sum(plain_launches.values()) == 0,
-          'train_radarnet wide: launches {} (K2 3 expected), plain step {}'
-          .format(launches, plain_launches))
-    count_launches(record, 'train_radarnet wide', launches, ['column_crop'])
+          '{}: launches {} ({} 3 expected), plain step {}'.format(
+              path, launches, kernel, plain_launches))
+    count_launches(record, path, launches, [kernel])
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
     check(sorted(n for n, g in grads_k.items() if g is not None) ==
-          sorted(n for n, g in grads_p.items() if g is not None),
-          'train_radarnet wide: the two steps gave gradients to different '
-          'parameters')
-    grad_err = max(float((grads_k[n] - g).abs().max() / g.abs().max())
-                   for n, g in grads_p.items()
-                   if g is not None and g.abs().max() > 0)
+          sorted(n for n, g in grads_p.items() if g is not None) and
+          all(g.dtype == torch.float32 for g in grads_k.values()
+              if g is not None), '{}: the two steps gave gradients to '
+          'different parameters, or not in float32'.format(path))
+    if bf16:
+        largest = max(float(g.abs().max()) for g in grads_p.values()
+                      if g is not None)
+        grad_err = max(float((grads_k[n] - g).abs().max())
+                       for n, g in grads_p.items()
+                       if g is not None) / largest
+        tol, of = BF16_CROP_STEP_TOL, 'the plain step\'s largest gradient'
+    else:
+        grad_err = max(float((grads_k[n] - g).abs().max() / g.abs().max())
+                       for n, g in grads_p.items()
+                       if g is not None and g.abs().max() > 0)
+        tol, of = RN_CROP_GRAD_TOL, 'their max-abs'
     unused = unused_parameters(model_k.encoder.encoder_image)
     dead = [n for n, p in model_k.encoder.encoder_image.named_parameters()
             if n not in unused and (p.grad is None or
                                     float(p.grad.abs().max()) == 0.0)]
-    check(loss_err <= 1e-6 and grad_err <= RN_CROP_GRAD_TOL and not dead,
-          'train_radarnet wide: loss rel err {}, gradient err {} of max-abs, '
-          'image-encoder parameters without a gradient {}'.format(
-              loss_err, grad_err, dead))
-    log('train_radarnet wide: one step at 900x300 (batch 6, K = 4) through '
-        'K2 against the plain crop, same weights, batch and draws, '
-        'deterministic convolutions: K2 launches {} (forward; the backward is '
-        'plain PyTorch); loss {:.6f} vs {:.6f} (rel err {:.3g}, tolerance '
-        '1e-6); gradients max err {:.3g} of their max-abs over {} tensors '
-        '(tolerance {:g}); every one of the image encoder\'s {} used '
-        'parameters has a nonzero gradient ({} unused projections)'.format(
-            launches['column_crop'], loss_k, loss_p, loss_err, grad_err,
-            len(grads_p), RN_CROP_GRAD_TOL,
+    check(loss_err <= 1e-6 and grad_err <= tol and not dead,
+          '{}: loss rel err {}, gradient err {} of {}, image-encoder '
+          'parameters without a gradient {}'.format(
+              path, loss_err, grad_err, of, dead))
+    log('{}: one step at 900x300 (batch 6, K = 4) through {} against the '
+        'plain crop, same weights, batch and draws, deterministic '
+        'convolutions: {} launches {} (forward; the backward is plain '
+        'PyTorch); loss {:.6f} vs {:.6f} (rel err {:.3g}, tolerance 1e-6); '
+        'gradients max err {:.3g} of {} over {} tensors (tolerance {:g}); '
+        'every one of the image encoder\'s {} used parameters has a nonzero '
+        'gradient ({} unused projections)'.format(
+            path, kernel, kernel, launches[kernel], loss_k, loss_p, loss_err,
+            grad_err, of, len(grads_p), tol,
             sum(1 for n, _ in model_k.encoder.encoder_image.named_parameters()
                 if n not in unused), len(unused)))
-    crop_training_times(device, record, model_k, batch)
+    crop_training_times(device, record, model_k, batch, dtype)
     del model_k, model_p, out
 
 
@@ -3079,31 +3158,11 @@ def train_radarnet_card_vs_cpu(device, seed):
 
     from rcfd_tpu_torch import radarnet_main as rm
     from rcfd_tpu_torch.data import transport
-    from rcfd_tpu_torch.data.transforms import Transforms
-    from rcfd_tpu_torch.nn import init_parameters
     from rcfd_tpu_torch.ops import crop_cuda as cc
     from rcfd_tpu_torch.ops import roi_pool
 
-    ph, pw = RN_NARROW['input_patch_size_image']
-    kw = {k: v for k, v in RN_NARROW.items()
-          if k != 'input_patch_size_image'}
-    cpu = rm.build_model(patch_size=(ph, pw), device='cpu',
-                         weight_initializer='kaiming_uniform',
-                         activation_func='leaky_relu', **kw)
-    init_parameters(cpu, torch.Generator().manual_seed(seed))
-    rng = np.random.default_rng(seed)
-    b, k, w = 2, 4, 256
-    x = rng.integers(0, w, (b, k)).astype(np.float32)
-    points = np.stack([x + pw // 2, rng.random((b, k)) * ph,
-                       rng.random((b, k)) * 60 + 5], -1).astype(np.float32)
-    boxes = np.stack([x, np.zeros_like(x), x + 2 * (pw // 2),
-                      np.full_like(x, ph)], -1).astype(np.float32)
-    gt = points[..., 2, None, None, None] + rng.uniform(-0.8, 0.8,
-                                                        (b, k, ph, pw, 1))
-    gt[rng.random(gt.shape) < 0.4] = 0.0
-    batch = tuple(torch.from_numpy(a) for a in (
-        rng.integers(0, 256, (b, ph, w + pw, 3), dtype=np.uint8), points,
-        boxes, (gt * 256).astype(np.uint16)))
+    cpu, batch, make_step = narrow_case('radarnet', seed)
+    batch = tuple(torch.from_numpy(a) for a in batch)
     decoded = tuple(t.double() for t in transport.decode(batch))
     runs = (('cpu', copy.deepcopy(cpu), batch),
             ('card', copy.deepcopy(cpu).to(device),
@@ -3113,9 +3172,7 @@ def train_radarnet_card_vs_cpu(device, seed):
              tuple(t.to(device) for t in decoded)))
     out = {}
     for name, model, inputs in runs:
-        step = rm.TrainStep(model, Transforms([0, 1]),
-                            rm.make_optimizer(model, 1e-3, 0.0), (ph, pw),
-                            0.4, False, 2.0)
+        step = make_step(model)
         reset_launches()
         with rm.training_numerics(), mock.patch.object(
                 roi_pool, 'batch_column_crop', cc.batch_column_crop_plain
@@ -3199,13 +3256,14 @@ def phase_train_radarnet(device, record, fn, tmp):
     plain version on the trained model's crops, model-15.pth served; (b)
     one step at 900x300 through K2 against the plain crop, and K2's
     training times; (c) one step and one validation under the fused-pool
-    gates; (d) one step card against CPU at each of RN_SEEDS."""
+    gates; (d) one step card against CPU at each of RN_SEEDS. Returns (a)'s
+    numbers with the manifests of the files it wrote."""
     from rcfd_tpu_torch import radarnet_main as rm
 
     with rm.training_numerics():
         log('train_radarnet: ' + rm.numerics_line())
     manifests = write_radarnet_inputs(tmp, np.random.default_rng(SEED + 30))
-    train_radarnet_canonical(device, record, fn, manifests, tmp)
+    numbers = train_radarnet_canonical(device, record, fn, manifests, tmp)
     torch.cuda.empty_cache()
     train_radarnet_wide(device, record, manifests)
     torch.cuda.empty_cache()
@@ -3223,6 +3281,439 @@ def phase_train_radarnet(device, record, fn, tmp):
             span([r['cpu_tensor_err'][0] for r in readings]),
             max(r['float64_err'] for r in readings), RN_FLOAT64_TOL))
     torch.cuda.empty_cache()
+    return dict(numbers, manifests=manifests)
+
+
+# -- bf16 training -------------------------------------------------------------
+
+# phase train_bf16: both training CLIs under RCFD_TRAIN_DTYPE=bfloat16 on the
+# files of phases train and train_radarnet, with their flags and schedules
+# (10 steps, a checkpoint and a validation every 5 steps); a 900x300
+# RadarNet step through K2's bf16 instance against the plain crop; a narrow
+# step of each model card vs CPU at BF16_SEEDS
+BF16_EPS = 2.0 ** -8  # one bf16 rounding, relative
+# the 900x300 bf16 step through K2 against the plain crop: every gradient
+# within this share of the plain step's largest gradient
+BF16_CROP_STEP_TOL = 5e-2
+# narrow bf16 steps, card and CPU: the loss card vs CPU within
+# BF16_LOSS_RTOL; the running statistics card vs CPU within BF16_STATS_TOL
+# of their largest (at least 1); each device's bf16 gradients within
+# BF16_TRUTH_TOL of the largest gradient of the CPU's float64 step. An
+# untrained FusionNet's L1 gradients all have one sign, so its batch norms'
+# backward cancels almost everything and bf16 keeps little of the rest: the
+# CPU's bf16 step is 0.006-0.40 of the largest gradient from float64 on
+# these batches (tests/test_torch_train_bf16.py holds the CPU's to the JAX
+# package's bf16 step, which is farther from float64)
+BF16_LOSS_RTOL, BF16_STATS_TOL, BF16_TRUTH_TOL = 2.0 ** -7, 2e-2, 0.5
+BF16_SEEDS = tuple(SEED + 40 + i for i in range(3))
+# a narrow FusionNet at 192x256 (its 1/64 batch norms normalize 24 values:
+# bf16 over a handful of values is all cancellation)
+FN_NARROW = dict(FUSIONNET, n_filters_encoder_image=[8, 16, 16, 16, 16, 16],
+                 n_filters_encoder_depth=[8, 8, 16, 16, 16, 16],
+                 n_filters_decoder=[16, 16, 16, 8, 8, 8])
+
+
+def check_float32_checkpoint(path):
+    """Every tensor of a .pth, the optimizer state's included, is float32
+    (or an integer count)."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+
+    def tensors(tree):
+        if torch.is_tensor(tree):
+            yield tree
+        elif isinstance(tree, dict):
+            for v in tree.values():
+                yield from tensors(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                yield from tensors(v)
+    dtypes = {t.dtype for t in tensors(ckpt)}
+    check(dtypes <= {torch.float32, torch.int64},
+          'train_bf16: {} holds tensors of {}'.format(path, dtypes))
+
+
+def train_bf16_cli(device, record, name, run, argv, batch, first_of_epoch,
+                   float32):
+    """A training CLI's main in process under RCFD_TRAIN_DTYPE=bfloat16, 10
+    steps: finite losses, float32 checkpoints at 5 and 10, validation rows
+    (in float32, from the master weights: RadarNet's through K1's float32
+    instance). Prints ms a step, the host wait, samples/s and peak memory
+    beside ``float32``, the float32 phase's, and returns them."""
+    timings = []
+    reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with environ({'RCFD_TRAIN_DTYPE': 'bfloat16'}):
+        run(argv, timings=timings)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    launches = read_launches()
+    losses = [t['loss'] for t in timings]
+    check([t['step'] for t in timings] == list(range(1, 11)) and
+          all(math.isfinite(v) for v in losses),
+          'train_bf16 {}: steps {} losses {}'.format(
+              name, [t['step'] for t in timings], losses))
+    ckpt = argv[argv.index('--checkpoint_dirpath') + 1]
+    for step in (5, 10):
+        path = os.path.join(ckpt, 'model-{}.pth'.format(step))
+        (check_radarnet_checkpoint if name == 'radarnet' else
+         check_checkpoint)(path, step)
+        check_float32_checkpoint(path)
+    rows = validation_lines(os.path.join(ckpt, 'results.txt'))
+    check([r[0] for r in rows] == [5, 10, 10] and all(
+        all(map(math.isfinite, r[5:])) and
+        (all(map(math.isfinite, r[1:5])) or r[6] == 0) for r in rows),
+          'train_bf16 {}: validation rows {}'.format(name, rows))
+    want = {'scatter_quasi_dense': 3 * RN_VAL_FRAMES} \
+        if name == 'radarnet' else {}
+    check(all(n == want.get(k, 0) for k, n in launches.items()),
+          'train_bf16 {}: launches {} (expected {})'.format(
+              name, launches, want))
+    count_launches(record, 'train_bf16 ' + name, launches, list(want))
+    timed = [t for t in timings if t['step'] in TIMED_STEPS and
+             not (first_of_epoch and (t['step'] - 1) % RN_STEPS_PER_EPOCH
+                  == 0)]
+    out = dict(step_ms=float(np.median([t['step_ms'] for t in timed])),
+               wait_ms=float(np.median([t['wait_ms'] for t in timed])),
+               peak=peak)
+    out['samples_per_s'] = batch * 1e3 / float(np.median(
+        [t['step_ms'] + t['wait_ms'] for t in timed]))
+    log('train_bf16 {}: 10 steps of batch {} under RCFD_TRAIN_DTYPE=bfloat16 '
+        'in {:.2f} s of main (validation at steps 5 and 10 and at the end '
+        'included); over steps {}, medians: ms a step (synchronized) {:.2f} '
+        '(float32 {:.2f}), host wait {:.2f} ms (float32 {:.2f}), samples/s '
+        '{:.2f} (float32 {:.2f}); peak memory {} bytes (float32 {}); '
+        'launches {}; losses {}; validation {}; {}'.format(
+            name, batch, wall, [t['step'] for t in timed], out['step_ms'],
+            float32['step_ms'], out['wait_ms'], float32['wait_ms'],
+            out['samples_per_s'], float32['samples_per_s'], peak,
+            float32['peak'], {k: v for k, v in launches.items() if v},
+            ', '.join('{:.4f}'.format(v) for v in losses), rows,
+            gpu_name_and_power()))
+    return out
+
+
+def narrow_case(name, seed):
+    """A narrow model (RN_NARROW at 128x100, FN_NARROW) with weights from
+    ``seed``, a training batch of 2 frames in the integer transport, and a
+    function of (model, device) that builds its train step."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch import radarnet_main as rm
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.models import FusionNetModel
+    from rcfd_tpu_torch.nn import init_parameters
+
+    rng = np.random.default_rng(seed)
+    if name == 'radarnet':
+        ph, pw = RN_NARROW['input_patch_size_image']
+        kw = {k: v for k, v in RN_NARROW.items()
+              if k != 'input_patch_size_image'}
+        model = rm.build_model(patch_size=(ph, pw), device='cpu',
+                               weight_initializer='kaiming_uniform',
+                               activation_func='leaky_relu', **kw)
+        b, k, w = 2, 4, 256
+        x = rng.integers(0, w, (b, k)).astype(np.float32)
+        points = np.stack([x + pw // 2, rng.random((b, k)) * ph,
+                           rng.random((b, k)) * 60 + 5], -1).astype(
+                               np.float32)
+        boxes = np.stack([x, np.zeros_like(x), x + 2 * (pw // 2),
+                          np.full_like(x, ph)], -1).astype(np.float32)
+        gt = points[..., 2, None, None, None] + rng.uniform(
+            -0.8, 0.8, (b, k, ph, pw, 1))
+        gt[rng.random(gt.shape) < 0.4] = 0.0
+        batch = (rng.integers(0, 256, (b, ph, w + pw, 3), dtype=np.uint8),
+                 points, boxes, (gt * 256).astype(np.uint16))
+
+        def step(m):
+            return rm.TrainStep(m, Transforms([0, 1]),
+                                rm.make_optimizer(m, 1e-3, 0.0), (ph, pw),
+                                0.4, False, 2.0)
+    else:
+        model = FusionNetModel(**FN_NARROW, device='cpu', trainable=True)
+        shape = (2, 192, 256)
+        batch = (rng.integers(0, 256, shape + (3,), dtype=np.uint8),
+                 *[(rng.random(shape + (1,)) * 60 * 256).astype(np.uint16)
+                   for _ in range(4)])
+
+        def step(m):
+            return fm.TrainStep(m, Transforms([0, 1]),
+                                fm.make_optimizer(m, 1e-3, 0.0), 'l1', 0.0,
+                                2.0, -1, 7, 1.5, -1)
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model, batch, step
+
+
+def train_bf16_card_vs_cpu(device, name, seed):
+    """One bf16 train step of a narrow model on the card and on the CPU from
+    the same weights and batch, augmentation off, and the same step in
+    float64 on the CPU: loss and running statistics card vs CPU; each
+    device's bf16 gradients against the float64 step's. Returns the
+    readings."""
+    from rcfd_tpu_torch.data import transport
+    from rcfd_tpu_torch.training import training_numerics
+
+    cpu, batch, make_step = narrow_case(name, seed)
+    batch = tuple(torch.from_numpy(a) for a in batch)
+    runs = (('cpu', 'bfloat16', copy.deepcopy(cpu), batch),
+            ('card', 'bfloat16', copy.deepcopy(cpu).to(device),
+             tuple(t.to(device) for t in batch)),
+            ('cpu float64', 'float32', copy.deepcopy(cpu).double(),
+             tuple(t.double() for t in transport.decode(batch))))
+    out = {}
+    for label, dtype, model, inputs in runs:
+        with environ({'RCFD_TRAIN_DTYPE': dtype}):
+            step = make_step(model)
+        reset_launches()
+        with training_numerics():
+            info = step.backward(inputs, {})
+        out[label] = (float(info['loss']),
+                      {n: p.grad.cpu().double()
+                       for n, p in model.named_parameters()
+                       if p.grad is not None},
+                      {n: t.cpu().double() for n, t in model.named_buffers()},
+                      read_launches())
+    (loss_c, grads_c, bufs_c, _), (loss_g, grads_g, bufs_g, launches) = \
+        out['cpu'], out['card']
+    _, truth, _, _ = out['cpu float64']
+    scale = max(float(g.abs().max()) for g in truth.values())
+
+    def err(grads):
+        return max(float((grads[n] - g).abs().max())
+                   for n, g in truth.items()) / scale
+    want = {'column_crop bf16': 3} if name == 'radarnet' else {}
+    check(sorted(grads_g) == sorted(grads_c) == sorted(truth) and
+          all(launches[k] == want.get(k, 0) for k in launches),
+          'train_bf16 {}: card vs CPU: gradients of different parameters, '
+          'or launches {} (expected {})'.format(name, launches, want))
+    r = dict(seed=seed, loss_err=abs(loss_g - loss_c) / abs(loss_c),
+             stats_err=max(float((bufs_g[n] - t).abs().max() /
+                                 max(float(t.abs().max()), 1.0))
+                           for n, t in bufs_c.items()),
+             card_err=err(grads_g), cpu_err=err(grads_c),
+             apart=max(float((grads_g[n] - g).abs().max())
+                       for n, g in grads_c.items()) / scale)
+    check(r['loss_err'] <= BF16_LOSS_RTOL and
+          r['stats_err'] <= BF16_STATS_TOL and
+          r['card_err'] <= BF16_TRUTH_TOL and
+          r['cpu_err'] <= BF16_TRUTH_TOL,
+          'train_bf16 {}: card vs CPU: {}'.format(name, r))
+    return r
+
+
+def phase_train_bf16(device, record, trained):
+    """bf16 training on the card: both training CLIs under
+    RCFD_TRAIN_DTYPE=bfloat16 on the files of phases train and
+    train_radarnet (``trained`` holds their manifests and float32
+    numbers); a 900x300 RadarNet step through K2's bf16 instance against
+    the plain crop, with K2 bf16's forward and backward timed at the step's
+    shapes; a narrow bf16 step of each model card vs CPU at BF16_SEEDS."""
+    from rcfd_tpu_torch import train_fusionnet, train_radarnet
+    from rcfd_tpu_torch.training import numerics_line, training_numerics
+
+    with training_numerics():
+        log('train_bf16: ' + numerics_line(torch.bfloat16))
+    tmp = trained['tmp']
+    train_bf16_cli(device, record, 'fusionnet', train_fusionnet.main,
+                   train_argv(trained['fusionnet']['manifests'], os.path.join(
+                       tmp, 'bf16_checkpoints'), 10), 16, False,
+                   trained['fusionnet'])
+    torch.cuda.empty_cache()
+    train_bf16_cli(device, record, 'radarnet', train_radarnet.main,
+                   radarnet_train_argv(trained['radarnet']['manifests'],
+                                       os.path.join(tmp, 'bf16_rn'), 2), 6,
+                   True, trained['radarnet'])
+    torch.cuda.empty_cache()
+    train_radarnet_wide(device, record, trained['radarnet']['manifests'],
+                        torch.bfloat16)
+    torch.cuda.empty_cache()
+    for name in ('radarnet', 'fusionnet'):
+        readings = [train_bf16_card_vs_cpu(device, name, seed)
+                    for seed in BF16_SEEDS]
+        span = lambda key: '{:.3g}-{:.3g}'.format(  # noqa: E731
+            min(r[key] for r in readings), max(r[key] for r in readings))
+        log('train_bf16 {}: one bf16 step of a narrow model card vs CPU at '
+            'seeds {}: loss rel err {} (tolerance {:g}), running statistics '
+            '{} of their largest (tolerance {:g}); gradients from the CPU\'s '
+            'float64 step, of its largest gradient: card {}, CPU {} '
+            '(tolerance {:g}); card vs CPU {}'.format(
+                name, list(BF16_SEEDS), span('loss_err'), BF16_LOSS_RTOL,
+                span('stats_err'), BF16_STATS_TOL, span('card_err'),
+                span('cpu_err'), BF16_TRUTH_TOL, span('apart')))
+    torch.cuda.empty_cache()
+
+
+# -- the standalone run drivers -----------------------------------------------
+
+# phase run: run_radarnet.main and run_fusionnet.main in process with
+# bash/run_{radarnet,fusionnet}_nuscenes.sh's flags on CLI_FRAMES full-size
+# frames (--eval_batch_size 8: one forward), FusionNet on RadarNet's
+# outputs of run a, as the two stages run from files
+RUN_SCRIPTS = {'radarnet': os.path.join('bash', 'run_radarnet_nuscenes.sh'),
+               'fusionnet': os.path.join('bash', 'run_fusionnet_nuscenes.sh')}
+BF16_ENV = {'RCFD_COMPUTE_DTYPE': 'bfloat16'}
+FUSED_ENV = {'RCFD_FUSED_POOL2': '1', 'RCFD_FUSED_POOL4': '1'}
+# (case, ground truth, extra flags, environment, RadarNet's launches)
+RUN_CASES = (
+    ('a', True, [], {}, {'scatter_quasi_dense': 1}),
+    ('b', False, [], {}, {'scatter_quasi_dense': 1}),
+    ('c', True, [], BF16_ENV, {'scatter_quasi_dense bf16': 1}),
+    ('d', True, ['--patch_size', str(WIDE_PATCH[0]), str(WIDE_PATCH[1])], {},
+     {'scatter_quasi_dense': 1, 'column_crop': 3}),
+    ('e', True, [], FUSED_ENV,
+     {'scatter_quasi_dense': 1, 'fused_skip_gather_add': 2}),
+)
+RUN_STREAMS = {'radarnet': ('output_depth_radar', 'output_response_radar'),
+               'fusionnet': ('output_depth_fusion',)}
+
+
+def run_argv(model, inputs, out_dir, with_gt, flags):
+    """The run script's flags with this run's inputs, output directory and
+    ground truth (none when ``with_gt`` is false); --save_outputs on,
+    --verbose off."""
+    values = script_flags(RUN_SCRIPTS[model])
+    values.pop('--verbose', None)
+    values.update(inputs)
+    if not with_gt:
+        values.pop('--ground_truth_path')
+    values.update({'--output_dirpath': [out_dir], '--save_outputs': []})
+    argv = [t for k, v in values.items() for t in [k] + v]
+    return argv + flags
+
+
+def run_files(out_dir, model, names):
+    """The 16-bit codes of a run's output streams."""
+    from rcfd_tpu_torch.data import io
+
+    return {s: [io.load_depth_u16(os.path.join(out_dir, s, n)).astype(
+        np.int64) for n in names] for s in RUN_STREAMS[model]}
+
+
+def phase_run(device, record, rn, fn, tmp):
+    """run_radarnet.main and run_fusionnet.main in process on CLI_FRAMES
+    full-size frames the port's writers made, with the smoke's weights as
+    .pth files, in the cases of RUN_CASES, each after a warm-up run of the
+    same case, every launch count set to 0 just before the timed run and
+    read just after: (a) with ground truth and metrics, (b) --save_outputs
+    without ground truth (the codes made on the card), whose files must
+    equal (a)'s byte for byte, (c) RCFD_COMPUTE_DTYPE=bfloat16, and for
+    RadarNet (d) the 900x300 patch (K2) and (e) the fused gates (K3).
+    RadarNet's (a) quasi depth and response must equal stage 1 of
+    TwoStagePipeline (folded, K1) on the same frames. Prints frames/s and
+    the read / serve / write split."""
+    from rcfd_tpu_torch import run_fusionnet, run_radarnet
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.data.datasets import RadarNetInferenceDataset
+    from rcfd_tpu_torch.nn.perf import PerfConfig
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline, codec_encode
+
+    paths, manifests, checkpoints = write_cli_inputs(
+        rn, fn, tmp, np.random.default_rng(SEED + 50))
+    names = [os.path.splitext(os.path.basename(p))[0] + '.png'
+             for p in paths['image']]
+    power = gpu_name_and_power()
+    inputs = {'radarnet': {'--restore_path': [checkpoints[0]],
+                           '--image_path': [manifests['image']],
+                           '--radar_path': [manifests['radar']],
+                           '--ground_truth_path': [manifests['ground_truth']]}}
+    files, metrics = {}, {}
+    for model, cli in (('radarnet', run_radarnet), ('fusionnet',
+                                                     run_fusionnet)):
+        for case, with_gt, flags, env, want in RUN_CASES:
+            if model == 'fusionnet':
+                if case in ('d', 'e'):
+                    continue
+                want = {}
+            name = 'run {} {}'.format(model, case)
+            out_dir = os.path.join(tmp, name.replace(' ', '_'))
+            argv = run_argv(model, inputs[model], out_dir, with_gt, flags)
+            with environ(env):
+                cli.main(run_argv(model, inputs[model], out_dir + '_warm',
+                                  with_gt, flags), device=device)
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                summary = cli.main(argv, device=device)
+                wall = time.perf_counter() - t0
+                launches = read_launches()
+            check(all(n == want.get(k, 0) for k, n in launches.items()),
+                  '{}: launches {} (expected {})'.format(name, launches,
+                                                         want))
+            count_launches(record, name, launches, list(want))
+            check((summary['metrics'] is not None) == with_gt and (
+                not with_gt or all(math.isfinite(v) for v in
+                                   summary['metrics'].values())),
+                  '{}: metrics {}'.format(name, summary['metrics']))
+            files[name] = run_files(out_dir, model, names)
+            metrics[name] = summary['metrics']
+            sec = summary['seconds']
+            log('{}: flags {} env {}: {} frames in {:.3f} s of main, {:.3f} '
+                'frames/s end to end; per frame: host read {:.2f} ms, serve '
+                '(to the outputs on the host) {:.2f} ms, host write and '
+                'metrics {:.2f} ms; setup {:.3f} s; launches {}; metrics {}; '
+                '{}'.format(name, ' '.join(flags) or '-', env or '{}',
+                            CLI_FRAMES, wall, CLI_FRAMES / wall,
+                            *[1e3 * sec[k] / CLI_FRAMES for k in (
+                                'read', 'serve', 'write')], sec['setup'],
+                            {k: v for k, v in launches.items() if v},
+                            summary['metrics'], power))
+            if model == 'radarnet' and case == 'a':
+                # FusionNet reads RadarNet's outputs of run a, as the
+                # stages run from files
+                for s in RUN_STREAMS['radarnet']:
+                    io.write_paths(os.path.join(tmp, s + '.txt'), [
+                        os.path.join(out_dir, s, n) for n in names])
+                inputs['fusionnet'] = {
+                    '--restore_path': [checkpoints[1]],
+                    '--image_path': [manifests['image']],
+                    '--depth_path': [os.path.join(
+                        tmp, 'output_depth_radar.txt')],
+                    '--response_path': [os.path.join(
+                        tmp, 'output_response_radar.txt')],
+                    '--ground_truth_path': [manifests['ground_truth']]}
+        a, b = files['run {} a'.format(model)], files['run {} b'.format(model)]
+        for s in RUN_STREAMS[model]:
+            for n, x, y in zip(names, a[s], b[s]):
+                check(np.array_equal(x, y), 'run {}: {}/{}: the codes made on '
+                      'the card differ from the float writers\' at {} '
+                      'pixels'.format(model, s, n, int((x != y).sum())))
+        c = 'run {} c'.format(model)
+        log('run {}: (b)\'s files (codes made on the card, no ground truth) '
+            'equal (a)\'s (float writers) byte for byte in {}; bf16 (c) '
+            'metrics {} against float32 (a) {}'.format(
+                model, ', '.join(RUN_STREAMS[model]), metrics[c],
+                metrics['run {} a'.format(model)]))
+
+    # RadarNet's run a against stage 1 of the serving pipeline, folded with
+    # K1, on the same 8 frames in one request
+    dataset = RadarNetInferenceDataset(paths['image'], paths['radar'],
+                                       max_points=None, device=device)
+    samples = [dataset.get(i) for i in range(CLI_FRAMES)]
+    widths = ('n_filters_encoder_image', 'n_neurons_encoder_depth',
+              'n_filters_decoder')
+    pipe = TwoStagePipeline.from_checkpoints(
+        *checkpoints, image_height=H, image_width=W, patch_size=PATCH,
+        radarnet_kwargs=dict({k: RADARNET[k] for k in widths},
+                             perf=PerfConfig(pallas_scatter=True)),
+        fusionnet_kwargs={k: FUSIONNET[k] for k in (
+            'n_filters_encoder_image', 'n_filters_encoder_depth',
+            'n_filters_decoder')},
+        optimize=True, device=device)
+    _, quasi, response = codec_encode(*pipe.forward_batched(
+        *(np.stack([x[i] for x in samples]) for i in range(3))))
+    got = files['run radarnet a']
+    differ = [int((got[s][f] != ref[f].cpu().numpy().astype(np.int64))
+                  .sum()) for f in range(CLI_FRAMES)
+              for s, ref in (('output_depth_radar', quasi),
+                             ('output_response_radar', response))]
+    check(not any(differ), 'run radarnet a: quasi depth and response differ '
+          'from the pipeline\'s stage 1 at {} pixels'.format(differ))
+    log('run radarnet a: quasi depth and response of all {} frames equal '
+        'stage 1 of TwoStagePipeline (folded, K1, one request of {}) code '
+        'for code; {} covered pixels'.format(
+            CLI_FRAMES, CLI_FRAMES,
+            sum(int((x > 0).sum()) for x in got['output_depth_radar'])))
+    del pipe
 
 
 def native_codes(maps):
@@ -3339,11 +3830,20 @@ def main():
     with Phase('cli'), tempfile.TemporaryDirectory() as tmp:
         phase_cli(device, record, rn, fn, tmp)
     torch.cuda.empty_cache()
-    with Phase('train'), tempfile.TemporaryDirectory() as tmp:
-        phase_train(device, rn, tmp)
+    # the three training phases share their files
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase('train'):
+            fusionnet_f32 = phase_train(device, rn, tmp)
+        torch.cuda.empty_cache()
+        with Phase('train_radarnet'):
+            radarnet_f32 = phase_train_radarnet(device, record, fn, tmp)
+        torch.cuda.empty_cache()
+        with Phase('train_bf16'):
+            phase_train_bf16(device, record, dict(
+                tmp=tmp, fusionnet=fusionnet_f32, radarnet=radarnet_f32))
     torch.cuda.empty_cache()
-    with Phase('train_radarnet'), tempfile.TemporaryDirectory() as tmp:
-        phase_train_radarnet(device, record, fn, tmp)
+    with Phase('run'), tempfile.TemporaryDirectory() as tmp:
+        phase_run(device, record, rn, fn, tmp)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

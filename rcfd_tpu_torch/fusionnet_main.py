@@ -11,12 +11,17 @@ training mode (batch norm by the batch's statistics), computes the masked
 multi-scale loss, back-propagates through autograd (cuDNN for the
 convolutions) and takes an Adam step (torch.optim.Adam: L2 decay added to
 the gradient and bias correction, the JAX package's ``adam_step``). It
-computes in float32 with TF32 off (``training_numerics``).
+computes in float32 with TF32 off (``training_numerics``), or under
+RCFD_TRAIN_DTYPE=bfloat16 in mixed precision as the JAX package does: the
+image and the input depth (depth, response) are cast to bf16, so the
+network computes in bf16 from bf16 copies of the float32 master weights;
+the ground truth, its dilation and outlier removal, the validity maps, the
+losses, the gradients in the masters and Adam's state stay float32.
 
 Not in the port yet, each refused with a message: data parallelism over
-more than one card (``n_data_parallel`` > 1), bf16 training
-(RCFD_TRAIN_DTYPE=bfloat16), ``device='tpu'``. The TensorBoard image
-panels of the JAX training loop are not written; scalars are.
+more than one card (``n_data_parallel`` > 1), ``device='tpu'``. The
+TensorBoard image panels of the JAX training loop are not written; scalars
+are.
 
 A run restored at step s resumes at step s + 1 (rcfd_tpu_torch/training.py
 says how this differs from the JAX training loop).
@@ -40,9 +45,11 @@ from .data.transforms import Transforms
 from .models.fusionnet import FusionNetModel
 from .nn import functional as NF
 from .nn.layers import init_parameters
+from .nn.optimize import fold_batch_norm
+from .pipeline import encode_depth, serving_numerics
 from .training import (OptimizerStep, epochs, eval_mode, make_optimizer,
                        numerics_line, refuse_unported, step_seed,
-                       step_timing, timed, training_numerics)
+                       step_timing, timed, train_dtype, training_numerics)
 from .utils import eval_utils
 from .utils.checkpoint import find_latest_checkpoint
 from .utils.log_utils import log
@@ -76,13 +83,15 @@ class TrainStep(OptimizerStep):
     ``_make_train_step``). ``batch`` is the loader's (image, depth,
     response, ground_truth, lidar_map) on the model's device, NHWC, in the
     integer transport or float; ``draws`` is ``transforms.draws(...)`` for
-    it."""
+    it. The step's dtype is ``training.train_dtype()``'s when it is
+    built."""
 
     def __init__(self, model: FusionNetModel, transforms: Transforms,
                  optimizer: torch.optim.Optimizer, loss_func: str,
                  w_smoothness: float, w_lidar_loss: float,
                  loss_smoothness_kernel_size: int, outlier_kernel_size: int,
                  outlier_threshold: float, dilation_kernel_size: int):
+        self.compute_dtype = train_dtype()
         self.model = model
         self.transforms = transforms
         self.optimizer = optimizer
@@ -97,7 +106,8 @@ class TrainStep(OptimizerStep):
     def inputs(self, batch, draws):
         """Decode and augment the batch, then dilate the ground truth and
         remove its outliers: (image, input_depth, ground_truth, lidar_map,
-        validity_map_loss_smoothness), NCHW."""
+        validity_map_loss_smoothness), NCHW; the image and the input depth
+        in the step's dtype."""
         image, depth, response, ground_truth, lidar_map = (
             transport.decode(t) for t in batch)
         image, maps, _ = self.transforms.apply(
@@ -118,9 +128,12 @@ class TrainStep(OptimizerStep):
         # CPU oneDNN's backward of a convolution of a channels-last input
         # corrupts memory that the process trips over at exit (torch 2.11
         # and 2.13)
-        return (image.contiguous(),
-                torch.cat([depth, response], 1).contiguous(), ground_truth,
-                lidar_map, validity)
+        image = image.contiguous()
+        input_depth = torch.cat([depth, response], 1).contiguous()
+        if self.compute_dtype is not None:
+            image = image.to(self.compute_dtype)
+            input_depth = input_depth.to(self.compute_dtype)
+        return image, input_depth, ground_truth, lidar_map, validity
 
     def loss(self, batch, draws):
         """The forward in the model's mode and the loss: (loss,
@@ -137,11 +150,18 @@ class TrainStep(OptimizerStep):
             w_lidar_loss=self.w_lidar_loss)
 
 
-def make_forward_fn(model: FusionNetModel, transforms: Transforms):
-    """The inference forward of full-resolution frames: (image, depth,
+def make_forward_fn(model: FusionNetModel, transforms: Transforms,
+                    codec_encode: bool = False):
+    """The inference forward of full-resolution frames
+    (rcfd_tpu/fusionnet_main.py ``make_forward_fn``): (image, depth,
     response) NHWC transport tensors on the model's device -> depth
-    (B, H, W) float32. Runs the model in eval mode (running statistics) and
-    leaves its mode as it was."""
+    (B, H, W) float32, or with ``codec_encode`` its 16-bit PNG codes
+    (uint16 floor(z * 256), made on the device: half the bytes to copy to
+    the host, the same files). The normalized image and the input depth are
+    cast to the dtype of the model's parameters (bf16 for a model cast to
+    it). Runs the model in eval mode (running statistics) and leaves its
+    mode as it was."""
+    dtype = next(model.parameters()).dtype
 
     @torch.inference_mode()
     def forward(image, depth, response):
@@ -151,26 +171,36 @@ def make_forward_fn(model: FusionNetModel, transforms: Transforms):
         input_depth = torch.cat([depth, response], -1).permute(
             0, 3, 1, 2).contiguous()
         with eval_mode(model):
-            return model(image, input_depth)[:, 0].float()
+            output = model(image.to(dtype), input_depth.to(dtype))[:, 0]
+        return encode_depth(output) if codec_encode else output.float()
 
     return forward
 
 
-def iter_forward_outputs(forward_fn, dataset, eval_batch_size: int, device):
+def iter_forward_outputs(forward_fn, dataset, eval_batch_size: int, device,
+                         seconds: Optional[dict] = None):
     """Drive ``forward_fn`` over an inference dataset in batches of
     ``eval_batch_size`` frames, yielding per frame (idx, the host sample
     decoded to float32, output depth (H, W) numpy) in order. The tail batch
     is padded by repeating its last sample; the padded outputs are
-    dropped, so the per-frame results equal batch 1's."""
+    dropped, so the per-frame results equal batch 1's. ``seconds``, a
+    dict, gains the host's reads under 'read' and the forward up to the
+    outputs on the host under 'serve'."""
+    seconds = {} if seconds is None else seconds
     n = len(dataset)
     bsz = max(1, min(eval_batch_size, n))
     for start in range(0, n, bsz):
+        t0 = time.perf_counter()
         idxs = list(range(start, min(start + bsz, n)))
         samples = [dataset.get(i) for i in idxs]
         padded = samples + [samples[-1]] * (bsz - len(samples))
         streams = [torch.from_numpy(np.stack([s[j] for s in padded])).to(
             device) for j in range(3)]
+        t1 = time.perf_counter()
         outputs = forward_fn(*streams).cpu().numpy()
+        seconds['read'] = seconds.get('read', 0.0) + t1 - t0
+        seconds['serve'] = seconds.get('serve', 0.0) + \
+            time.perf_counter() - t1
         for j, idx in enumerate(idxs):
             yield idx, transport.decode_np(samples[j]), outputs[j]
 
@@ -347,7 +377,7 @@ def train(train_image_path, train_depth_path, train_response_path,
             log_path, eval_batch_size, device)
 
     with training_numerics():
-        log(numerics_line())
+        log(numerics_line(step_fn.compute_dtype))
         log('Begin training...', log_path)
         for epoch, start, learning_rate, augmentation_probability in epochs(
                 learning_rates, learning_schedule, augmentation_probabilities,
@@ -391,6 +421,156 @@ def train(train_image_path, train_depth_path, train_response_path,
     train_summary_writer.close()
     val_summary_writer.close()
     return best_results
+
+
+def load_model(restore_path, input_channels_image, input_channels_depth,
+               encoder_type, n_filters_encoder_image, n_filters_encoder_depth,
+               fusion_type, decoder_type, n_resolutions_decoder,
+               n_filters_decoder, weight_initializer, activation_func,
+               min_predict_depth, max_predict_depth, device,
+               compute_dtype=None):
+    """FusionNet for inference from a checkpoint, as the JAX package's
+    ``run`` builds it (rcfd_tpu/fusionnet_main.py:706-721): the weights
+    restored, every batch norm folded into its convolution, then cast to
+    ``compute_dtype`` (None or torch.float32: float32). Returns (the model
+    on ``device``, the checkpoint's train step)."""
+    model = FusionNetModel(
+        input_channels_image=input_channels_image,
+        input_channels_depth=input_channels_depth, encoder_type=encoder_type,
+        n_filters_encoder_image=n_filters_encoder_image,
+        n_filters_encoder_depth=n_filters_encoder_depth,
+        fusion_type=fusion_type, decoder_type=decoder_type,
+        n_resolution_decoder=n_resolutions_decoder,
+        n_filters_decoder=n_filters_decoder, deconv_type='up',
+        activation_func=activation_func,
+        weight_initializer=weight_initializer,
+        min_predict_depth=min_predict_depth,
+        max_predict_depth=max_predict_depth, device='cpu')
+    step = model.restore_checkpoint(restore_path, device='cpu')
+    model = fold_batch_norm(model).to(device, compute_dtype or torch.float32)
+    return model, step
+
+
+def run(restore_path, image_path, depth_path, response_path,
+        ground_truth_path,
+        # Input settings
+        input_channels_image, input_channels_depth, normalized_image_range,
+        # Network settings
+        encoder_type, n_filters_encoder_image, n_filters_encoder_depth,
+        fusion_type, decoder_type, n_filters_decoder, n_resolutions_decoder,
+        min_predict_depth, max_predict_depth,
+        # Weight settings
+        weight_initializer, activation_func,
+        # Output settings
+        output_dirpath, save_outputs, keep_input_filenames, verbose=True,
+        # Evaluation settings
+        min_evaluate_depth=0.0, max_evaluate_depth=100.0,
+        eval_batch_size: int = 8,
+        # Hardware settings
+        device=None, compute_dtype=None):
+    """Inference and evaluation over a manifest (reference
+    src/fusionnet_main.py:608-896, rcfd_tpu/fusionnet_main.py ``run``), on
+    ``device`` (``cuda`` unless ``device='cpu'``), ``eval_batch_size``
+    frames a forward, FusionNet folded (``load_model``) in
+    ``compute_dtype``, under the serving numerics. With ground truth the
+    mean MAE, RMSE, iMAE and iRMSE go to results.txt; with
+    ``save_outputs`` the image, ground truth, output depth and the input
+    depth and response go to PNGs, the output depth as 16-bit codes made
+    on the device when there is no ground truth (the same files). Returns
+    (the metrics or None, seconds) with seconds the setup, the host's
+    reads, the serving (to the outputs on the host) and the rest (metrics
+    and writes)."""
+    t_start = time.perf_counter()
+    device = default_device(device)
+    os.makedirs(output_dirpath, exist_ok=True)
+    log_path = os.path.join(output_dirpath, 'results.txt')
+
+    image_paths = data_utils.read_paths(image_path)
+    depth_paths = data_utils.read_paths(depth_path)
+    response_paths = data_utils.read_paths(response_path)
+    n_sample = len(image_paths)
+    ground_truth_available = ground_truth_path is not None and \
+        os.path.exists(ground_truth_path)
+    ground_truth_paths = data_utils.read_paths(ground_truth_path) \
+        if ground_truth_available else None
+    dataset = FusionNetInferenceDataset(
+        image_paths, depth_paths, response_paths, ground_truth_paths,
+        device=device)
+    if save_outputs:
+        output_dirs = {name: os.path.join(output_dirpath, name) for name in (
+            'image', 'ground_truth', 'output_depth_fusion',
+            'output_depth_radar', 'output_response_radar')}
+        for dirpath in output_dirs.values():
+            os.makedirs(dirpath, exist_ok=True)
+    model, step = load_model(
+        restore_path, input_channels_image, input_channels_depth,
+        encoder_type, n_filters_encoder_image, n_filters_encoder_depth,
+        fusion_type, decoder_type, n_resolutions_decoder, n_filters_decoder,
+        weight_initializer, activation_func, min_predict_depth,
+        max_predict_depth, device, compute_dtype)
+    # passes that only write PNGs (no eval) fetch the uint16 codec grid:
+    # half the device-to-host bytes, the same files; eval passes keep
+    # float32 so that the metrics run on unquantized maps
+    codec_d2h = bool(save_outputs) and not ground_truth_available
+    forward_fn = make_forward_fn(
+        model, Transforms(normalized_image_range=normalized_image_range),
+        codec_encode=codec_d2h)
+    log('Gates: RCFD_COMPUTE_DTYPE {}'.format(
+        'bfloat16' if compute_dtype == torch.bfloat16 else 'float32'))
+
+    log('Evaluation input paths:', log_path)
+    for p in [image_path, depth_path, response_path] + \
+            ([ground_truth_path] if ground_truth_available else []):
+        log(str(p), log_path)
+    log('', log_path)
+
+    metrics = {k: np.zeros(n_sample) for k in ('mae', 'rmse', 'imae',
+                                                'irmse')}
+    seconds = dict(setup=time.perf_counter() - t_start, read=0.0, serve=0.0)
+    t_loop = time.perf_counter()
+    with serving_numerics():
+        for idx, sample, output_depth in iter_forward_outputs(
+                forward_fn, dataset, eval_batch_size, device, seconds):
+            image, depth, response = sample[:3]
+            if verbose:
+                print('Processed {}/{} samples'.format(idx + 1, n_sample),
+                      end='\r')
+            if ground_truth_available:
+                gt = sample[3][..., 0]
+                m = eval_utils.compute_all(output_depth, gt,
+                                           min_evaluate_depth,
+                                           max_evaluate_depth)
+                for k in metrics:
+                    metrics[k][idx] = m[k]
+            if save_outputs:
+                filename = (os.path.splitext(os.path.basename(
+                    image_paths[idx]))[0] + '.png') if keep_input_filenames \
+                    else '{:010d}.png'.format(idx)
+                data_utils.save_image(image / 255.0, os.path.join(
+                    output_dirs['image'], filename))
+                fusion_path = os.path.join(
+                    output_dirs['output_depth_fusion'], filename)
+                if codec_d2h:
+                    data_utils.save_depth_encoded(output_depth, fusion_path)
+                else:
+                    data_utils.save_depth(output_depth, fusion_path)
+                data_utils.save_depth(depth[..., 0], os.path.join(
+                    output_dirs['output_depth_radar'], filename))
+                data_utils.save_response(response[..., 0], os.path.join(
+                    output_dirs['output_response_radar'], filename))
+                if ground_truth_available:
+                    data_utils.save_depth(gt, os.path.join(
+                        output_dirs['ground_truth'], filename))
+    seconds['write'] = time.perf_counter() - t_loop - seconds['read'] - \
+        seconds['serve']
+
+    results = None
+    if ground_truth_available:
+        results = {k: float(np.mean(v)) for k, v in metrics.items()}
+        log_evaluation_results('Evaluation results', results['mae'],
+                               results['rmse'], results['imae'],
+                               results['irmse'], step, log_path)
+    return results, seconds
 
 
 '''

@@ -13,7 +13,9 @@ Semantics kept from the JAX package:
 - batch norm (inference) computes ``x * scale + shift`` with
   ``scale = w * rsqrt(var + eps)`` in float32, rounded to x's dtype, as
   the JAX package does. Training batch norm (``layers.BatchNorm2d.train()``)
-  is torch's ``batch_norm(training=True)``, as the JAX package's is XLA's.
+  is torch's ``batch_norm(training=True)`` on float32 input, as the JAX
+  package's is XLA's; on bf16 input it takes the JAX package's formula,
+  ``batch_norm_train_stats`` then ``batch_norm_apply``.
 """
 
 from __future__ import annotations
@@ -161,6 +163,15 @@ def batch_norm_apply(x, weight, bias, mean, var, eps: float = 1e-5):
     scale = (weight * inv).to(x.dtype)
     shift = (bias - mean * weight * inv).to(x.dtype)
     return x * scale[:, None, None] + shift[:, None, None]
+
+
+def batch_norm_train_stats(x):
+    """The batch mean and biased variance of NCHW x over (N, H, W), in at
+    least float32, as E[x^2] - mean^2 (rcfd_tpu/nn/functional.py
+    ``batch_norm_train_stats``)."""
+    xs = x.to(torch.promote_types(torch.float32, x.dtype))
+    mean = xs.mean((0, 2, 3))
+    return mean, (xs * xs).mean((0, 2, 3)) - mean * mean
 
 
 def resize_nearest(x, shape: Tuple[int, int]):

@@ -40,8 +40,14 @@ class BatchNorm2d(nn.Module):
     training mode it normalizes by the batch's mean and biased variance,
     moves the running mean and variance by momentum toward the batch mean
     and unbiased variance, and counts the batch in
-    ``num_batches_tracked``, as the JAX package does; torch's
-    ``batch_norm(training=True)`` computes it (JAX computes it in XLA)."""
+    ``num_batches_tracked``, as the JAX package does. On float32 input
+    torch's ``batch_norm(training=True)`` computes it (JAX computes it in
+    XLA). On bf16 input (bf16 training) it takes the JAX package's formula:
+    the batch statistics in float32 as E[x^2] - mean^2
+    (``functional.batch_norm_train_stats``), the unbiased variance n/(n-1)
+    times theirs for the running statistics, and the normalization by
+    ``functional.batch_norm_apply`` (scale and shift rounded to bf16 and
+    applied in bf16), all of it differentiable."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -64,6 +70,18 @@ class BatchNorm2d(nn.Module):
         self.num_batches_tracked.zero_()
 
     def forward(self, x):
+        if self.training and x.dtype == torch.bfloat16:
+            mean, var = F.batch_norm_train_stats(x)
+            n = x.numel() // x.shape[1]
+            m = self.momentum
+            with torch.no_grad():
+                self.running_mean.copy_((1 - m) * self.running_mean +
+                                        m * mean)
+                self.running_var.copy_((1 - m) * self.running_var +
+                                       m * (var * (n / max(n - 1, 1))))
+                self.num_batches_tracked.add_(1)
+            return F.batch_norm_apply(x, self.weight, self.bias, mean, var,
+                                      self.eps)
         if self.training:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)

@@ -30,7 +30,8 @@ defaults:
 
 The models read no environment variable; the CLIs build RadarNet's
 PerfConfig with ``perf_from_env``, from the JAX package's RCFD_* gates of
-the same names. The TPU layout gates of the JAX
+the same names, and the run drivers their models' dtype with
+``compute_dtype_from_env`` from RCFD_COMPUTE_DTYPE. The TPU layout gates of the JAX
 package (fast_decoder, packed_*, s2d_*, int8_tail, fused_upsample) are not
 ported, nor are those that choose between a Pallas kernel and XLA for the
 same result (fused_pool2_pallas, pallas_crop, fused_pool2_gather,
@@ -45,6 +46,8 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from typing import Optional
+
+import torch
 
 
 @dataclass(frozen=True)
@@ -81,3 +84,18 @@ def perf_from_env(environ=None) -> PerfConfig:
         fused_pool2=_flag(environ, 'RCFD_FUSED_POOL2') or False,
         fused_pool4=_flag(environ, 'RCFD_FUSED_POOL4') or False,
         decode_chunks=int(chunks) if chunks else None)
+
+
+def compute_dtype_from_env(environ=None):
+    """The dtype the run drivers serve their folded model in, from
+    RCFD_COMPUTE_DTYPE as the JAX package's ``run`` reads it: None
+    (float32) when it is unset, '' or 'float32'; torch.bfloat16 for
+    'bfloat16'; anything else raises."""
+    environ = os.environ if environ is None else environ
+    value = environ.get('RCFD_COMPUTE_DTYPE', '')
+    if value in ('', 'float32'):
+        return None
+    if value == 'bfloat16':
+        return torch.bfloat16
+    raise ValueError("RCFD_COMPUTE_DTYPE={!r}: expected 'float32' or "
+                     "'bfloat16'".format(value))

@@ -66,7 +66,14 @@ def batch_column_crop_backward_plain(grad_windows, starts, rows_shape,
     columns ``s_k .. s_k + win - 1`` of each window's image (starts clipped
     to [0, W] as the forward clips them); the columns past W, the forward's
     zero padding, are dropped. One ``index_add_`` over the images' padded
-    rows laid side by side, column ``n * (W + win) + s_k + j``."""
+    rows laid side by side, column ``n * (W + win) + s_k + j``, in at least
+    float32: bf16 windows' gradients are summed in float32 and the sum
+    rounded once to bf16. The JAX package's transpose of its XLA
+    formulation adds them in bf16 one window after another; the rounded
+    float32 sum is within one bf16 rounding of the exact sum, and within
+    that sequence's own rounding error of JAX's. The order of the card's
+    float32 atomics moves only the float32 sum's last bits, which the
+    rounding to bf16 hides but where a sum lies at a rounding boundary."""
     n, c, ph, w = rows_shape
     k = starts.shape[1]
     span = w + win
@@ -75,10 +82,12 @@ def batch_column_crop_backward_plain(grad_windows, starts, rows_shape,
             torch.arange(win, device=device) +
             span * torch.arange(n, device=device)[:, None, None])
     # (N * K, C, ph, win) -> (C, ph, N * K * win), the order of cols
+    acc = torch.promote_types(grad_windows.dtype, torch.float32)
     g = grad_windows.reshape(n, k, c, ph, win).permute(2, 3, 0, 1, 4)
-    out = grad_windows.new_zeros((c, ph, n * span))
-    out.index_add_(2, cols.reshape(-1), g.reshape(c, ph, n * k * win))
-    return out.view(c, ph, n, span).permute(2, 0, 1, 3)[..., :w]
+    out = grad_windows.new_zeros((c, ph, n * span), dtype=acc)
+    out.index_add_(2, cols.reshape(-1), g.reshape(c, ph, n * k * win).to(acc))
+    return out.view(c, ph, n, span).permute(2, 0, 1, 3)[..., :w].to(
+        grad_windows.dtype)
 
 
 class ColumnCrop(torch.autograd.Function):

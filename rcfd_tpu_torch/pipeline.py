@@ -50,12 +50,22 @@ def decode_chunk_count(b: int, k: int, decode_chunks: Optional[int] = None
     return n_chunks
 
 
+def encode_depth(depth):
+    """A depth map on the 16-bit PNG codec grid: uint16 floor(z * 256)
+    (float32; the product is exact, 256 being a power of two)."""
+    return (depth.float() * 256.0).to(torch.uint16)
+
+
+def encode_response(response):
+    """A response map on the 16-bit PNG codec grid: uint16
+    floor(r * 2^14)."""
+    return (response.float() * 2.0 ** 14).to(torch.uint16)
+
+
 def codec_encode(dense, quasi, response):
     """Quantize the three outputs to the 16-bit PNG codec grid: uint16
     floor(x * 256) for the depths, floor(x * 2^14) for the response."""
-    return ((dense.float() * 256.0).to(torch.uint16),
-            (quasi.float() * 256.0).to(torch.uint16),
-            (response.float() * 2.0 ** 14).to(torch.uint16))
+    return encode_depth(dense), encode_depth(quasi), encode_response(response)
 
 
 def quantize_bridge(depth_map, response_map):

@@ -1,7 +1,7 @@
 """RadarNet training and scatter inference on one card (counterpart of
 rcfd_tpu/radarnet_main.py ``_make_train_step``, ``_make_summary_forward``,
 ``make_forward_fn``, ``make_forward_fn_batched``, ``iter_scatter_outputs``,
-``train``, ``validate`` and ``log_evaluation_results``; reference
+``train``, ``validate``, ``run`` and ``log_evaluation_results``; reference
 src/radarnet_main.py).
 
 A train step decodes the integer transport batch (the edge-padded frames'
@@ -13,19 +13,29 @@ each crop pixel by |gt - z| < tau where gt > 0, runs RadarNet in training
 mode on the B*K points (batch norm by the batch's statistics; the column
 crop kernel K2 with its gradient at a patch width that is not a multiple of
 32), computes the masked positive-weighted BCE, back-propagates and takes an
-Adam step. It computes in float32 with TF32 off (``training_numerics``).
+Adam step. It computes in float32 with TF32 off (``training_numerics``),
+or under RCFD_TRAIN_DTYPE=bfloat16 in mixed precision as the JAX package
+does: the image is cast to bf16, and only the image (the points are pixel
+coordinates up to about 1900, which bf16 quantizes in steps of 8), so the
+image encoder and the decoder compute in bf16 from bf16 copies of the
+float32 master weights, the point MLP in float32; labels, validity, the
+loss, the gradients in the masters and Adam's state stay float32.
 
 Validation is scatter inference (``make_forward_fn_batched``): the frames'
 per-point response crops scattered into quasi-dense depth by the route of
 ``scatter_route`` (by default the scatter kernel K1 on the card, the exact
 max on the CPU), scored by the intersection metrics, with the best step
-chosen by a vote of 4 of 5.
+chosen by a vote of 4 of 5. ``run`` is the same scatter inference over a
+manifest from a checkpoint (the CLI ``python -m
+rcfd_tpu_torch.run_radarnet``), with RadarNet's batch norm folded, in
+float32 or bf16, writing the outputs as PNGs and the metrics to
+results.txt.
 
 As in the JAX package, training writes no optimizer state into its
 checkpoints (an empty ``radarnet_optimizer_state_dict``), so a restored run
 starts Adam afresh. Not in the port yet, each refused with a message: data
-parallelism over more than one card (``n_data_parallel`` > 1), bf16
-training (RCFD_TRAIN_DTYPE=bfloat16), ``device='tpu'``. A run restored at
+parallelism over more than one card (``n_data_parallel`` > 1),
+``device='tpu'``. A run restored at
 step s resumes at step s + 1 (rcfd_tpu_torch/training.py says how this
 differs from the JAX training loop).
 """
@@ -39,7 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import default_device
+from . import default_device, native
 from .data import io as data_utils
 from .data import transport
 from .data.datasets import RadarNetInferenceDataset, RadarNetTrainingDataset
@@ -47,12 +57,15 @@ from .data.loader import DataLoader, device_prefetch, iter_device_batches
 from .data.transforms import Transforms
 from .models.radarnet import RadarNetModel
 from .nn.layers import init_parameters
+from .nn.optimize import fold_batch_norm
+from .nn.perf import PerfConfig
 from .ops import scatter as exact_scatter
 from .ops import scatter_cuda
-from .pipeline import decode_chunk_count, radarnet_crops
+from .pipeline import (decode_chunk_count, encode_depth, encode_response,
+                       radarnet_crops, serving_numerics)
 from .training import (OptimizerStep, epochs, eval_mode, make_optimizer,
                        numerics_line, refuse_unported, step_seed,
-                       step_timing, timed, training_numerics)
+                       step_timing, timed, train_dtype, training_numerics)
 from .utils import eval_utils
 from .utils.checkpoint import find_latest_checkpoint
 from .utils.log_utils import colorize, log
@@ -95,13 +108,15 @@ class TrainStep(OptimizerStep):
     ground_truth) on the model's device, in the integer transport or
     float: image (B, ph, W + 2 pad, 3), points (B, K, 3), boxes (B, K, 4),
     ground truth (B, K, ph, pw, 1). ``draws`` is ``transforms.draws(...,
-    points_shape=(B, K, 3))`` for it."""
+    points_shape=(B, K, 3))`` for it. The step's dtype is
+    ``training.train_dtype()``'s when it is built."""
 
     def __init__(self, model: RadarNetModel, transforms: Transforms,
                  optimizer: torch.optim.Optimizer, patch_size,
                  max_distance_correspondence: float,
                  set_invalid_to_negative_class: bool,
                  w_positive_class: float):
+        self.compute_dtype = train_dtype()
         self.model = model
         self.transforms = transforms
         self.optimizer = optimizer
@@ -111,9 +126,9 @@ class TrainStep(OptimizerStep):
         self.w_positive_class = w_positive_class
 
     def inputs(self, batch, draws):
-        """Decode and augment the batch and label its crops: (image NCHW,
-        points (B*K, 3), x1 (B, K) from the boxes after the flip, labels
-        and validity (B*K, 1, ph, pw))."""
+        """Decode and augment the batch and label its crops: (image NCHW in
+        the step's dtype, points (B*K, 3), x1 (B, K) from the boxes after
+        the flip, labels and validity (B*K, 1, ph, pw))."""
         image, points, boxes, ground_truth = transport.decode(tuple(batch))
         image, (ground_truth,), (boxes,) = self.transforms.apply(
             draws, image, [ground_truth], [boxes])
@@ -132,7 +147,10 @@ class TrainStep(OptimizerStep):
         # the network's image in NCHW memory: a permuted NHWC map is a
         # channels-last view, and on the CPU oneDNN's backward of a
         # convolution of a channels-last input corrupts memory
-        return (image.permute(0, 3, 1, 2).contiguous(), points.contiguous(),
+        image = image.permute(0, 3, 1, 2).contiguous()
+        if self.compute_dtype is not None:
+            image = image.to(self.compute_dtype)
+        return (image, points.contiguous(),
                 boxes[..., 0].contiguous(), label, validity)
 
     def loss(self, batch, draws):
@@ -143,7 +161,7 @@ class TrainStep(OptimizerStep):
         loss, loss_info = self.model.compute_loss(
             logits, label, validity, self.w_positive_class)
         with torch.no_grad():
-            predicted = (torch.sigmoid(logits) > 0.5).to(logits.dtype)
+            predicted = (torch.sigmoid(logits) > 0.5).to(label.dtype)
             loss_info['average_ground_truth_label_per_point'] = \
                 label.sum((1, 2, 3)).mean()
             loss_info['average_predicted_label_per_point'] = \
@@ -232,15 +250,22 @@ def scatter_route(pallas_scatter, device, k: int):
 
 def make_forward_fn_batched(model: RadarNetModel, transforms: Transforms,
                             image_height: int, image_width: int,
-                            threshold: float = 0.5):
+                            threshold: float = 0.5,
+                            codec_encode: bool = False):
     """Scatter inference over B frames (rcfd_tpu/radarnet_main.py
     ``make_forward_fn_batched``): images (B, H, W, 3) in [0, 255] (uint8
     under integer transport), points (B, K, 3), valid (B, K) on the model's
-    device -> depth_map, response_map (B, H, W) float32. RadarNet runs in
-    eval mode, its mode restored after, and decodes the B*K patches in
+    device -> depth_map, response_map (B, H, W) float32, or with
+    ``codec_encode`` their 16-bit PNG codes (uint16 floor(z * 256) and
+    floor(r * 2^14), made on the device: half the bytes to copy to the
+    host, the same files). RadarNet runs in eval mode, its mode restored
+    after, and decodes the B*K patches in
     ``decode_chunk_count(B, K, model.perf.decode_chunks)`` chunks; the
-    scatter is ``scatter_route``'s."""
+    normalized image is cast to the dtype of the model's parameters (bf16
+    for a model cast to it), the points never; the scatter is
+    ``scatter_route``'s."""
     patch_size = model.input_patch_size_image
+    dtype = next(model.parameters()).dtype
 
     @torch.inference_mode()
     def forward(images, points, valid):
@@ -248,12 +273,15 @@ def make_forward_fn_batched(model: RadarNetModel, transforms: Transforms,
         with eval_mode(model):
             _, crops, xs, zs = radarnet_crops(
                 model, transforms, images, points, image_height,
-                decode_chunk_count(b, k, model.perf.decode_chunks))
+                decode_chunk_count(b, k, model.perf.decode_chunks), dtype)
         route = scatter_route(model.perf.pallas_scatter, crops.device, k)
-        return route.scatter_quasi_dense_batched(
+        depth_map, response_map = route.scatter_quasi_dense_batched(
             crops, xs, zs, valid.to(torch.bool), image_height=image_height,
             image_width=image_width, patch_size=patch_size,
             threshold=threshold)
+        if codec_encode:
+            return encode_depth(depth_map), encode_response(response_map)
+        return depth_map, response_map
 
     return forward
 
@@ -274,18 +302,27 @@ def make_forward_fn(model: RadarNetModel, transforms: Transforms,
     return forward
 
 
-def iter_scatter_outputs(forward_fn, dataset, eval_batch_size: int, device):
+def iter_scatter_outputs(forward_fn, dataset, eval_batch_size: int, device,
+                         seconds: Optional[dict] = None):
     """Drive a batched scatter forward over a RadarNetInferenceDataset,
     yielding per frame (idx, the host sample decoded to float32, depth
     (H, W), response (H, W)) in order (rcfd_tpu/radarnet_main.py
     ``iter_scatter_outputs``). The host reads and copies batch i + 1 while
     the card works on batch i (``iter_device_batches``); the tail batch is
     padded by repeating its last sample, and the padded outputs dropped, so
-    the per-frame results equal batch 1's."""
-    for idxs, samples, (images, points, valid) in iter_device_batches(
-            dataset, eval_batch_size, device, fields=(0, 1, 2)):
+    the per-frame results equal batch 1's. ``seconds``, a dict, gains the
+    host's wait for each batch under 'read' and its forward up to the
+    outputs on the host under 'serve'."""
+    seconds = {} if seconds is None else seconds
+    for (idxs, samples, (images, points, valid)), wait_ms, _ in timed(
+            iter_device_batches(dataset, eval_batch_size, device,
+                                fields=(0, 1, 2))):
+        t0 = time.perf_counter()
         depth_b, response_b = (t.cpu().numpy() for t in forward_fn(
             images, points, valid))
+        seconds['read'] = seconds.get('read', 0.0) + wait_ms / 1e3
+        seconds['serve'] = seconds.get('serve', 0.0) + \
+            time.perf_counter() - t0
         for j, idx in enumerate(idxs):
             yield idx, transport.decode_np(samples[j]), depth_b[j], \
                 response_b[j]
@@ -517,7 +554,7 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
             log_path, eval_batch_size, device)
 
     with training_numerics():
-        log(numerics_line())
+        log(numerics_line(step_fn.compute_dtype))
         log('Begin training...', log_path)
         for epoch, start, learning_rate, augmentation_probability in epochs(
                 learning_rates, learning_schedule, augmentation_probabilities,
@@ -562,6 +599,182 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
     train_summary_writer.close()
     val_summary_writer.close()
     return best_results
+
+
+def load_model(restore_path, patch_size, input_channels_image,
+               input_channels_depth, encoder_type, n_filters_encoder_image,
+               n_neurons_encoder_depth, decoder_type, n_filters_decoder,
+               weight_initializer, activation_func, device, perf=None,
+               compute_dtype=None):
+    """RadarNet for scatter inference from a checkpoint, as the JAX
+    package's ``run`` builds it (rcfd_tpu/radarnet_main.py:869-884): the
+    weights restored, every batch norm folded into its convolution, then
+    cast to ``compute_dtype`` (None or torch.float32: float32). Returns
+    (the model on ``device``, the checkpoint's train step)."""
+    model = RadarNetModel(
+        input_channels_image=input_channels_image,
+        input_channels_depth=input_channels_depth,
+        input_patch_size_image=tuple(patch_size), encoder_type=encoder_type,
+        n_filters_encoder_image=n_filters_encoder_image,
+        n_neurons_encoder_depth=n_neurons_encoder_depth,
+        decoder_type=decoder_type, n_filters_decoder=n_filters_decoder,
+        weight_initializer=weight_initializer,
+        activation_func=activation_func, device='cpu', perf=perf)
+    step = model.restore_checkpoint(restore_path, device='cpu')
+    model = fold_batch_norm(model).to(device, compute_dtype or torch.float32)
+    return model, step
+
+
+def gates_line(perf, compute_dtype, scatter) -> str:
+    """The RCFD_* gates a run took, in one line: the scatter's route, the
+    deferred skip pools, the decode chunks and the compute dtype."""
+    return ('Gates: scatter {} (RCFD_PALLAS_SCATTER {}), RCFD_FUSED_POOL2 '
+            '{}, RCFD_FUSED_POOL4 {}, RCFD_DECODE_CHUNKS {}, '
+            'RCFD_COMPUTE_DTYPE {}'.format(
+                'the kernel K1' if scatter is scatter_cuda else
+                'the exact float max',
+                'unset' if perf.pallas_scatter is None else
+                int(perf.pallas_scatter), int(perf.fused_pool2),
+                int(perf.fused_pool4),
+                'auto' if perf.decode_chunks is None else perf.decode_chunks,
+                'bfloat16' if compute_dtype == torch.bfloat16 else
+                'float32'))
+
+
+def run(restore_path, image_path, radar_path, ground_truth_path,
+        # Input settings
+        patch_size, input_channels_image, input_channels_depth,
+        normalized_image_range,
+        # Network settings
+        encoder_type, n_filters_encoder_image, n_neurons_encoder_depth,
+        decoder_type, n_filters_decoder,
+        # Weight settings
+        weight_initializer, activation_func,
+        # Output settings
+        output_dirpath, save_outputs, keep_input_filenames, verbose=True,
+        # Evaluation settings
+        min_evaluate_depth=0.0, max_evaluate_depth=100.0,
+        max_points_inference: int = 0, response_thr: float = 0.5,
+        eval_batch_size: int = 8,
+        # Hardware settings
+        device=None, perf=None, compute_dtype=None):
+    """Scatter inference over a manifest (reference
+    src/radarnet_main.py:789-1101, rcfd_tpu/radarnet_main.py ``run``), on
+    ``device`` (``cuda`` unless ``device='cpu'``), ``eval_batch_size``
+    frames a forward: RadarNet folded (``load_model``) in
+    ``compute_dtype``, ``perf`` its PerfConfig, the scatter
+    ``scatter_route``'s, all under the serving numerics. With ground truth
+    the intersection metrics (x1000 / x0.001 over the pixels where output
+    and ground truth have depth within (min, max), frames without one
+    dropped from the means) go to results.txt; with ``save_outputs`` the
+    image, ground truth, quasi-dense depth and response go to PNGs, the
+    outputs as 16-bit codes made on the device when there is no ground
+    truth (the same files). Returns (the metrics or None, the depth paths,
+    the response paths, seconds) with seconds the setup, the host's read
+    wait, the serving (to the outputs on the host) and the rest (metrics
+    and writes)."""
+    t_start = time.perf_counter()
+    device = default_device(device)
+    perf = perf if perf is not None else PerfConfig()
+    os.makedirs(output_dirpath, exist_ok=True)
+    log_path = os.path.join(output_dirpath, 'results.txt')
+
+    image_paths = data_utils.read_paths(image_path)
+    radar_paths = data_utils.read_paths(radar_path)
+    n_sample = len(image_paths)
+    ground_truth_available = bool(ground_truth_path) and \
+        os.path.exists(ground_truth_path)
+    ground_truth_paths = data_utils.read_paths(ground_truth_path) \
+        if ground_truth_available else None
+    dataset = RadarNetInferenceDataset(
+        image_paths, radar_paths, ground_truth_paths,
+        max_points=(None if max_points_inference is None or
+                    max_points_inference <= 0 else max_points_inference),
+        device=device)
+    model, step = load_model(
+        restore_path, patch_size, input_channels_image, input_channels_depth,
+        encoder_type, n_filters_encoder_image, n_neurons_encoder_depth,
+        decoder_type, n_filters_decoder, weight_initializer, activation_func,
+        device, perf, compute_dtype)
+    image_height, image_width = native.probe(image_paths[0])
+    # passes that only write PNGs (no eval) fetch the uint16 codec grid:
+    # half the device-to-host bytes, the same files; eval passes keep
+    # float32 so that the metrics run on unquantized maps
+    codec_d2h = bool(save_outputs) and not ground_truth_available
+    forward_fn = make_forward_fn_batched(
+        model, Transforms(normalized_image_range=normalized_image_range),
+        image_height, image_width, threshold=response_thr,
+        codec_encode=codec_d2h)
+    log(gates_line(perf, compute_dtype, scatter_route(
+        perf.pallas_scatter, device, dataset.max_points)))
+
+    if save_outputs:
+        output_dirs = {name: os.path.join(output_dirpath, name) for name in (
+            'image', 'ground_truth', 'output_depth_radar',
+            'output_response_radar')}
+        for dirpath in output_dirs.values():
+            os.makedirs(dirpath, exist_ok=True)
+    errors = {k: np.zeros(n_sample) for k in METRICS}
+    output_depth_paths, output_response_paths = [], []
+    seconds = dict(setup=time.perf_counter() - t_start, read=0.0, serve=0.0)
+    t_loop = time.perf_counter()
+    with serving_numerics():
+        for idx, data, output_depth, output_response in iter_scatter_outputs(
+                forward_fn, dataset, eval_batch_size, device, seconds):
+            image = data[0]
+            if verbose:
+                print('Processed {}/{} samples'.format(idx + 1, n_sample),
+                      end='\r')
+            if ground_truth_available:
+                gt = data[3][..., 0]
+                v_inter = (output_depth > 0) & (gt > 0)
+                min_max = np.logical_and(gt > min_evaluate_depth,
+                                         gt < max_evaluate_depth)
+                mask = np.where(np.logical_and(v_inter, min_max))
+                out_i, gt_i = output_depth[mask], gt[mask]
+                errors['mae_intersection'][idx] = eval_utils.mean_abs_err(
+                    1000.0 * out_i, 1000.0 * gt_i)
+                errors['rmse_intersection'][idx] = \
+                    eval_utils.root_mean_sq_err(1000.0 * out_i,
+                                                1000.0 * gt_i)
+                errors['imae_intersection'][idx] = \
+                    eval_utils.inv_mean_abs_err(0.001 * out_i, 0.001 * gt_i)
+                errors['irmse_intersection'][idx] = \
+                    eval_utils.inv_root_mean_sq_err(0.001 * out_i,
+                                                    0.001 * gt_i)
+            if save_outputs:
+                filename = (os.path.splitext(os.path.basename(
+                    image_paths[idx]))[0] + '.png') if keep_input_filenames \
+                    else '{:010d}.png'.format(idx)
+                data_utils.save_image(image / 255.0, os.path.join(
+                    output_dirs['image'], filename))
+                depth_path = os.path.join(output_dirs['output_depth_radar'],
+                                          filename)
+                response_path = os.path.join(
+                    output_dirs['output_response_radar'], filename)
+                if codec_d2h:
+                    data_utils.save_depth_encoded(output_depth, depth_path)
+                    data_utils.save_response_encoded(output_response,
+                                                     response_path)
+                else:
+                    data_utils.save_depth(output_depth, depth_path)
+                    data_utils.save_response(output_response, response_path)
+                output_depth_paths.append(depth_path)
+                output_response_paths.append(response_path)
+                if ground_truth_available:
+                    data_utils.save_depth(gt, os.path.join(
+                        output_dirs['ground_truth'], filename))
+    seconds['write'] = time.perf_counter() - t_loop - seconds['read'] - \
+        seconds['serve']
+
+    results = None
+    if ground_truth_available:
+        results = {k: float(np.mean(v[~np.isnan(v)]))
+                   for k, v in errors.items()}
+        log_evaluation_results(
+            'Evaluation results', *(results[k] for k in METRICS), 0, 0, 0,
+            step, log_path)
+    return results, output_depth_paths, output_response_paths, seconds
 
 
 def log_evaluation_results(title, mae, rmse, imae, irmse, n_valid_output,

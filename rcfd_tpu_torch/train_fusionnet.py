@@ -8,7 +8,9 @@ It takes the JAX CLI's flags with the same defaults, except ``--device``,
 which defaults to ``cuda`` (``--device cpu`` trains on the CPU), and
 ``--raw_cache_dirpath``, a cache of the JAX package's loader that the port
 does not have. ``--n_data_parallel`` above 1 and ``--device tpu`` are
-refused, as is RCFD_TRAIN_DTYPE=bfloat16 (float32 only).
+refused, as is an RCFD_TRAIN_DTYPE other than float32 and bfloat16.
+RCFD_TRAIN_DTYPE=bfloat16 trains in mixed precision, as the JAX CLI does
+(fusionnet_main.py says what stays float32).
 """
 
 from __future__ import annotations

@@ -6,9 +6,11 @@ train_radarnet.py (reference src/train_radarnet.py).
 
 It takes the JAX CLI's flags with the same defaults, plus ``--device``,
 which defaults to ``cuda`` (``--device cpu`` trains on the CPU). Refused:
-``--n_data_parallel`` above 1, ``--device tpu``, RCFD_TRAIN_DTYPE=bfloat16
-(float32 only) and ``--raw_cache_dirpath`` (a cache of the JAX package's
-loader that the port does not have). RadarNet's PerfConfig comes from the
+``--n_data_parallel`` above 1, ``--device tpu``, an RCFD_TRAIN_DTYPE other
+than float32 and bfloat16, and ``--raw_cache_dirpath`` (a cache of the JAX
+package's loader that the port does not have). RCFD_TRAIN_DTYPE=bfloat16
+trains in mixed precision, as the JAX CLI does (radarnet_main.py says
+what stays float32). RadarNet's PerfConfig comes from the
 JAX package's gates RCFD_PALLAS_SCATTER, RCFD_FUSED_POOL2,
 RCFD_FUSED_POOL4 and RCFD_DECODE_CHUNKS (``nn.perf.perf_from_env``); they
 act on validation, whose scatter is the kernel K1 on the card unless

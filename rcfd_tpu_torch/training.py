@@ -1,5 +1,6 @@
 """What the port's two training loops share (``fusionnet_main.train`` and
-``radarnet_main.train``): the numerics, the refusals, Adam, the seed of a
+``radarnet_main.train``): the numerics and the training dtype, the
+refusals, Adam, the seed of a
 step's augmentation draws, the optimizer step around a model's loss, the
 walk over the schedules' epochs and their batches, and eval mode for
 validation.
@@ -24,8 +25,8 @@ import torch
 
 @contextlib.contextmanager
 def training_numerics():
-    """The numerics of training, restored on exit: float32 throughout (TF32
-    off for convolutions and matmuls, as in serving) and cuDNN algorithms
+    """The numerics of training, restored on exit: TF32 off for
+    convolutions and matmuls (as in serving) and cuDNN algorithms
     chosen by timing at the first step of each shape. Unlike serving,
     cuDNN may choose nondeterministic backward algorithms (atomics), which
     are faster; two runs then differ in the last bits of the gradients."""
@@ -53,19 +54,41 @@ def eval_mode(model):
         model.train(was_training)
 
 
-def numerics_line() -> str:
+def train_dtype():
+    """The dtype the network's inputs are cast to in training, from
+    RCFD_TRAIN_DTYPE as the JAX package reads it: None (no cast: the
+    parameters' dtype, float32) when it is unset, '' or 'float32';
+    torch.bfloat16 for 'bfloat16', mixed precision (the layers compute in
+    bf16 from bf16 copies of the float32 master weights; the optimizer
+    state, labels and losses stay float32). Any other value raises
+    ValueError."""
+    value = os.environ.get('RCFD_TRAIN_DTYPE', '')
+    if value in ('', 'float32'):
+        return None
+    if value == 'bfloat16':
+        return torch.bfloat16
+    raise ValueError('RCFD_TRAIN_DTYPE={}: rcfd_tpu_torch trains in float32 '
+                     "('' or 'float32') or bf16 ('bfloat16')".format(value))
+
+
+def numerics_line(dtype=None) -> str:
+    """The numerics of a training run, with ``dtype`` ``train_dtype()``'s,
+    in one line."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    return ('Numerics: float32, TF32 {} for convolutions and {} for matmuls; '
+    what = 'float32' if dtype is None else (
+        'bf16 network inputs and activations, float32 master weights, '
+        'optimizer state and losses (RCFD_TRAIN_DTYPE=bfloat16)')
+    return ('Numerics: {}, TF32 {} for convolutions and {} for matmuls; '
             'cuDNN benchmark {}, deterministic {}'.format(
-                'on' if cudnn.allow_tf32 else 'off',
+                what, 'on' if cudnn.allow_tf32 else 'off',
                 'on' if matmul.allow_tf32 else 'off', cudnn.benchmark,
                 cudnn.deterministic))
 
 
 def refuse_unported(device, n_data_parallel):
     """Raise ValueError for what the JAX training loops do and the port
-    does not yet: a TPU, data parallelism over more than one card, bf16
-    training (RCFD_TRAIN_DTYPE=bfloat16)."""
+    does not yet: a TPU, data parallelism over more than one card; and for
+    a training dtype other than float32 and bf16 (``train_dtype``)."""
     if str(device).lower() == 'tpu':
         raise ValueError("device 'tpu': rcfd_tpu_torch trains on a CUDA "
                          "device ('cuda') or the CPU ('cpu')")
@@ -74,11 +97,7 @@ def refuse_unported(device, n_data_parallel):
             'n_data_parallel={}: rcfd_tpu_torch trains on one card; data '
             'parallelism across cards is not ported yet'.format(
                 n_data_parallel))
-    if os.environ.get('RCFD_TRAIN_DTYPE', '') not in ('', 'float32'):
-        raise ValueError(
-            'RCFD_TRAIN_DTYPE={}: rcfd_tpu_torch trains in float32 only; '
-            'bf16 training is not ported yet'.format(
-                os.environ['RCFD_TRAIN_DTYPE']))
+    train_dtype()
 
 
 def step_seed(seed: int, step: int) -> int:

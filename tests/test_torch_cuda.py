@@ -858,6 +858,41 @@ def test_column_crop_gradient_on_card(cuda_device, rng, scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('scale', [8, 16, 32])
+def test_column_crop_bf16_gradient_on_card(cuda_device, rng, scale):
+    """K2's bf16 instance with its gradient (bf16 training) at the 900x300
+    step's shapes: the windows equal the plain crop's bit for bit, one bf16
+    launch, and the rows' bf16 gradient is the float32 sum of the windows'
+    bf16 gradients rounded once (within one bf16 rounding of its max-abs:
+    the float32 atomics' order moves the sum's last bits)."""
+    from rcfd_tpu_torch.ops.roi_pool import variable_bin_window
+
+    ph, pw = 900 // scale, 300 // scale
+    w_f = -(-1900 // scale)
+    _, win = variable_bin_window(300, 1.0 / scale, pw)
+    rows = torch.from_numpy(rng.standard_normal(
+        (6, 128, ph, w_f), dtype=np.float32)).to(cuda_device, torch.bfloat16)
+    starts = rng.integers(0, w_f + 1, (6, 4)).astype(np.int32)
+    starts[0, :2] = [0, w_f]
+    starts = torch.from_numpy(starts).to(cuda_device)
+    rows_k = rows.clone().requires_grad_(True)
+    before = cc.batch_column_crop.launches_bf16
+    out = cc.batch_column_crop(rows_k, starts, win)
+    assert cc.batch_column_crop.launches_bf16 == before + 1
+    assert torch.equal(out, cc.batch_column_crop_plain(rows, starts, win))
+    grad = torch.randn(out.shape, device=cuda_device,
+                       generator=torch.Generator(
+                           device=cuda_device).manual_seed(1)).to(
+                               torch.bfloat16)
+    g_k, = torch.autograd.grad(out, rows_k, grad)
+    assert g_k.dtype == torch.bfloat16
+    ref = cc.batch_column_crop_backward_plain(
+        grad.float(), starts, rows.shape, win).to(torch.bfloat16).float()
+    assert float((g_k.float() - ref).abs().max()) <= \
+        2.0 ** -8 * float(ref.abs().max())
+
+
+@pytest.mark.cuda
 def test_column_crop_without_a_gradient_records_no_graph(cuda_device, rng):
     """Under no_grad, or for rows that need no gradient, the crop is the
     bare launch: no autograd node."""

@@ -523,7 +523,7 @@ def test_cli_trains_on_the_cpu(data, tmp_path):
 @pytest.mark.parametrize('kwargs,env,match', [
     (dict(device='tpu'), None, 'tpu'),
     (dict(device='cpu', n_data_parallel=2), None, 'n_data_parallel'),
-    (dict(device='cpu'), 'bfloat16', 'RCFD_TRAIN_DTYPE'),
+    (dict(device='cpu'), 'float16', 'RCFD_TRAIN_DTYPE'),
 ])
 def test_train_refuses_what_is_not_ported(data, tmp_path, monkeypatch,
                                           kwargs, env, match):

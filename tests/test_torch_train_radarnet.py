@@ -853,7 +853,7 @@ def test_cli_needs_a_card_unless_asked_for_cpu(data, tmp_path, monkeypatch,
 @pytest.mark.parametrize('flags,env,match', [
     (['--device', 'tpu'], None, 'tpu'),
     (['--device', 'cpu', '--n_data_parallel', '2'], None, 'n_data_parallel'),
-    (['--device', 'cpu'], 'bfloat16', 'RCFD_TRAIN_DTYPE'),
+    (['--device', 'cpu'], 'float16', 'RCFD_TRAIN_DTYPE'),
     (['--device', 'cpu', '--raw_cache_dirpath', 'cache'], None,
      'raw_cache_dirpath'),
 ])
