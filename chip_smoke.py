@@ -51,20 +51,21 @@ Phases, each printed as it starts and ends:
              the deviation from the unfolded paths, and ms/frame of
              interleaved, paired requests against the slice
   batched    TwoStagePipeline.forward_batched on the slice's weights: B = 8
-             (one decode chunk) and 16 (two), B = 16 with optimize=True, and
-             B = 2 in two decode chunks with the deferred pools (fused) and
-             at the 900x300 patch (wide); each frame against __call__ of
-             the same frame; ms per request, frames/s and peak memory;
-             paired rounds of one B = 8 request against 8 single-frame
-             requests; then FusionNet alone at the benchmark config with
-             batch norm folded, float32, at b = 1, 8 and 32, from integer
-             transport inputs
+             (one decode chunk) and 16 (two), B = 16 with optimize=True,
+             and B = 2 in two decode chunks with the deferred pools (fused)
+             and at the 900x300 patch (wide); frames at both ends of each
+             decode chunk against __call__ of the same frame; ms per
+             request, frames/s and peak memory; paired rounds of one B = 8
+             request against 8 single-frame requests; then FusionNet
+             alone at the benchmark config with batch norm folded,
+             float32, at b = 1, 8 and 32, from integer transport inputs
   bf16       TwoStagePipeline(compute_dtype=torch.bfloat16) on the same
              weights: the slice, fused and wide paths (only the kernels'
              bf16 instances launched), each held to the kernels' plain
              versions and its deviation from the float32 path of the same
              requests printed; forward_batched at B = 8 and, folded, at
-             B = 16, each frame against __call__; paired rounds of bf16
+             B = 16, frames at both ends of the batch and of each decode
+             chunk against __call__; paired rounds of bf16
              against float32 slice requests; B = 2 in two decode chunks
              with the deferred pools and at the 900x300 patch, as in
              batched; FusionNet alone in bf16
@@ -84,10 +85,15 @@ Phases, each printed as it starts and ends:
              full-size quintuples and 4 validation frames the port's
              writers made (10 steps of batch 16, checkpoints and
              validation at steps 5 and 10), then resumed from the newest
-             checkpoint to step 15; model-10.pth served beside the smoke's
-             RadarNet; one step of a narrow FusionNet card vs CPU; 30
-             steps of the canonical model on one fixed batch. Prints ms a
-             step, the host's wait for data, samples/s and peak memory
+             checkpoint to step 15; then the first run again with
+             --raw_cache_dirpath (the decode-once raw cache: its first
+             epoch's wait and the median of the later ones beside the
+             uncached run's, and the loader's batches of two epochs with
+             and without the cache, byte for byte); model-10.pth served
+             beside the smoke's RadarNet; one step of a narrow FusionNet
+             card vs CPU; 30 steps of the canonical model on one fixed
+             batch. Prints ms a step, the host's wait for data, samples/s
+             and peak memory
   train_radarnet  RadarNet training: (a) rcfd_tpu_torch.train_radarnet.main,
              in process, with bash/train_radarnet_nuscenes.sh's flags on
              30 full-size frames and 4 validation frames the port's
@@ -104,7 +110,7 @@ Phases, each printed as it starts and ends:
              forward and its plain backward timed at the step's shapes.
              (c) one step and one validation under RCFD_FUSED_POOL2/4: K3
              in the validation only. (d) one step of a narrow RadarNet
-             card vs CPU at three seeds, in float32 and in float64
+             card vs CPU at five seeds, in float32 and in float64
   train_bf16 both training CLIs under RCFD_TRAIN_DTYPE=bfloat16 on the
              files of train and train_radarnet, with their flags and
              schedules (10 steps, checkpoints and validation at 5 and 10):
@@ -125,6 +131,18 @@ Phases, each printed as it starts and ends:
              patch (K2) and e under the fused gates (K3); each after a
              warm-up run: launches, frames/s and the read / serve / write
              split; RadarNet's a against stage 1 of TwoStagePipeline
+  bridge     the stage-1.5 bridge (rcfd_tpu_torch.setup.
+             setup_dataset_nuscenes_radarnet.main and its _test form, in
+             process) with bash/setup_dataset_nuscenes_radarnet.sh's flags
+             on the run phase's 8 frames (4 train, 4 val) and RadarNet:
+             a the defaults (codes made on the card, K1), b
+             --run_evaluation (the float route: a's files byte for byte,
+             the metrics), c the 900x300 patch (K2), d the fused gates
+             (K3), e the _test script on the val frames at K = 128, f
+             RCFD_DECODE_CHUNKS=2 (e and f against a's files); each after
+             a warm-up run: launches, frames/s, the read / serve / write
+             split and peak memory; then 2 frames on the card and on the
+             CPU under RCFD_PALLAS_SCATTER=0
 
 Each path phase (and each configuration of the batched phase) sets every
 kernel's launch count to 0 before its counted requests, reads them after,
@@ -1259,18 +1277,24 @@ def off_threshold(crops, xs, valid, pixels, tol):
         pixels).reshape(-1, 2)[~near]]
 
 
-def unexplained_quasi(crops, xs, valid, pixels, tol):
-    """The pixels (row, col) of ``pixels`` whose quasi depth a perturbation
-    of the crops by at most ``tol`` cannot change: the top response there
-    is farther than ``tol`` from the 0.5 threshold, and the top two are
-    farther apart than one 2^-14 step plus 2 * tol (so K1's 14-bit max
-    keeps its winner)."""
+def excused(crops, xs, valid, pixels, tol, step=2.0 ** -14):
+    """For the pixels (row, col) of ``pixels``, whether a perturbation of
+    the crops by at most ``tol`` can change their quasi depth: the top
+    response there lies within ``tol`` of the 0.5 threshold, or the top two
+    lie within ``step`` plus 2 * tol of each other (``step`` 2^-14 for
+    K1's 14-bit max, 0 for the exact max)."""
     top, count = top_responses(crops, xs, valid, pixels)
     near = (count > 0) & (np.abs(top[:, 0] - 0.5) <= tol)
     with np.errstate(invalid='ignore'):  # -inf - -inf where none covers
-        tie = (count > 1) & (top[:, 0] - top[:, 1] <= 2.0 ** -14 + 2 * tol)
-    return [tuple(int(v) for v in p) for p in np.asarray(
-        pixels).reshape(-1, 2)[~(near | tie)]]
+        tie = (count > 1) & (top[:, 0] - top[:, 1] <= step + 2 * tol)
+    return near | tie
+
+
+def unexplained_quasi(crops, xs, valid, pixels, tol, step=2.0 ** -14):
+    """The pixels (row, col) of ``pixels`` whose quasi depth a perturbation
+    of the crops by at most ``tol`` cannot change (``excused``)."""
+    return [tuple(int(v) for v in p) for p in np.asarray(pixels).reshape(
+        -1, 2)[~excused(crops, xs, valid, pixels, tol, step)]]
 
 
 def fold_deviation(name, pipe, ref_pipe, req):
@@ -1431,12 +1455,12 @@ def phase_optimize(device, record, slice_pipe, reqs):
 # warm-up request), and paired rounds of one B = 8 request against 8
 # single-frame requests
 N_BATCHED = 2
-BATCHED_PAIRED_ROUNDS = 5
+BATCHED_PAIRED_ROUNDS = 3
 # FusionNet alone (bench.py): batch sizes, and the window timed at each,
 # at least this many seconds: chunks of as many requests as one timed
 # request says fill it (at least 3), until it is filled
 FUSIONNET_BATCHES = (1, 8, 32)
-FUSIONNET_WINDOW_S = 1.0
+FUSIONNET_WINDOW_S = 0.5
 # per-frame agreement of the batched path with __call__: dense depth, m
 BATCHED_DENSE_TOL = 1e-3
 
@@ -1555,7 +1579,8 @@ def phase_batched(device, record, slice_pipe, opt_pipe):
 
     rng = np.random.default_rng(SEED + 5)
     batches = {b: batched_requests(rng, N_BATCHED + 1, b) for b in (8, 16)}
-    for b in (8, 16):
+    # each decode chunk's first and last frame against __call__
+    for b, frames in ((8, (0, 3, 4, 7)), (16, (0, 7, 8, 15))):
         chunks = decode_chunk_count(b, K, None)
         check(chunks == b // 8, 'batched: {} decode chunks at B={}'.format(
             chunks, b))
@@ -1569,7 +1594,7 @@ def phase_batched(device, record, slice_pipe, opt_pipe):
         check_plain_route(name, slice_pipe.forward_batched, batches[b][1],
                           outs[0], slice_pipe, 'scatter_batched',
                           sc.scatter_quasi_dense_batched_plain)
-        check_frames(name, slice_pipe, batches[b][1], outs[0], range(b))
+        check_frames(name, slice_pipe, batches[b][1], outs[0], frames)
         del outs
         torch.cuda.empty_cache()
     outs, _, _, launches = serve_path(
@@ -1718,7 +1743,8 @@ def phase_bf16(device, record, pipes, opt_pipe, reqs):
     float32 paths ``pipes`` (slice, fused, wide) and of ``opt_pipe``: each
     path's requests launch only the bf16 instances, held to their plain
     versions and compared with the float32 path; forward_batched at B = 8
-    and, folded, at B = 16, each frame against __call__; paired rounds
+    and, folded, at B = 16, frames at both ends of the batch and of each
+    decode chunk against __call__; paired rounds
     against float32; B = 2 in two decode chunks with the deferred pools
     and at the 900x300 patch, as in phase batched; FusionNet alone in
     bf16."""
@@ -1760,7 +1786,7 @@ def phase_bf16(device, record, pipes, opt_pipe, reqs):
                              optimize=True, compute_dtype=bf16,
                              device=device)
     for b, pipe, name, frames in (
-            (8, served['slice'], 'batched bf16 B=8', range(8)),
+            (8, served['slice'], 'batched bf16 B=8', (0, 3, 4, 7)),
             (16, opt16, 'batched+optimize bf16 B=16', (0, 15))):
         outs, _, _, launches = serve_path(
             name, pipe, batches[b], device,
@@ -2245,15 +2271,16 @@ def phase_cli(device, record, rn, fn, tmp):
     # ways
     ref_pipe = cli_pipeline(checkpoints, CLI_RUNS[0][1], {}, device)
     counts = compare_codes(
-        'cli a vs b', files['cli b'], files['cli a'],
+        'cli a vs b', files['cli b'][:CLI_FRAMES // 4],
+        files['cli a'][:CLI_FRAMES // 4],
         lambda f: tuple(t.float().cpu().numpy() for t in radarnet_outputs(
             ref_pipe, (samples[f][0][None], samples[f][1], samples[f][2]))),
         samples, FOLD_TOL, 1)
-    log('cli a vs b: the same {} frames, one a request with the exact max and '
-        'the float writers and {} a request with K1 and the codec writers: '
-        'codes that differ (dense, quasi, response) {}, each quasi and '
-        'response difference at a 14-bit tie or the threshold'.format(
-            CLI_FRAMES, CLI_BATCH, counts.tolist()))
+    log('cli a vs b: the first {} frames, one a request with the exact max '
+        'and the float writers and {} a request with K1 and the codec '
+        'writers: codes that differ (dense, quasi, response) {}, each quasi '
+        'and response difference at a 14-bit tie or the threshold'.format(
+            CLI_FRAMES // 4, CLI_BATCH, counts.tolist()))
 
 
 # -- FusionNet training ------------------------------------------------------
@@ -2484,6 +2511,84 @@ def train_overfit(device):
                     ', '.join('{:.3f}'.format(v) for v in losses[::5])))
 
 
+def train_raw_cache(device, manifests, tmp, uncached_wait_ms):
+    """The training CLI once more on the same files and flags with
+    --raw_cache_dirpath: every step is an epoch (16 frames, batch 16), so
+    step 1 decodes every file and writes the cache, steps 2-10 map it.
+    Prints the host's wait for step 1 and the median of steps 2-10 beside
+    the uncached run's median (steps 3-10); then the loader's batches of
+    two epochs, without the cache and with a fresh one (a cold epoch, a
+    warm one), must be equal byte for byte."""
+    from rcfd_tpu_torch import train_fusionnet
+    from rcfd_tpu_torch.data import io, raw_cache
+    from rcfd_tpu_torch.data.datasets import FusionNetTrainingDataset
+    from rcfd_tpu_torch.data.loader import DataLoader
+
+    cache = os.path.join(tmp, 'raw_cache')
+    timings = []
+    t0 = time.perf_counter()
+    train_fusionnet.main(train_argv(manifests, os.path.join(
+        tmp, 'checkpoints_cached'), 10) + ['--raw_cache_dirpath', cache],
+        timings=timings)
+    wall = time.perf_counter() - t0
+    check([t['step'] for t in timings] == list(range(1, 11)) and
+          all(math.isfinite(t['loss']) for t in timings),
+          'train cached: steps {} losses {}'.format(
+              [t['step'] for t in timings], [t['loss'] for t in timings]))
+    check(raw_cache.cache_dir() is None, 'train cached: the cache stayed '
+          'on after the run')
+    entries = os.listdir(cache)
+    n_files = TRAIN_FRAMES * len(TRAIN_STREAMS) + \
+        VAL_FRAMES * len(VAL_STREAMS)
+    check(len(entries) == n_files, 'train cached: {} cache entries for {} '
+          'training and validation files'.format(len(entries), n_files))
+    warm = [t['wait_ms'] for t in timings[1:]]
+    log('train cached (--raw_cache_dirpath, {} entries, {} bytes): {:.2f} s '
+        'of main; host wait for step 1 (an epoch that decodes every file and '
+        'writes the cache) {:.2f} ms; median wait of steps 2-10 (epochs that '
+        'map it) {:.2f} ms (min {:.2f}, max {:.2f}) against {:.2f} ms '
+        'uncached (median of steps 3-10); median ms a step {:.2f}; {}'.format(
+            len(entries), sum(os.path.getsize(os.path.join(cache, e))
+                              for e in entries), wall,
+            timings[0]['wait_ms'], float(np.median(warm)), min(warm),
+            max(warm), uncached_wait_ms,
+            float(np.median([t['step_ms'] for t in timings
+                             if t['step'] in TIMED_STEPS])),
+            gpu_name_and_power()))
+
+    flags = script_flags(TRAIN_SCRIPT)
+    dataset = FusionNetTrainingDataset(
+        *[io.read_paths(manifests['train', k]) for k in TRAIN_STREAMS],
+        shape=(int(flags['--n_height'][0]), int(flags['--n_width'][0])),
+        random_crop_type=flags['--augmentation_random_crop_type'],
+        device=device)
+
+    def two_epochs():
+        loader = DataLoader(dataset, batch_size=int(flags['--batch_size'][0]),
+                            shuffle=True, num_workers=8, seed=0,
+                            drop_last=True)
+        out = []
+        for epoch in range(2):
+            loader.set_epoch(epoch)
+            out.append([tuple(np.array(a) for a in b) for b in loader])
+        return out
+
+    ref = two_epochs()
+    with raw_cache.raw_cache_for(os.path.join(tmp, 'raw_cache_check')):
+        got = two_epochs()
+    same = [x.dtype == y.dtype and x.shape == y.shape and
+            x.tobytes() == y.tobytes()
+            for e, f in zip(got, ref) for b, c in zip(e, f)
+            for x, y in zip(b, c)]
+    check(len(got) == len(ref) == 2 and same and all(same),
+          'train cached: the loader\'s batches with the cache differ from '
+          'those without it ({} of {} arrays equal)'.format(sum(same),
+                                                             len(same)))
+    log('train cached: the loader\'s batches of epochs 1 (cold cache) and 2 '
+        '(warm) equal those without the cache byte for byte: {} arrays of '
+        'shapes {}'.format(len(same), [a.shape for a in ref[0][0]]))
+
+
 def phase_train(device, rn, tmp):
     """FusionNet training on the card: python -m
     rcfd_tpu_torch.train_fusionnet's main, in process, with
@@ -2552,6 +2657,7 @@ def phase_train(device, rn, tmp):
         '10, took steps 11-15, saved model-15.pth with an Adam step of 15; '
         'losses {}'.format(', '.join('{:.4f}'.format(t['loss'])
                                      for t in resumed)))
+    train_raw_cache(device, manifests, tmp, wait_ms)
 
     rn_path = os.path.join(tmp, 'radarnet.pth')
     torch.save(dict({radarnet.PTH_KEYS[part]: {
@@ -3714,6 +3820,477 @@ def phase_run(device, record, rn, fn, tmp):
             CLI_FRAMES, CLI_FRAMES,
             sum(int((x > 0).sum()) for x in got['output_depth_radar'])))
     del pipe
+    return paths, checkpoints[0]
+
+
+# phase bridge: the stage-1.5 bridge's scripts with
+# bash/setup_dataset_nuscenes_radarnet.sh's flags on the run phase's frames,
+# CLI_FRAMES // 2 a split
+BRIDGE_SCRIPT = os.path.join('bash', 'setup_dataset_nuscenes_radarnet.sh')
+BRIDGE_SPLITS = {'train': range(CLI_FRAMES // 2),
+                 'val': range(CLI_FRAMES // 2, CLI_FRAMES)}
+# (case, extra flags, environment, launches a forward, the case whose
+# files this one's must equal)
+BRIDGE_CASES = (
+    ('a', [], {}, {'scatter_quasi_dense': 1}, None),
+    ('b', ['--run_evaluation'], {}, {'scatter_quasi_dense': 1}, 'a'),
+    ('c', ['--patch_size', str(WIDE_PATCH[0]), str(WIDE_PATCH[1])], {},
+     {'scatter_quasi_dense': 1, 'column_crop': 3}, None),
+    ('d', [], FUSED_ENV,
+     {'scatter_quasi_dense': 1, 'fused_skip_gather_add': 2}, None),
+    ('e', [], {}, {'scatter_quasi_dense': 1}, 'a'),
+    ('f', [], {'RCFD_DECODE_CHUNKS': '2'}, {'scatter_quasi_dense': 1}, 'a'),
+)
+# the kernels of each case held to their plain versions on one bridge
+# batch, at the case's own shapes
+BRIDGE_PLAIN = {'a': ('scatter',), 'c': ('scatter', 'crop'),
+                'd': ('scatter', 'fused'), 'e': ('scatter',)}
+BRIDGE_CARD_CPU_FRAMES = 2
+# card vs CPU: the crops the exact scatter takes agree within this (1.19e-7
+# measured on an H100 80GB HBM3 at 700 W); a depth code may differ only
+# where the top two responses lie within twice the measured difference of
+# each other, or the top one within it of the threshold
+BRIDGE_CARD_CPU_CROP_TOL = 1e-6
+BRIDGE_KINDS = ('depth_predicted', 'response_predicted')
+
+
+def bridge_inputs(paths, case_dir, splits):
+    """The bridge's inputs for a case: a copy of the radar files under
+    <case_dir>/radar_points/ (absolute radar paths map in place, so each
+    case writes beside its own copy) and the manifests of ``splits``
+    ({tag: frames}) with the shared frames and ground truths."""
+    import shutil
+
+    from rcfd_tpu_torch.data import io
+
+    os.makedirs(os.path.join(case_dir, 'radar_points'))
+    manifests = {}
+    for tag, frames in splits.items():
+        radar = []
+        for i in frames:
+            radar.append(os.path.join(case_dir, 'radar_points',
+                                      os.path.basename(paths['radar'][i])))
+            shutil.copyfile(paths['radar'][i], radar[-1])
+        for stream, files in (('image', [paths['image'][i] for i in frames]),
+                              ('radar', radar),
+                              ('ground_truth', [paths['ground_truth'][i]
+                                                for i in frames])):
+            manifests[tag, stream] = os.path.join(
+                case_dir, '{}_{}.txt'.format(tag, stream))
+            io.write_paths(manifests[tag, stream], files)
+    return manifests
+
+
+def bridge_argv(manifests, out_dir, checkpoint, splits, with_gt, flags):
+    """bash/setup_dataset_nuscenes_radarnet.sh's flags with this case's
+    checkpoint, manifests of ``splits`` (ground truth only when
+    ``with_gt``) and output directory; --verbose off."""
+    values = script_flags(BRIDGE_SCRIPT)
+    for key in [k for k in values if k.startswith(('--train_', '--val_'))]:
+        del values[key]
+    values.pop('--verbose', None)
+    values.update({'--restore_path': [checkpoint],
+                   '--output_dirpath': [out_dir]})
+    for tag in splits:
+        for stream in ('image', 'radar') + (('ground_truth',) if with_gt
+                                            else ()):
+            values['--{}_{}_path'.format(tag, stream)] = [
+                manifests[tag, stream]]
+    return [t for k, v in values.items() for t in [k] + v] + flags
+
+
+def bridge_outputs(case_dir, tag, n):
+    """The (depth, response) PNG paths of split ``tag`` of a case, from
+    the manifests the bridge wrote."""
+    from rcfd_tpu_torch.data import io
+
+    split_dir = {'train': 'training', 'val': 'validation',
+                 'test': 'testing'}[tag]
+    out = [io.read_paths(os.path.join(
+        case_dir, 'out', split_dir, 'nuscenes', 'nuscenes_{}_{}_predicted.txt'
+        .format(tag, kind))) for kind in ('depth', 'response')]
+    check(all(len(p) == n for p in out) and all(
+        os.path.exists(f) for p in out for f in p),
+        'bridge: {}: {} manifests list {} files, expected {} existing '
+        'ones'.format(case_dir, tag, [len(p) for p in out], n))
+    return out
+
+
+def bridge_codes(files):
+    from rcfd_tpu_torch.data import io
+
+    return [io.load_depth_u16(f).astype(np.int64) for f in files]
+
+
+def bridge_model(checkpoint, device, patch=PATCH, perf=None):
+    """RadarNet as the bridge builds it (unfolded, float32; ``perf`` as
+    the bridge reads it from the environment)."""
+    from rcfd_tpu_torch import radarnet_main
+
+    model = radarnet_main.build_model(
+        input_channels_image=3, input_channels_depth=3, patch_size=patch,
+        encoder_type='radarnetv1-batch_norm',
+        n_filters_encoder_image=RADARNET['n_filters_encoder_image'],
+        n_neurons_encoder_depth=RADARNET['n_neurons_encoder_depth'],
+        decoder_type='multiscale-batch_norm',
+        n_filters_decoder=RADARNET['n_filters_decoder'],
+        weight_initializer='kaiming_uniform', activation_func='leaky_relu',
+        device='cpu', perf=perf)
+    model.restore_checkpoint(checkpoint, device=device)
+    return model
+
+
+def bridge_plain_route(name, device, paths, checkpoint, frames, patch,
+                       max_points, kernels, per_forward):
+    """One bridge batch of ``frames`` (the case's own shapes: its patch,
+    its point count ``max_points``, None for the manifest's) through
+    make_forward_fn_batched on the model the bridge builds, once on the
+    kernels' routes and once with each of ``kernels`` replaced by its plain
+    version where the path looks it up: depth and response must be equal
+    bit for bit. Runs under the case's environment."""
+    from rcfd_tpu_torch import radarnet_main
+    from rcfd_tpu_torch.data.datasets import RadarNetInferenceDataset
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.nn.perf import perf_from_env
+    from rcfd_tpu_torch.ops import crop_cuda as cc
+    from rcfd_tpu_torch.ops import fused_skip as fs
+    from rcfd_tpu_torch.ops import roi_pool
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    from rcfd_tpu_torch.pipeline import serving_numerics
+
+    swaps = {'scatter': (sc, 'scatter_quasi_dense_batched',
+                         sc.scatter_quasi_dense_batched_plain),
+             'crop': (roi_pool, 'batch_column_crop',
+                      cc.batch_column_crop_plain),
+             'fused': (fs, 'fused_skip_gather_add',
+                       fs.fused_skip_gather_add_plain)}
+    dataset = RadarNetInferenceDataset(
+        [paths['image'][i] for i in frames],
+        [paths['radar'][i] for i in frames], max_points=max_points,
+        device=device)
+    samples = [dataset.get(i) for i in range(len(frames))]
+    batch = tuple(torch.from_numpy(np.stack([x[j] for x in samples])).to(
+        device) for j in range(3))
+    model = bridge_model(checkpoint, device, patch, perf_from_env())
+    forward = radarnet_main.make_forward_fn_batched(
+        model, Transforms(normalized_image_range=[0, 1]), H, W)
+    with serving_numerics():
+        reset_launches()
+        depth, response = forward(*batch)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        kept = [getattr(m, a) for m, a, _ in (swaps[k] for k in kernels)]
+        for m, a, plain in (swaps[k] for k in kernels):
+            setattr(m, a, plain)
+        try:
+            reset_launches()
+            depth_p, response_p = forward(*batch)
+            torch.cuda.synchronize()
+            plain_launches = read_launches()
+        finally:
+            for (m, a, _), kernel in zip((swaps[k] for k in kernels), kept):
+                setattr(m, a, kernel)
+    check(all(n == per_forward.get(k, 0) for k, n in launches.items()) and
+          not any(plain_launches.values()),
+          '{}: plain-route check: launches {} on the kernels\' route '
+          '(expected {}), {} on the plain one (expected none)'.format(
+              name, launches, per_forward, plain_launches))
+    check(torch.equal(depth, depth_p) and torch.equal(response, response_p),
+          '{}: the kernels\' route differs from the plain one at {} depth '
+          'and {} response pixels'.format(
+              name, int((depth != depth_p).sum()),
+              int((response != response_p).sum())))
+    log('{}: one bridge batch of {} frames, K = {}, patch {}x{}: depth and '
+        'response == the same forward with {}, bit for bit; {} covered '
+        'pixels'.format(name, len(frames), dataset.max_points, *patch,
+                        ', '.join(swaps[k][2].__name__ for k in kernels),
+                        int((depth > 0).sum())))
+
+
+def bridge_crops(model, paths, frame, device):
+    """RadarNet's crops (K, ph, pw), padded x and validity of one frame,
+    on the card, as the bridge's forward makes them."""
+    from rcfd_tpu_torch import radarnet_main
+    from rcfd_tpu_torch.data.datasets import RadarNetInferenceDataset
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.pipeline import radarnet_crops, serving_numerics
+
+    image, points, valid = RadarNetInferenceDataset(
+        [paths['image'][frame]], [paths['radar'][frame]], max_points=None,
+        device=device).get(0)
+    with torch.inference_mode(), serving_numerics(), \
+            radarnet_main.eval_mode(model):
+        _, crops, xs, _ = radarnet_crops(
+            model, Transforms(normalized_image_range=[0, 1]),
+            torch.from_numpy(image[None]).to(device),
+            torch.from_numpy(points[None]).to(device), H)
+    return crops[0].float().cpu().numpy(), xs[0].cpu().numpy(), valid
+
+
+def same_bytes(a, b):
+    with open(a, 'rb') as f, open(b, 'rb') as g:
+        return f.read() == g.read()
+
+
+def compare_bridge(name, got, ref, frames, explain, step, tol=FOLD_TOL):
+    """Codes of two runs' files, frame by frame: (frames whose files are
+    equal byte for byte, pixels whose depth differs). Where they differ,
+    each depth pixel must be explained by a tie (within ``step`` plus
+    2 * ``tol``) or a top response within ``tol`` of the threshold
+    (``explain(frame)`` gives the crops), and the response codes must lie
+    within one step, or at such a pixel."""
+    equal, n_depth = 0, 0
+    for f, gd, gr, rd, rr in zip(frames, *got, *ref):
+        if same_bytes(gd, rd) and same_bytes(gr, rr):
+            equal += 1
+            continue
+        (dg, rg), (dr, rr_) = bridge_codes((gd, gr)), bridge_codes((rd, rr))
+        quasi_px = np.argwhere(dg != dr)
+        resp_px = np.argwhere(np.abs(rg - rr_) > 1)
+        crops, xs, valid = explain(f)
+        bad = unexplained_quasi(crops, xs, valid, quasi_px, tol, step)
+        check(not bad, '{}: frame {}: depth differs at {} pixels that no '
+              'tie or threshold explains: {}'.format(name, f, len(bad),
+                                                     bad[:10]))
+        bad = off_threshold(crops, xs, valid, resp_px, tol)
+        check(not bad, '{}: frame {}: response differs by more than one '
+              'code at {} pixels away from the threshold: {}'.format(
+                  name, f, len(bad), bad[:10]))
+        n_depth += len(quasi_px)
+    return equal, n_depth
+
+
+def phase_bridge(device, record, paths, checkpoint, tmp):
+    """The stage-1.5 bridge (rcfd_tpu_torch.setup.setup_dataset_nuscenes_
+    radarnet.main and its _test form, in process) with
+    bash/setup_dataset_nuscenes_radarnet.sh's flags on the run phase's
+    CLI_FRAMES full-size frames and RadarNet .pth, 4 train and 4 val, in
+    the cases of BRIDGE_CASES, each after a warm-up run of the same case,
+    every launch count set to 0 just before the timed run and read just
+    after: (a) the defaults (codes made on the card, K1), (b)
+    --run_evaluation with ground truth (the float route; (a)'s files), (c)
+    the 900x300 patch (K2), (d) the fused gates (K3), (e) the _test script
+    on the val frames at its K = 128 ((a)'s val files), (f) (a) under
+    RCFD_DECODE_CHUNKS=2 ((a)'s files). Then BRIDGE_CARD_CPU_FRAMES frames
+    on the card and on the CPU under RCFD_PALLAS_SCATTER=0. Prints
+    frames/s, the read / serve / write split and peak memory."""
+    from rcfd_tpu_torch.setup import setup_dataset_nuscenes_radarnet as bridge
+    from rcfd_tpu_torch.setup import \
+        setup_dataset_nuscenes_radarnet_test as bridge_test
+
+    power = gpu_name_and_power()
+    model = bridge_model(checkpoint, device)
+    crops = {}
+
+    def explain(frame):
+        if frame not in crops:
+            crops[frame] = bridge_crops(model, paths, frame, device)
+        return crops[frame]
+
+    outputs, summaries = {}, {}
+    for case, flags, env, per_forward, same_as in BRIDGE_CASES:
+        splits = {'val': BRIDGE_SPLITS['val']} if case == 'e' else \
+            BRIDGE_SPLITS
+        name = 'bridge ' + case
+
+        def run(case_dir):
+            manifests = bridge_inputs(paths, case_dir, splits)
+            out_dir = os.path.join(case_dir, 'out')
+            if case == 'e':
+                return bridge_test.main([
+                    '--restore_path', checkpoint, '--output_dirpath',
+                    out_dir, '--test_image_path', manifests['val', 'image'],
+                    '--test_radar_path', manifests['val', 'radar']],
+                    device=device)
+            return bridge.main(bridge_argv(
+                manifests, out_dir, checkpoint, splits, case == 'b', flags),
+                device=device)
+
+        with environ(env):
+            run(os.path.join(tmp, 'bridge_{}_warm'.format(case)))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            reset_launches()
+            summary = run(os.path.join(tmp, 'bridge_' + case))
+            launches = read_launches()
+        peak = torch.cuda.max_memory_allocated(device)
+        want = {k: v * len(splits) for k, v in per_forward.items()}
+        check(all(n == want.get(k, 0) for k, n in launches.items()),
+              '{}: launches {} (expected {})'.format(name, launches, want))
+        count_launches(record, name, launches, list(want))
+        case_dir = os.path.join(tmp, 'bridge_' + case)
+        outputs[case] = {tag: bridge_outputs(
+            case_dir, 'test' if case == 'e' else tag, len(frames))
+            for tag, frames in splits.items()}
+        summaries[case] = summary
+        sec = summary['seconds']
+        log('{}: flags {} env {}: {} frames in {:.3f} s of main, {:.3f} '
+            'frames/s; per frame: host read {:.2f} ms, serve (to the outputs '
+            'on the host) {:.2f} ms, host write{} {:.2f} ms; setup {:.3f} s; '
+            'peak memory {} bytes; launches {}; {}'.format(
+                name, ' '.join(flags) or '-', env or '{}',
+                summary['frames'], summary['wall'], summary['frames_per_s'],
+                *[1e3 * sec[k] / summary['frames'] for k in ('read',
+                                                             'serve')],
+                ' and metrics' if case == 'b' else '',
+                1e3 * sec['write'] / summary['frames'], sec['setup'], peak,
+                {k: v for k, v in launches.items() if v}, power))
+        covered = [int((c > 0).sum()) for tag in splits
+                   for c in bridge_codes(outputs[case][tag][0])]
+        check(min(covered) > 0, '{}: a frame without quasi depth: covered '
+              'pixels {}'.format(name, covered))
+        if case in BRIDGE_PLAIN:
+            first = next(iter(splits.values()))
+            with environ(env):
+                bridge_plain_route(
+                    name, device, paths, checkpoint, first,
+                    WIDE_PATCH if case == 'c' else PATCH,
+                    128 if case == 'e' else None, BRIDGE_PLAIN[case],
+                    per_forward)
+        if same_as is None:
+            continue
+        n_frames = sum(len(f) for f in splits.values())
+        if case in ('b', 'f'):
+            # the float route's writers and the chunked decode change
+            # nothing: the same files
+            same = [same_bytes(g, r) for tag in splits
+                    for kind in range(2) for g, r in zip(
+                        outputs[case][tag][kind], outputs[same_as][tag][kind])]
+            check(all(same), '{}: {} of {} files differ from ({})\'s'.format(
+                name, same.count(False), len(same), same_as))
+            log('{}: all {} files of {} frames equal ({})\'s byte for '
+                'byte'.format(name, len(same), n_frames, same_as))
+            continue
+        # (e): K = 128 decodes 4 * 128 patches a forward where (a) decodes
+        # 4 * 64: the convolutions may round otherwise at the other batch,
+        # and K1 keeps the first point within one 2^-14 step
+        equal, n_depth = 0, 0
+        for tag, frames in splits.items():
+            e, n = compare_bridge(name, outputs[case][tag],
+                                  outputs[same_as][tag], frames, explain,
+                                  2.0 ** -14)
+            equal, n_depth = equal + e, n_depth + n
+        log('{}: files against ({})\'s: {} of {} frames byte for byte; {} '
+            'depth pixels differ elsewhere, each where the top two responses '
+            'lie within 2^-14 + {:g} of each other (a 14-bit tie) or the top '
+            'one within {:g} of the threshold; responses within one code '
+            'elsewhere'.format(name, same_as, equal, n_frames, n_depth,
+                                2 * FOLD_TOL, FOLD_TOL))
+    log('bridge f (RCFD_DECODE_CHUNKS=2) against a (one decode chunk a '
+        'forward): {:.3f} against {:.3f} frames/s; peak memory printed '
+        'above'.format(summaries['f']['frames_per_s'],
+                       summaries['a']['frames_per_s']))
+    bridge_card_vs_cpu(device, paths, checkpoint, tmp)
+
+
+def with_drawn_batch_norm(model, seed):
+    """``model`` with every batch norm's weight and running variance drawn
+    from U(0.5, 1.5), bias and running mean from N(0, 0.1) (the ranges of
+    the tests' randomize_batch_norm)."""
+    from rcfd_tpu_torch.nn import BatchNorm2d
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for bn in model.modules():
+            if isinstance(bn, BatchNorm2d):
+                n = bn.weight.numel()
+                for t, uniform in ((bn.weight, True), (bn.bias, False),
+                                   (bn.running_mean, False),
+                                   (bn.running_var, True)):
+                    x = 0.5 + torch.rand(n, generator=gen) if uniform else \
+                        0.1 * torch.randn(n, generator=gen)
+                    t.copy_(x.to(t.device))
+    return model
+
+
+def bridge_card_vs_cpu(device, paths, checkpoint, tmp):
+    """The bridge on BRIDGE_CARD_CPU_FRAMES frames on the card and on the
+    CPU, the exact max on both (RCFD_PALLAS_SCATTER=0), a frame a forward,
+    from the run phase's RadarNet with its batch norms drawn
+    (``with_drawn_batch_norm``, so that its responses do not saturate):
+    each frame's crops card vs CPU (those the exact scatter took, caught
+    on their way in) within BRIDGE_CARD_CPU_CROP_TOL; depth codes equal
+    but where the top two responses lie within twice the largest measured
+    difference of each other or the top one within it of the threshold,
+    responses within one code. Prints the share of the covered pixels that
+    this rule could excuse."""
+    from rcfd_tpu_torch.ops import scatter as exact
+    from rcfd_tpu_torch.setup import setup_dataset_nuscenes_radarnet as bridge
+
+    model = with_drawn_batch_norm(bridge_model(checkpoint, 'cpu'), SEED + 50)
+    checkpoint = os.path.join(tmp, 'radarnet_drawn_batch_norm.pth')
+    model.save_checkpoint(checkpoint, 0)
+    del model
+    frames = range(BRIDGE_CARD_CPU_FRAMES)
+    outputs, wall, seen = {}, {}, {}
+    scatter = exact.scatter_quasi_dense_batched
+
+    def caught(side):
+        def scatter_and_keep(crops, xs, zs, valid, **kw):
+            seen.setdefault(side, []).append(
+                (crops[0].float().cpu().numpy(), xs[0].cpu().numpy(),
+                 valid[0].cpu().numpy()))
+            return scatter(crops, xs, zs, valid, **kw)
+        return scatter_and_keep
+
+    with environ({'RCFD_PALLAS_SCATTER': '0'}):
+        for side, dev in (('card', device), ('cpu', 'cpu')):
+            case_dir = os.path.join(tmp, 'bridge_' + side)
+            manifests = bridge_inputs(paths, case_dir, {'val': frames})
+            reset_launches()
+            exact.scatter_quasi_dense_batched = caught(side)
+            try:
+                t0 = time.perf_counter()
+                bridge.main(bridge_argv(
+                    manifests, os.path.join(case_dir, 'out'), checkpoint,
+                    ['val'], False, ['--eval_batch_size', '1']), device=dev)
+                wall[side] = time.perf_counter() - t0
+            finally:
+                exact.scatter_quasi_dense_batched = scatter
+            launches = read_launches()
+            check(not any(launches.values()), 'bridge {}: launches {} under '
+                  'RCFD_PALLAS_SCATTER=0'.format(side, launches))
+            outputs[side] = bridge_outputs(case_dir, 'val', len(frames))
+    check(len(seen['card']) == len(seen['cpu']) == len(frames),
+          'bridge card vs CPU: {} and {} scatters for {} frames'.format(
+              len(seen['card']), len(seen['cpu']), len(frames)))
+    tol = BRIDGE_CARD_CPU_CROP_TOL
+    crop_err = [float(np.abs(a[0] - b[0]).max())
+                for a, b in zip(seen['card'], seen['cpu'])]
+    check(max(crop_err) <= tol and all(
+        np.array_equal(a[i], b[i]) for a, b in zip(seen['card'], seen['cpu'])
+        for i in (1, 2)), 'bridge card vs CPU: crops differ by {} (tolerance '
+        '{:g}), or the points differ'.format(crop_err, tol))
+    err = max(crop_err)
+
+    def explain(frame):
+        return seen['card'][frame]
+
+    equal, n_depth = compare_bridge('bridge card vs CPU', outputs['card'],
+                                    outputs['cpu'], frames, explain, 0.0,
+                                    err)
+    covered, n_excused, n_saturated = 0, 0, 0
+    for f, codes in zip(frames, bridge_codes(outputs['card'][0])):
+        px = np.argwhere(codes > 0)
+        c, xs, valid = explain(f)
+        n_excused += int(excused(c, xs, valid, px, err, 0.0).sum())
+        top, _ = top_responses(c, xs, valid, px)
+        covered, n_saturated = covered + len(px), n_saturated + int(
+            (top[:, 0] >= 1.0 - FOLD_TOL).sum())
+    log('bridge card vs CPU (exact max, RadarNet with drawn batch-norm '
+        'statistics, {} frames, {:.2f} s on the card, {:.2f} s on the CPU): '
+        '{} of {} frames byte for byte; {} of {} covered depth pixels '
+        'differ ({:.2f} a frame), each where the top two responses lie '
+        'within {:g} of each other or the top one within {:g} of the '
+        'threshold, a rule that could excuse {} of the covered pixels '
+        '({:.3%}); {} covered pixels ({:.3%}) have a top response within '
+        '{:g} of 1; responses within one code elsewhere; the crops the '
+        'scatter took card vs CPU max abs diff {} (tolerance {:g})'.format(
+            len(frames), wall['card'], wall['cpu'], equal, len(frames),
+            n_depth, covered, n_depth / len(frames), 2 * err, err,
+            n_excused, n_excused / covered, n_saturated,
+            n_saturated / covered, FOLD_TOL,
+            ', '.join('{:.3g}'.format(e) for e in crop_err), tol))
 
 
 def native_codes(maps):
@@ -3842,8 +4419,13 @@ def main():
             phase_train_bf16(device, record, dict(
                 tmp=tmp, fusionnet=fusionnet_f32, radarnet=radarnet_f32))
     torch.cuda.empty_cache()
-    with Phase('run'), tempfile.TemporaryDirectory() as tmp:
-        phase_run(device, record, rn, fn, tmp)
+    # the bridge reuses the run phase's frames and RadarNet checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        with Phase('run'):
+            paths, rn_checkpoint = phase_run(device, record, rn, fn, tmp)
+        torch.cuda.empty_cache()
+        with Phase('bridge'):
+            phase_bridge(device, record, paths, rn_checkpoint, tmp)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

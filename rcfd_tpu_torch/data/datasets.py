@@ -8,6 +8,10 @@ FusionNet's training quintuples and inference frames.
 All randomness is the caller's numpy Generator: the loader keys one by
 (seed, epoch, position) as the JAX package does, so the port's batches
 equal the JAX package's bit for bit.
+
+Every reader goes through data/io.py, so the decode-once raw cache
+(data/raw_cache.py) serves all of them when it is on; FusionNet's
+training samples crop the raw arrays before converting.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 
 from . import io as data_utils
+from .transport import encode_png_int
 
 
 def random_crop(inputs, shape, crop_type=('none',), rng=None):
@@ -280,14 +285,20 @@ class FusionNetTrainingDataset:
         return self.n_sample
 
     def get(self, index: int, rng: np.random.Generator):
-        sample = [data_utils.load_image_u8(self.image_paths[index],
-                                           device=self.device)]
-        sample += [data_utils.load_depth_u16(paths[index], data_format='HWC')
-                   for paths in self.streams]
+        """The sample of ``index``: the raw arrays (mapped ones when the raw
+        cache is on) cropped first, then only the window converted, as
+        rcfd_tpu/data/datasets.py ``_get_raw_window`` does with the cache.
+        The crop reads only the shapes and ``rng``, and the conversion is
+        elementwise, so the window equals the crop of the converted
+        frame."""
+        raws = [data_utils.load_image_raw(self.image_paths[index],
+                                          device=self.device)]
+        raws += [data_utils.load_depth_raw(paths[index])[..., None]
+                 for paths in self.streams]
         if self.do_random_crop:
-            sample = random_crop(sample, self.shape, self.random_crop_type,
-                                 rng)
-        return tuple(np.ascontiguousarray(t) for t in sample)
+            raws = random_crop(raws, self.shape, self.random_crop_type, rng)
+        return (np.ascontiguousarray(raws[0]),
+                *[np.ascontiguousarray(encode_png_int(w)) for w in raws[1:]])
 
 
 class FusionNetInferenceDataset:

@@ -11,6 +11,11 @@ z) in image-plane coordinates.
 A JPEG frame decodes on ``device``: with nvJPEG on a CUDA device, with
 libjpeg on the CPU (``cuda`` unless ``device='cpu'``, as the port's entry
 points). PNGs decode on the host whatever the device.
+
+With the decode-once raw cache on (data/raw_cache.py), the readers of
+frames and 16-bit maps read through it: the first read of a file decodes
+it with the codec above, later reads map the cached raw array (host uint8
+or the PNG's integers) and convert it as the decode would.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import List
 import numpy as np
 
 from .. import native
+from .raw_cache import load_raw
 from .transport import encode_png_int
 
 
@@ -60,16 +66,24 @@ def _expand(z, data_format):
     raise ValueError('Unsupported data format: {}'.format(data_format))
 
 
+def load_image_raw(path: str, device=None):
+    """uint8 (H, W, 3) RGB image, a read-only map of the cached array when
+    the raw cache is on. A window of it converts as the whole frame would
+    (datasets.py crops before converting)."""
+    return load_raw(path, 'image', lambda: native.read_image_u8(path, device))
+
+
 def load_image_u8(path: str, data_format: str = 'HWC', device=None):
     """uint8 RGB image for integer host->device transport, as PIL's
     ``convert('RGB')`` gives it."""
-    return _layout(native.read_image_u8(path, device), data_format)
+    return _layout(load_image_raw(path, device), data_format)
 
 
 def load_image(path: str, normalize: bool = False, data_format: str = 'HWC',
                device=None):
     """Load an RGB image as float32 (src/data_utils.py:167-198)."""
-    image = _layout(native.read_image(path, device), data_format)
+    image = _layout(load_image_raw(path, device).astype(np.float32),
+                    data_format)
     return image / 255.0 if normalize else image
 
 
@@ -79,10 +93,12 @@ def save_image(image, path: str):
 
 
 def load_depth_raw(path: str):
-    """Raw PNG integer array (H, W), int64. Convert with depth_from_raw
+    """Raw PNG integer array (H, W): int64, or a read-only uint16 map of
+    the cached array when the raw cache is on. Convert with depth_from_raw
     (per-caller multiplier: the same file may be read under x256 and
     x2^14)."""
-    return native.read_depth_raw(path).astype(np.int64)
+    return load_raw(path, 'png_int',
+                    lambda: native.read_depth_raw(path).astype(np.int64))
 
 
 def depth_from_raw(raw, multiplier: float = 256.0, data_format: str = 'HW'):
@@ -95,7 +111,7 @@ def depth_from_raw(raw, multiplier: float = 256.0, data_format: str = 'HW'):
 def load_depth(path: str, multiplier: float = 256.0, data_format: str = 'HW'):
     """Load a depth map from a 16-bit PNG (src/data_utils.py:238-269): the
     integers over ``multiplier``, non-positive values zeroed."""
-    return _expand(native.read_depth(path, multiplier), data_format)
+    return depth_from_raw(load_depth_raw(path), multiplier, data_format)
 
 
 def load_depth_u16(path: str, data_format: str = 'HW'):
@@ -133,7 +149,8 @@ def save_response_encoded(response_u16, path: str):
 def load_response(path: str, multiplier: float = 2 ** 14,
                   data_format: str = 'HW'):
     """Load a response (confidence) map (src/data_utils.py:288-318)."""
-    response = native.read_depth_raw(path).astype(np.float32) / multiplier
+    response = np.asarray(load_depth_raw(path), np.float32) / \
+        np.float32(multiplier)
     return _expand(response, data_format)
 
 

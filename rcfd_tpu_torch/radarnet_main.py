@@ -251,7 +251,8 @@ def scatter_route(pallas_scatter, device, k: int):
 def make_forward_fn_batched(model: RadarNetModel, transforms: Transforms,
                             image_height: int, image_width: int,
                             threshold: float = 0.5,
-                            codec_encode: bool = False):
+                            codec_encode: bool = False,
+                            n_chunks: Optional[int] = None):
     """Scatter inference over B frames (rcfd_tpu/radarnet_main.py
     ``make_forward_fn_batched``): images (B, H, W, 3) in [0, 255] (uint8
     under integer transport), points (B, K, 3), valid (B, K) on the model's
@@ -259,9 +260,9 @@ def make_forward_fn_batched(model: RadarNetModel, transforms: Transforms,
     ``codec_encode`` their 16-bit PNG codes (uint16 floor(z * 256) and
     floor(r * 2^14), made on the device: half the bytes to copy to the
     host, the same files). RadarNet runs in eval mode, its mode restored
-    after, and decodes the B*K patches in
-    ``decode_chunk_count(B, K, model.perf.decode_chunks)`` chunks; the
-    normalized image is cast to the dtype of the model's parameters (bf16
+    after, and decodes the B*K patches in ``n_chunks`` chunks when it is
+    given, else in ``decode_chunk_count(B, K, model.perf.decode_chunks)``;
+    the normalized image is cast to the dtype of the model's parameters (bf16
     for a model cast to it), the points never; the scatter is
     ``scatter_route``'s."""
     patch_size = model.input_patch_size_image
@@ -273,7 +274,9 @@ def make_forward_fn_batched(model: RadarNetModel, transforms: Transforms,
         with eval_mode(model):
             _, crops, xs, zs = radarnet_crops(
                 model, transforms, images, points, image_height,
-                decode_chunk_count(b, k, model.perf.decode_chunks), dtype)
+                n_chunks or decode_chunk_count(b, k,
+                                               model.perf.decode_chunks),
+                dtype)
         route = scatter_route(model.perf.pallas_scatter, crops.device, k)
         depth_map, response_map = route.scatter_quasi_dense_batched(
             crops, xs, zs, valid.to(torch.bool), image_height=image_height,
@@ -291,9 +294,10 @@ def make_forward_fn(model: RadarNetModel, transforms: Transforms,
                     threshold: float = 0.5):
     """Scatter inference over one frame (rcfd_tpu/radarnet_main.py
     ``make_forward_fn``): image (1, H, W, 3), points (K, 3), valid (K,) ->
-    depth_map, response_map (H, W); the patches decode at once."""
+    depth_map, response_map (H, W). The K patches decode at once, as
+    JAX's, whatever ``model.perf.decode_chunks`` says."""
     batched = make_forward_fn_batched(
-        model, transforms, image_height, image_width, threshold)
+        model, transforms, image_height, image_width, threshold, n_chunks=1)
 
     def forward(image, points, valid):
         depth_map, response_map = batched(image, points[None], valid[None])
@@ -328,6 +332,25 @@ def iter_scatter_outputs(forward_fn, dataset, eval_batch_size: int, device,
                 response_b[j]
 
 
+def intersection_metrics(output_depth, gt, min_evaluate_depth,
+                         max_evaluate_depth):
+    """One frame's intersection metrics (src/radarnet_main.py:650-700):
+    MAE, RMSE (mm), iMAE, iRMSE (1/km) over the pixels where the output and
+    the ground truth both have depth within (min, max), then the counts of
+    output, ground-truth and intersection pixels."""
+    v_out = (output_depth > 0).astype(np.int32)
+    v_gt = (gt > 0).astype(np.int32)
+    v_inter = v_out * v_gt
+    min_max = np.logical_and(gt > min_evaluate_depth, gt < max_evaluate_depth)
+    mask = np.where(np.logical_and(v_inter, min_max) > 0)
+    out_i, gt_i = output_depth[mask], gt[mask]
+    return (eval_utils.mean_abs_err(1000.0 * out_i, 1000.0 * gt_i),
+            eval_utils.root_mean_sq_err(1000.0 * out_i, 1000.0 * gt_i),
+            eval_utils.inv_mean_abs_err(0.001 * out_i, 0.001 * gt_i),
+            eval_utils.inv_root_mean_sq_err(0.001 * out_i, 0.001 * gt_i),
+            v_out.sum(), v_gt.sum(), v_inter.sum())
+
+
 def validate(forward_fn, dataset, step, best_results, min_evaluate_depth,
              max_evaluate_depth, summary_writer=None, log_path=None,
              eval_batch_size: int = 1, device='cuda'):
@@ -358,24 +381,12 @@ def validate(forward_fn, dataset, step, best_results, min_evaluate_depth,
                     panel, global_step=step)
             except ImportError:
                 pass
-        v_out = (output_depth > 0).astype(np.int32)
-        v_gt = (gt > 0).astype(np.int32)
-        v_inter = v_out * v_gt
-        n_valid['inter'][idx] = v_inter.sum()
-        n_valid['output'][idx] = v_out.sum()
-        n_valid['gt'][idx] = v_gt.sum()
-        min_max = np.logical_and(gt > min_evaluate_depth,
-                                 gt < max_evaluate_depth)
-        mask = np.where(np.logical_and(v_inter, min_max) > 0)
-        out_i, gt_i = output_depth[mask], gt[mask]
-        errors['mae_intersection'][idx] = eval_utils.mean_abs_err(
-            1000.0 * out_i, 1000.0 * gt_i)
-        errors['rmse_intersection'][idx] = eval_utils.root_mean_sq_err(
-            1000.0 * out_i, 1000.0 * gt_i)
-        errors['imae_intersection'][idx] = eval_utils.inv_mean_abs_err(
-            0.001 * out_i, 0.001 * gt_i)
-        errors['irmse_intersection'][idx] = eval_utils.inv_root_mean_sq_err(
-            0.001 * out_i, 0.001 * gt_i)
+        *frame, n_out, n_gt, n_inter = intersection_metrics(
+            output_depth, gt, min_evaluate_depth, max_evaluate_depth)
+        for k, v in zip(METRICS, frame):
+            errors[k][idx] = v
+        n_valid['output'][idx], n_valid['gt'][idx], n_valid['inter'][idx] = \
+            n_out, n_gt, n_inter
 
     means = {k: np.mean(v[~np.isnan(v)]) for k, v in errors.items()}
     n_valid_output, n_valid_gt, n_valid_inter = (
@@ -727,21 +738,10 @@ def run(restore_path, image_path, radar_path, ground_truth_path,
                       end='\r')
             if ground_truth_available:
                 gt = data[3][..., 0]
-                v_inter = (output_depth > 0) & (gt > 0)
-                min_max = np.logical_and(gt > min_evaluate_depth,
-                                         gt < max_evaluate_depth)
-                mask = np.where(np.logical_and(v_inter, min_max))
-                out_i, gt_i = output_depth[mask], gt[mask]
-                errors['mae_intersection'][idx] = eval_utils.mean_abs_err(
-                    1000.0 * out_i, 1000.0 * gt_i)
-                errors['rmse_intersection'][idx] = \
-                    eval_utils.root_mean_sq_err(1000.0 * out_i,
-                                                1000.0 * gt_i)
-                errors['imae_intersection'][idx] = \
-                    eval_utils.inv_mean_abs_err(0.001 * out_i, 0.001 * gt_i)
-                errors['irmse_intersection'][idx] = \
-                    eval_utils.inv_root_mean_sq_err(0.001 * out_i,
-                                                    0.001 * gt_i)
+                frame = intersection_metrics(
+                    output_depth, gt, min_evaluate_depth, max_evaluate_depth)
+                for k, v in zip(METRICS, frame):
+                    errors[k][idx] = v
             if save_outputs:
                 filename = (os.path.splitext(os.path.basename(
                     image_paths[idx]))[0] + '.png') if keep_input_filenames \

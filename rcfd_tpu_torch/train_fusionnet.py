@@ -4,11 +4,13 @@ train_fusionnet.py (reference src/train_fusionnet.py).
     python -m rcfd_tpu_torch.train_fusionnet --train_image_path ... \\
         --checkpoint_dirpath out [--restore_path latest]
 
-It takes the JAX CLI's flags with the same defaults, except ``--device``,
-which defaults to ``cuda`` (``--device cpu`` trains on the CPU), and
-``--raw_cache_dirpath``, a cache of the JAX package's loader that the port
-does not have. ``--n_data_parallel`` above 1 and ``--device tpu`` are
-refused, as is an RCFD_TRAIN_DTYPE other than float32 and bfloat16.
+It takes the JAX CLI's flags with the same defaults, plus ``--device``,
+which defaults to ``cuda`` (``--device cpu`` trains on the CPU).
+``--n_data_parallel`` above 1 and ``--device tpu`` are refused, as is an
+RCFD_TRAIN_DTYPE other than float32 and bfloat16. ``--raw_cache_dirpath``
+(or RCFD_RAW_CACHE) turns on the decode-once raw cache of the loader
+(data/raw_cache.py): the first epoch decodes every file and caches its raw
+array, later epochs map it and crop before converting.
 RCFD_TRAIN_DTYPE=bfloat16 trains in mixed precision, as the JAX CLI does
 (fusionnet_main.py says what stays float32).
 """
@@ -18,6 +20,7 @@ from __future__ import annotations
 import argparse
 
 from . import fusionnet_main
+from .data import raw_cache
 
 parser = argparse.ArgumentParser(
     prog='python -m rcfd_tpu_torch.train_fusionnet')
@@ -106,6 +109,10 @@ parser.add_argument('--eval_batch_size', type=int, default=1,
                     help='validation frames per dispatch (identical '
                          'metrics at any value)')
 parser.add_argument('--seed', type=int, default=0)
+parser.add_argument('--raw_cache_dirpath', type=str, default=None,
+                    help='decode-once raw cache dir (mmap raw PNG '
+                         'integers after the first epoch, ~16 MB/frame of '
+                         'disk; see rcfd_tpu_torch/data/raw_cache.py)')
 
 
 def main(argv=None, **train_kwargs):
@@ -114,11 +121,13 @@ def main(argv=None, **train_kwargs):
     validation results."""
     args = parser.parse_args(argv)
     kwargs = vars(args)
+    raw_cache_dirpath = kwargs.pop('raw_cache_dirpath')
     kwargs['encoder_type'] = '-'.join(args.encoder_type)
     kwargs['decoder_type'] = '-'.join(args.decoder_type)
     kwargs['n_resolutions_decoder'] = max(args.n_resolutions_decoder, 1)
     kwargs.update(train_kwargs)
-    return fusionnet_main.train(**kwargs)
+    with raw_cache.raw_cache_for(raw_cache_dirpath):
+        return fusionnet_main.train(**kwargs)
 
 
 if __name__ == '__main__':

@@ -7,8 +7,10 @@ train_radarnet.py (reference src/train_radarnet.py).
 It takes the JAX CLI's flags with the same defaults, plus ``--device``,
 which defaults to ``cuda`` (``--device cpu`` trains on the CPU). Refused:
 ``--n_data_parallel`` above 1, ``--device tpu``, an RCFD_TRAIN_DTYPE other
-than float32 and bfloat16, and ``--raw_cache_dirpath`` (a cache of the JAX
-package's loader that the port does not have). RCFD_TRAIN_DTYPE=bfloat16
+than float32 and bfloat16. ``--raw_cache_dirpath`` (or RCFD_RAW_CACHE)
+turns on the decode-once raw cache of the loader (data/raw_cache.py): the
+first epoch decodes every file and caches its raw array, later epochs map
+it. RCFD_TRAIN_DTYPE=bfloat16
 trains in mixed precision, as the JAX CLI does (radarnet_main.py says
 what stays float32). RadarNet's PerfConfig comes from the
 JAX package's gates RCFD_PALLAS_SCATTER, RCFD_FUSED_POOL2,
@@ -22,6 +24,7 @@ from __future__ import annotations
 import argparse
 
 from . import radarnet_main
+from .data import raw_cache
 from .nn.perf import perf_from_env
 
 parser = argparse.ArgumentParser(
@@ -102,8 +105,9 @@ parser.add_argument('--eval_batch_size', type=int, default=1,
                          'metrics at any value)')
 parser.add_argument('--seed', type=int, default=0)
 parser.add_argument('--raw_cache_dirpath', type=str, default=None,
-                    help='the JAX package\'s decode-once raw cache: not in '
-                         'the port, refused')
+                    help='decode-once raw cache dir (mmap raw PNG '
+                         'integers after the first epoch, ~16 MB/frame of '
+                         'disk; see rcfd_tpu_torch/data/raw_cache.py)')
 
 
 def main(argv=None, **train_kwargs):
@@ -111,19 +115,16 @@ def main(argv=None, **train_kwargs):
     go to ``radarnet_main.train`` (``timings``). Returns the best
     validation results."""
     args = parser.parse_args(argv)
-    if args.raw_cache_dirpath:
-        raise ValueError(
-            '--raw_cache_dirpath: the JAX package\'s raw cache '
-            '(rcfd_tpu/data/raw_cache.py) is not ported; run without it')
     kwargs = vars(args)
-    del kwargs['raw_cache_dirpath']
+    raw_cache_dirpath = kwargs.pop('raw_cache_dirpath')
     kwargs['encoder_type'] = '-'.join(args.encoder_type)
     kwargs['decoder_type'] = '-'.join(args.decoder_type)
     kwargs['sample_probability_of_lidar'] = \
         kwargs.pop('sample_probability_lidar')
     kwargs['perf'] = perf_from_env()
     kwargs.update(train_kwargs)
-    return radarnet_main.train(**kwargs)
+    with raw_cache.raw_cache_for(raw_cache_dirpath):
+        return radarnet_main.train(**kwargs)
 
 
 if __name__ == '__main__':

@@ -923,3 +923,93 @@ def test_variable_bin_pool_on_card_equals_cpu(cuda_device, rng, scale, hw):
     out = roi_pool_column(feat.to(cuda_device), x1.to(cuda_device), 100, 0,
                           128, scale, size)
     assert torch.equal(out.cpu(), ref)
+
+
+def _bridge_files(tmp_path, rng, n=3, n_points=6):
+    """n frames of H x W made with the port's writers, their radar points
+    (at most ``n_points``) and a tiny RadarNet .pth (RADARNET_TINY)."""
+    from rcfd_tpu_torch import native
+
+    frames = []
+    for i in range(n):
+        image = str(tmp_path / 'image_{}.png'.format(i))
+        native.write_rgb(image, rng.integers(0, 256, (H, W, 3),
+                                             dtype=np.uint8))
+        points = np.stack([rng.integers(0, W, n_points),
+                           rng.integers(0, H, n_points),
+                           rng.random(n_points) * 60 + 1], 1)
+        frames.append((image, points.astype(np.float32)))
+    model = RadarNetModel(**RADARNET_TINY, device='cpu')
+    init_parameters(model, torch.Generator().manual_seed(5))
+    checkpoint = str(tmp_path / 'radarnet.pth')
+    model.save_checkpoint(checkpoint, 3)
+    return frames, checkpoint
+
+
+def _bridge_run(tmp_path, frames, checkpoint, name, device):
+    """The bridge on the frames as a val split, the radar files under
+    radar_points_<name>/ (outputs beside them); returns the (depth,
+    response) codes of each frame."""
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.setup import setup_dataset_nuscenes_radarnet as bridge
+
+    radar_dir = tmp_path / ('radar_points_' + name)
+    radar_dir.mkdir()
+    radar = []
+    for i, (_, points) in enumerate(frames):
+        radar.append(str(radar_dir / '{:04d}.npy'.format(i)))
+        np.save(radar[-1], points)
+    io.write_paths(str(tmp_path / 'image.txt'), [f[0] for f in frames])
+    io.write_paths(str(tmp_path / (name + '.txt')), radar)
+    widths = [str(v) for v in RADARNET_TINY['n_filters_encoder_image']]
+    bridge.main([
+        '--restore_path', checkpoint, '--output_dirpath',
+        str(tmp_path / ('out_' + name)), '--val_image_path',
+        str(tmp_path / 'image.txt'), '--val_radar_path',
+        str(tmp_path / (name + '.txt')), '--patch_size',
+        *[str(v) for v in RADARNET_TINY['input_patch_size_image']],
+        '--n_filters_encoder_image', *widths, '--n_neurons_encoder_depth',
+        *[str(v) for v in RADARNET_TINY['n_neurons_encoder_depth']],
+        '--n_filters_decoder',
+        *[str(v) for v in RADARNET_TINY['n_filters_decoder']]],
+        device=device)
+    return [[io.load_depth_u16(p.replace('radar_points', kind).replace(
+        '.npy', '.png')).astype(np.int64) for kind in (
+            'depth_predicted', 'response_predicted')] for p in radar]
+
+
+@pytest.mark.cuda
+def test_bridge_on_card_takes_k1_and_matches_cpu(cuda_device, rng, tmp_path,
+                                                 monkeypatch):
+    """The stage-1.5 bridge on the card: by default the scatter kernel K1,
+    once for the forward of the 3 frames, and the files of the same run
+    with K1's plain version in its place; under RCFD_PALLAS_SCATTER=0 the
+    exact max, no launch, and the files of the CPU's run: response codes
+    within one step, depth codes equal on all but 2 pixels a frame (a tie
+    of two crops within float32 rounding may go either way)."""
+    for gate in ('RCFD_PALLAS_SCATTER', 'RCFD_FUSED_POOL2',
+                 'RCFD_FUSED_POOL4', 'RCFD_DECODE_CHUNKS'):
+        monkeypatch.delenv(gate, raising=False)
+    frames, checkpoint = _bridge_files(tmp_path, rng)
+    before = _counts()
+    k1 = _bridge_run(tmp_path, frames, checkpoint, 'k1', cuda_device)
+    assert _launched(before, K1=1)
+    assert all(int((d > 0).sum()) > 0 for d, _ in k1)
+    from rcfd_tpu_torch.ops import scatter_cuda
+    with monkeypatch.context() as m:
+        m.setattr(scatter_cuda, 'scatter_quasi_dense_batched',
+                  scatter_cuda.scatter_quasi_dense_batched_plain)
+        before = _counts()
+        plain = _bridge_run(tmp_path, frames, checkpoint, 'plain',
+                            cuda_device)
+        assert _launched(before)
+    for (dk, rk), (dp, rp) in zip(k1, plain):
+        assert np.array_equal(dk, dp) and np.array_equal(rk, rp)
+    monkeypatch.setenv('RCFD_PALLAS_SCATTER', '0')
+    before = _counts()
+    card = _bridge_run(tmp_path, frames, checkpoint, 'card', cuda_device)
+    assert _launched(before)
+    cpu = _bridge_run(tmp_path, frames, checkpoint, 'cpu', 'cpu')
+    for (dg, rg), (dc, rc) in zip(card, cpu):
+        assert int((dg != dc).sum()) <= 2
+        assert int(np.abs(rg - rc).max()) <= 1

@@ -854,8 +854,6 @@ def test_cli_needs_a_card_unless_asked_for_cpu(data, tmp_path, monkeypatch,
     (['--device', 'tpu'], None, 'tpu'),
     (['--device', 'cpu', '--n_data_parallel', '2'], None, 'n_data_parallel'),
     (['--device', 'cpu'], 'float16', 'RCFD_TRAIN_DTYPE'),
-    (['--device', 'cpu', '--raw_cache_dirpath', 'cache'], None,
-     'raw_cache_dirpath'),
 ])
 def test_cli_refuses_what_is_not_ported(data, tmp_path, monkeypatch, flags,
                                         env, match):
