@@ -143,6 +143,28 @@ Phases, each printed as it starts and ends:
              a warm-up run: launches, frames/s, the read / serve / write
              split and peak memory; then 2 frames on the card and on the
              CPU under RCFD_PALLAS_SCATTER=0
+  configs    FusionNet in the configurations the port took last, at
+             bash/train_fusionnet_nuscenes.sh's widths on the train
+             phase's files, 5 steps each: a --n_resolutions_decoder 3, b
+             --encoder_type resnet18 batch_norm (image only), c
+             fusionnet34 (all three through train_fusionnet.main; a and b
+             then serve 2 of the run phase's frames with
+             run_fusionnet.main from their checkpoints), d
+             deconv_type='transpose' (fusionnet_main.TrainStep on a model
+             built directly: the JAX CLI has no flag for it); ms a step,
+             samples/s, peak memory; each case at narrow widths card vs
+             CPU, one train step and one return_multiscale forward
+
+The resumed runs of phases train (FusionNet, float32), train_radarnet
+(RadarNet, float32, resumed at the 900x300 patch so that K2 and its
+backward run) and train_bf16 (both, resumed under
+RCFD_TRAIN_DTYPE=bfloat16) trace steps 13 and 14 with the port's trace
+window (RCFD_PROFILE_DIR, RCFD_PROFILE_STEPS=12-14), outside the timed
+steps 3-10 of the first runs. From each Chrome trace the smoke prints the
+card's busy share of the window, its ten largest kernels, the backward's
+kernels by autograd node, and for RadarNet K2's forward and backward, for
+FusionNet the batch norms' kernels; a window that wrote no trace, or one
+without a CUDA kernel event, fails the phase.
 
 Each path phase (and each configuration of the batched phase) sets every
 kernel's launch count to 0 before its counted requests, reads them after,
@@ -2421,58 +2443,86 @@ def check_checkpoint(path, step):
               path, step, sorted({int(e['step']) for e in state.values()})))
 
 
-def train_card_vs_cpu(device):
-    """One train step of a narrow FusionNet on the card and on the CPU from
-    the same weights and batch, augmentation off: loss, gradients and the
-    new running statistics."""
+def narrow_step_card_vs_cpu(device, kw, shape, seed, float64=False):
+    """One train step of a narrow FusionNet (``kw``) on the card and on the
+    CPU from the same weights (drawn from ``seed``) and batch of 2 frames
+    of ``shape``, augmentation off: the loss's relative error, the
+    gradients' largest error as a share of each one's max-abs, the new
+    running statistics' relative error; and the two models after the
+    step's backward. With ``float64`` also the same step in float64 on
+    the CPU, and each device's largest gradient error from it as a share
+    of its largest gradient (``card_err``, ``cpu_err``)."""
     from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch.data import transport
     from rcfd_tpu_torch.data.transforms import Transforms
     from rcfd_tpu_torch.models import FusionNetModel
     from rcfd_tpu_torch.nn import init_parameters
 
-    kw = dict(FUSIONNET, n_filters_encoder_image=[8, 16, 16, 16, 16, 16],
-              n_filters_encoder_depth=[8, 8, 16, 16, 16, 16],
-              n_filters_decoder=[16, 16, 16, 8, 8, 8])
     cpu = FusionNetModel(**kw, device='cpu', trainable=True)
-    init_parameters(cpu, torch.Generator().manual_seed(SEED + 20))
+    init_parameters(cpu, torch.Generator().manual_seed(seed))
     card = copy.deepcopy(cpu).to(device)
-    rng = np.random.default_rng(SEED + 20)
-    batch = (rng.integers(0, 256, (2, 64, 96, 3), dtype=np.uint8),
-             *[(rng.random((2, 64, 96, 1)) * 60 * 256).astype(np.uint16)
-               for _ in range(4)])
+    rng = np.random.default_rng(seed)
+    batch = tuple(torch.from_numpy(a) for a in (
+        rng.integers(0, 256, (2, *shape, 3), dtype=np.uint8),
+        *[(rng.random((2, *shape, 1)) * 60 * 256).astype(np.uint16)
+          for _ in range(4)]))
     transforms = Transforms(normalized_image_range=[0, 1])
+    runs = [('cpu', cpu, batch), ('card', card,
+                                  tuple(t.to(device) for t in batch))]
+    if float64:
+        runs.append(('cpu float64', copy.deepcopy(cpu).double(),
+                     tuple(t.double() for t in transport.decode(batch))))
     out = {}
-    for name, model, dev in (('cpu', cpu, 'cpu'), ('card', card, device)):
+    for name, model, inputs in runs:
         step = fm.TrainStep(model, transforms,
                             fm.make_optimizer(model, 1e-3, 0.0), 'l1', 0.0,
                             2.0, -1, 7, 1.5, -1)
         with fm.training_numerics():
-            info = step.backward(tuple(torch.from_numpy(a).to(dev)
-                                       for a in batch), {})
+            info = step.backward(inputs, {})
         out[name] = (float(info['loss']),
                      {n: p.grad.cpu() for n, p in model.named_parameters()
                       if p.grad is not None},
                      {n: b.cpu().double() for n, b in model.named_buffers()})
     (loss_c, grads_c, bufs_c), (loss_g, grads_g, bufs_g) = out['cpu'], \
         out['card']
-    loss_err = abs(loss_g - loss_c) / abs(loss_c)
-    grad_err = max(float((grads_g[n] - g).abs().max() / g.abs().max())
-                   for n, g in grads_c.items() if g.abs().max() > 0)
-    stats_err = max(float((bufs_g[n] - b).abs().max() /
-                          max(float(b.abs().max()), 1.0))
-                    for n, b in bufs_c.items())
-    check(sorted(grads_g) == sorted(grads_c), 'train: the card and the CPU '
-          'gave gradients to different parameters')
-    check(loss_err <= CARD_LOSS_RTOL and grad_err <= CARD_GRAD_TOL and
-          stats_err <= CARD_STATS_RTOL, 'train: card vs CPU: loss rel err {}, '
-          'gradient err {} of max-abs, running statistics rel err {}'.format(
-              loss_err, grad_err, stats_err))
+    check(sorted(grads_g) == sorted(grads_c), 'card vs CPU: the card and the '
+          'CPU gave gradients to different parameters')
+    r = dict(
+        loss_err=abs(loss_g - loss_c) / abs(loss_c),
+        grad_err=max(float((grads_g[n] - g).abs().max() / g.abs().max())
+                     for n, g in grads_c.items() if g.abs().max() > 0),
+        stats_err=max(float((bufs_g[n] - b).abs().max() /
+                            max(float(b.abs().max()), 1.0))
+                      for n, b in bufs_c.items()),
+        n_grads=len(grads_c), cpu=cpu, card=card)
+    if float64:
+        truth = out['cpu float64'][1]
+        largest = max(float(g.abs().max()) for g in truth.values())
+        for key, grads in (('card_err', grads_g), ('cpu_err', grads_c)):
+            r[key] = max(float((grads[n].double() - g).abs().max())
+                         for n, g in truth.items()) / largest
+    return r
+
+
+def train_card_vs_cpu(device):
+    """One train step of a narrow FusionNet on the card and on the CPU from
+    the same weights and batch, augmentation off: loss, gradients and the
+    new running statistics."""
+    kw = dict(FUSIONNET, n_filters_encoder_image=[8, 16, 16, 16, 16, 16],
+              n_filters_encoder_depth=[8, 8, 16, 16, 16, 16],
+              n_filters_decoder=[16, 16, 16, 8, 8, 8])
+    r = narrow_step_card_vs_cpu(device, kw, (64, 96), SEED + 20)
+    check(r['loss_err'] <= CARD_LOSS_RTOL and
+          r['grad_err'] <= CARD_GRAD_TOL and
+          r['stats_err'] <= CARD_STATS_RTOL, 'train: card vs CPU: loss rel '
+          'err {}, gradient err {} of max-abs, running statistics rel err {}'
+          .format(r['loss_err'], r['grad_err'], r['stats_err']))
     log('train: one step of a narrow FusionNet, card vs CPU from the same '
         'weights and batch: loss rel err {:.3g} (tolerance {:g}), gradients '
         'max err {:.3g} of their max-abs over {} tensors (tolerance {:g}), '
         'running statistics rel err {:.3g} (tolerance {:g})'.format(
-            loss_err, CARD_LOSS_RTOL, grad_err, len(grads_c), CARD_GRAD_TOL,
-            stats_err, CARD_STATS_RTOL))
+            r['loss_err'], CARD_LOSS_RTOL, r['grad_err'], r['n_grads'],
+            CARD_GRAD_TOL, r['stats_err'], CARD_STATS_RTOL))
 
 
 def train_overfit(device):
@@ -2589,6 +2639,245 @@ def train_raw_cache(device, manifests, tmp, uncached_wait_ms):
         'shapes {}'.format(len(same), [a.shape for a in ref[0][0]]))
 
 
+# -- traced train steps ----------------------------------------------------------
+
+# the trace window of each training phase's resumed run (steps 11-15): the
+# port's TraceWindow starts after step 12 and stops after step 14, so steps
+# 13 and 14 are traced, outside the timed steps 3-10 of the first run
+TRACE_STEPS = '12-14'
+TRACED = (13, 14)
+# host ranges, and the card's work, in a Chrome trace of torch.profiler
+HOST_CATS = ('cpu_op', 'user_annotation', 'cuda_runtime', 'cuda_driver')
+DEVICE_CATS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+TOP_KERNELS = 10
+
+
+@contextlib.contextmanager
+def trace_window(tmp, name, batch_norm_ranges=False):
+    """RCFD_PROFILE_DIR (a fresh directory, yielded) and
+    RCFD_PROFILE_STEPS=TRACE_STEPS around a training run. With
+    ``batch_norm_ranges`` the port's BatchNorm2d.forward runs inside a
+    torch.profiler.record_function range 'BatchNorm2d' (for this run only),
+    so that ``trace_report`` can tell the batch norms' kernels."""
+    from unittest import mock
+
+    from rcfd_tpu_torch.nn import layers
+
+    directory = os.path.join(tmp, 'trace_' + name.replace(' ', '_'))
+    ranges = contextlib.nullcontext()
+    if batch_norm_ranges:
+        forward = layers.BatchNorm2d.forward
+
+        def annotated(self, x):
+            with torch.profiler.record_function('BatchNorm2d'):
+                return forward(self, x)
+        ranges = mock.patch.object(layers.BatchNorm2d, 'forward', annotated)
+    with environ({'RCFD_PROFILE_DIR': directory,
+                  'RCFD_PROFILE_STEPS': TRACE_STEPS}), ranges:
+        yield directory
+
+
+def union_us(events):
+    """Microseconds covered by the union of the events' intervals."""
+    total, end = 0.0, -math.inf
+    for e in sorted(events, key=lambda e: e['ts']):
+        t0, t1 = e['ts'], e['ts'] + e['dur']
+        if t1 > end:
+            total += t1 - max(t0, end)
+            end = t1
+    return total
+
+
+def host_stacks(events):
+    """id(event) -> the host ranges (ops, record_function ranges) open
+    around each host event on its thread, outermost first: ranges on one
+    thread nest, so one sweep in time order with a stack finds them."""
+    threads = {}
+    for e in events:
+        if e.get('cat') in HOST_CATS:
+            threads.setdefault((e.get('pid'), e.get('tid')), []).append(e)
+    stacks = {}
+    for items in threads.values():
+        items.sort(key=lambda e: (e['ts'], -e['dur']))
+        stack = []
+        for e in items:
+            while stack and stack[-1]['ts'] + stack[-1]['dur'] <= e['ts']:
+                stack.pop()
+            stacks[id(e)] = list(stack)
+            if e['cat'] in ('cpu_op', 'user_annotation'):
+                stack.append(e)
+    return stacks
+
+
+def kernel_sum(kernels):
+    return sum(e['dur'] for e in kernels) / 1e3, len(kernels)
+
+
+def trace_report(directory, name, timings, crop=False, batch_norm=False):
+    """What the trace window of a run wrote: exactly one Chrome trace, of
+    steps TRACED, holding CUDA kernel events. Prints the card's busy share
+    of the window (kernels, copies and fills over the window's span, and
+    over the span less the host's waits for steps TRACED from
+    ``timings``), the TOP_KERNELS kernels by time with their calls, the
+    backward's kernels by the autograd node that launched them, with
+    ``crop`` K2's forward (its kernel by name) and its backward (the
+    kernels of ColumnCrop's backward node), with ``batch_norm`` the kernels
+    of the batch norms (those launched inside a 'BatchNorm2d' range,
+    forward, and by the autograd nodes the ops in those ranges made,
+    backward). Returns the numbers."""
+    want = 'trace-steps-{}-{}.json'.format(*TRACED)
+    files = sorted(os.listdir(directory)) if os.path.isdir(directory) else []
+    check(files == [want], '{}: the trace window wrote {} ({} expected)'
+          .format(name, files, want))
+    with open(os.path.join(directory, want)) as f:
+        events = [e for e in json.load(f)['traceEvents']
+                  if e.get('ph') == 'X' and 'dur' in e]
+    # the profiler's own span, from its start to its stop
+    windows = [e for e in events if e.get('cat') == 'Trace']
+    events = [e for e in events if e.get('cat') != 'Trace']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    check(kernels and len(windows) == 1, '{}: the trace {} holds {} CUDA '
+          'kernel events and {} profiler spans'.format(
+              name, want, len(kernels), len(windows)))
+    span = windows[0]['dur']
+    busy = union_us([e for e in events if e.get('cat') in DEVICE_CATS])
+    wait = 1e3 * sum(t['wait_ms'] for t in timings if t['step'] in TRACED)
+    kernel_ms, n_kernels = kernel_sum(kernels)
+    out = dict(span_ms=span / 1e3, busy_ms=busy / 1e3,
+               busy_share=busy / span,
+               busy_share_less_wait=busy / max(span - wait, 1.0),
+               kernel_ms=kernel_ms, kernels=n_kernels)
+    log('{} trace ({}, steps {}-{}): window {:.2f} ms, card busy {:.2f} ms '
+        '({:.1f}% of the window; {:.1f}% of it less the host\'s waits for '
+        'a batch, {:.2f} ms); {} kernels {:.2f} ms; {}'.format(
+            name, want, *TRACED, out['span_ms'], out['busy_ms'],
+            100 * out['busy_share'], 100 * out['busy_share_less_wait'],
+            wait / 1e3, n_kernels, kernel_ms, gpu_name_and_power()))
+    by_name = {}
+    for e in kernels:
+        entry = by_name.setdefault(e['name'], [0.0, 0])
+        entry[0] += e['dur'] / 1e3
+        entry[1] += 1
+    for kname, (ms, calls) in sorted(by_name.items(),
+                                     key=lambda kv: -kv[1][0])[:TOP_KERNELS]:
+        log('{} trace: {:9.3f} ms {:5d} calls ({:.1f}% of kernel time)  {}'
+            .format(name, ms, calls, 100 * ms / kernel_ms, kname[:100]))
+    stacks = host_stacks(events)
+    launch = {e['args']['correlation']: e for e in events
+              if e.get('cat') in ('cuda_runtime', 'cuda_driver') and
+              'correlation' in e.get('args', {})}
+
+    def ranges_of(kernel):
+        call = launch.get(kernel.get('args', {}).get('correlation'))
+        return [] if call is None else stacks[id(call)]
+
+    # the backward's kernels by the autograd node that launched them
+    node_prefix = 'autograd::engine::evaluate_function: '
+    by_node = {}
+    for e in kernels:
+        nodes = [r['name'][len(node_prefix):] for r in ranges_of(e)
+                 if r['name'].startswith(node_prefix)]
+        if nodes:
+            entry = by_node.setdefault(nodes[-1], [0.0, 0])
+            entry[0] += e['dur'] / 1e3
+            entry[1] += 1
+    backward_ms = sum(v[0] for v in by_node.values())
+    log('{} trace: the backward\'s kernels {:.2f} ms ({:.1f}% of kernel '
+        'time); by autograd node: {}'.format(
+            name, backward_ms, 100 * backward_ms / kernel_ms, '; '.join(
+                '{} {:.3f} ms in {} kernels'.format(k, ms, n)
+                for k, (ms, n) in sorted(by_node.items(),
+                                         key=lambda kv: -kv[1][0])[:8])))
+    if crop:
+        forward = [e for e in kernels if 'column_crop' in e['name']]
+        backward = [e for e in kernels if any(
+            r['name'] == node_prefix + 'ColumnCropBackward'
+            for r in ranges_of(e))]
+        check(forward and backward, '{}: no K2 forward ({}) or backward '
+              '({}) kernel in the trace'.format(name, len(forward),
+                                                len(backward)))
+        out['crop_forward_ms'], out['crop_forward'] = kernel_sum(forward)
+        out['crop_backward_ms'], out['crop_backward'] = kernel_sum(backward)
+        log('{} trace: K2 forward ({}) {:.3f} ms in {} launches; K2 '
+            'backward (ColumnCropBackward: zeros and one index_add_, {}) '
+            '{:.3f} ms in {} kernels: {:.2f}% and {:.2f}% of the kernel time '
+            'of steps {}-{}'.format(
+                name, forward[0]['name'][:60], out['crop_forward_ms'],
+                out['crop_forward'], ', '.join(sorted({
+                    e['name'][:40] for e in backward})),
+                out['crop_backward_ms'], out['crop_backward'],
+                100 * out['crop_forward_ms'] / kernel_ms,
+                100 * out['crop_backward_ms'] / kernel_ms, *TRACED))
+    if batch_norm:
+        def in_batch_norm(e):
+            return any(r['name'] == 'BatchNorm2d' and
+                       r['cat'] == 'user_annotation' for r in stacks[id(e)])
+        made = {e['args'].get('Sequence number') for e in events
+                if e.get('cat') == 'cpu_op' and in_batch_norm(e)}
+        made.discard(None)
+        nodes = {id(e) for e in events if e.get('cat') == 'cpu_op' and
+                 e['name'].startswith('autograd::engine::evaluate_function')
+                 and e['args'].get('Sequence number') in made}
+        forward = [e for e in kernels if any(
+            r['name'] == 'BatchNorm2d' and r['cat'] == 'user_annotation'
+            for r in ranges_of(e))]
+        backward = [e for e in kernels if any(
+            id(r) in nodes for r in ranges_of(e))]
+        check(forward and backward, '{}: no batch-norm kernel in the trace '
+              '(forward {}, backward {})'.format(name, len(forward),
+                                                 len(backward)))
+        out['bn_forward_ms'], out['bn_forward'] = kernel_sum(forward)
+        out['bn_backward_ms'], out['bn_backward'] = kernel_sum(backward)
+        bn_names = {}
+        for e in forward + backward:
+            bn_names[e['name']] = bn_names.get(e['name'], 0.0) + \
+                e['dur'] / 1e3
+        log('{} trace: batch norms: forward {:.3f} ms in {} kernels, '
+            'backward {:.3f} ms in {} kernels: {:.1f}% of the kernel time of '
+            'steps {}-{}; their largest kernels {}'.format(
+                name, out['bn_forward_ms'], out['bn_forward'],
+                out['bn_backward_ms'], out['bn_backward'],
+                100 * (out['bn_forward_ms'] + out['bn_backward_ms']) /
+                kernel_ms, *TRACED, ', '.join(
+                    '{} {:.2f} ms'.format(k[:50], v) for k, v in sorted(
+                        bn_names.items(), key=lambda kv: -kv[1])[:4])))
+    return out
+
+
+def traced_fusionnet_resume(name, manifests, ckpt, tmp,
+                            dtype=torch.float32):
+    """The training CLI resumed from model-10.pth of ``ckpt`` to step 15
+    (``RCFD_TRAIN_DTYPE`` as ``dtype``), its steps 13 and 14 traced with
+    the batch norms' ranges: no kernel launched, a float32 model-15.pth
+    with an Adam step of 15. Prints the trace's report."""
+    from rcfd_tpu_torch import train_fusionnet
+
+    resumed = []
+    reset_launches()
+    with trace_window(tmp, name, batch_norm_ranges=True) as traces, environ(
+            {'RCFD_TRAIN_DTYPE': 'bfloat16' if dtype == torch.bfloat16
+             else 'float32'}):
+        train_fusionnet.main(train_argv(manifests, ckpt, 15, 'latest'),
+                             timings=resumed)
+    launches = read_launches()
+    check([t['step'] for t in resumed] == list(range(11, 16)) and
+          all(math.isfinite(t['loss']) for t in resumed) and
+          not any(launches.values()),
+          '{}: the resumed run took steps {}, launches {}'.format(
+              name, [t['step'] for t in resumed], launches))
+    check_checkpoint(os.path.join(ckpt, 'model-15.pth'), 15)
+    check_float32_checkpoint(os.path.join(ckpt, 'model-15.pth'))
+    log('{}: resumed from model-10.pth (--restore_path latest), took steps '
+        '11-15 with RCFD_PROFILE_STEPS={} (steps {}-{} traced), saved '
+        'model-15.pth with an Adam step of 15; losses {}; per step (ms, '
+        'wait ms): {}'.format(
+            name, TRACE_STEPS, *TRACED,
+            ', '.join('{:.4f}'.format(t['loss']) for t in resumed),
+            ', '.join('{:.1f}/{:.1f}'.format(t['step_ms'], t['wait_ms'])
+                      for t in resumed)))
+    trace_report(traces, name, resumed, batch_norm=True)
+
+
 def phase_train(device, rn, tmp):
     """FusionNet training on the card: python -m
     rcfd_tpu_torch.train_fusionnet's main, in process, with
@@ -2645,18 +2934,7 @@ def phase_train(device, rn, tmp):
             ', '.join('{:.1f}/{:.1f}'.format(t['step_ms'], t['wait_ms'])
                       for t in timings), gpu_name_and_power()))
 
-    resumed = []
-    train_fusionnet.main(train_argv(manifests, ckpt, 15, 'latest'),
-                         timings=resumed)
-    check([t['step'] for t in resumed] == list(range(11, 16)) and
-          all(math.isfinite(t['loss']) for t in resumed),
-          'train: the resumed run took steps {}'.format(
-              [t['step'] for t in resumed]))
-    check_checkpoint(os.path.join(ckpt, 'model-15.pth'), 15)
-    log('train: resumed from model-10.pth (--restore_path latest) at step '
-        '10, took steps 11-15, saved model-15.pth with an Adam step of 15; '
-        'losses {}'.format(', '.join('{:.4f}'.format(t['loss'])
-                                     for t in resumed)))
+    traced_fusionnet_resume('train', manifests, ckpt, tmp)
     train_raw_cache(device, manifests, tmp, wait_ms)
 
     rn_path = os.path.join(tmp, 'radarnet.pth')
@@ -2922,14 +3200,8 @@ def train_radarnet_canonical(device, record, fn, manifests, tmp):
             ', '.join('{:.1f}/{:.1f}'.format(t['step_ms'], t['wait_ms'])
                       for t in timings), gpu_name_and_power()))
 
-    resumed = []
-    train_radarnet.main(radarnet_train_argv(manifests, ckpt, 3, 'latest'),
-                        timings=resumed)
-    check([t['step'] for t in resumed] == list(range(11, 16)) and
-          all(math.isfinite(t['loss']) for t in resumed),
-          'train_radarnet: the resumed run took steps {}'.format(
-              [t['step'] for t in resumed]))
-    check_radarnet_checkpoint(os.path.join(ckpt, 'model-15.pth'), 15)
+    resumed = traced_radarnet_resume(device, record, 'train_radarnet',
+                                     manifests, ckpt, tmp)
     with open(os.path.join(ckpt, 'results.txt')) as f:
         check('Auto-resume from: {}'.format(os.path.join(
             ckpt, 'model-10.pth')) in f.read(),
@@ -2988,6 +3260,53 @@ def train_radarnet_canonical(device, record, fn, manifests, tmp):
                 int((quasi > 0).sum())))
     del pipe, model
     return numbers
+
+
+def traced_radarnet_resume(device, record, name, manifests, ckpt, tmp,
+                           dtype=torch.float32):
+    """The training CLI resumed from the newest checkpoint of ``ckpt`` to
+    step 15 at the 900x300 patch (``RCFD_TRAIN_DTYPE`` as ``dtype``), its
+    steps 13 and 14 traced: K2 3 times a step (the instance of ``dtype``,
+    with its plain backward), and in the two validations at step 15 (from
+    the float32 masters) K1 once and K2 float32 3 times a frame. Prints
+    the trace's report and returns the run's timings."""
+    from rcfd_tpu_torch import train_radarnet
+
+    resumed = []
+    crop = 'column_crop' + dtype_label(dtype)
+    reset_launches()
+    with trace_window(tmp, name) as traces, environ(
+            {'RCFD_TRAIN_DTYPE': 'bfloat16' if dtype == torch.bfloat16
+             else 'float32'}):
+        train_radarnet.main(radarnet_train_argv(manifests, ckpt, 3, 'latest')
+                            + ['--patch_size', str(WIDE_PATCH[0]),
+                               str(WIDE_PATCH[1])], timings=resumed)
+    launches = read_launches()
+    check([t['step'] for t in resumed] == list(range(11, 16)) and
+          all(math.isfinite(t['loss']) for t in resumed),
+          '{}: the resumed run took steps {}'.format(
+              name, [t['step'] for t in resumed]))
+    check_radarnet_checkpoint(os.path.join(ckpt, 'model-15.pth'), 15)
+    check_float32_checkpoint(os.path.join(ckpt, 'model-15.pth'))
+    frames = 2 * RN_VAL_FRAMES
+    want = {'scatter_quasi_dense': frames}
+    want['column_crop'] = want.get('column_crop', 0) + 3 * frames
+    want[crop] = want.get(crop, 0) + 3 * len(resumed)
+    check(all(n == want.get(k, 0) for k, n in launches.items()),
+          '{}: launches of the resumed run {} (expected {})'.format(
+              name, launches, want))
+    count_launches(record, name + ' traced', launches, list(want))
+    log('{}: resumed to step 15 at {}x{} under RCFD_TRAIN_DTYPE={} with '
+        'RCFD_PROFILE_STEPS={} (steps {}-{} traced): launches {}; losses {}; '
+        'per step (ms, wait ms): {}'.format(
+            name, *WIDE_PATCH, 'bfloat16' if dtype == torch.bfloat16 else
+            'float32', TRACE_STEPS, *TRACED,
+            {k: v for k, v in launches.items() if v},
+            ', '.join('{:.4f}'.format(t['loss']) for t in resumed),
+            ', '.join('{:.1f}/{:.1f}'.format(t['step_ms'], t['wait_ms'])
+                      for t in resumed)))
+    trace_report(traces, name, resumed, crop=True)
+    return resumed
 
 
 def crop_training_times(device, record, model, batch, dtype=torch.float32):
@@ -3620,15 +3939,22 @@ def phase_train_bf16(device, record, trained):
     with training_numerics():
         log('train_bf16: ' + numerics_line(torch.bfloat16))
     tmp = trained['tmp']
+    fn_ckpt = os.path.join(tmp, 'bf16_checkpoints')
     train_bf16_cli(device, record, 'fusionnet', train_fusionnet.main,
-                   train_argv(trained['fusionnet']['manifests'], os.path.join(
-                       tmp, 'bf16_checkpoints'), 10), 16, False,
-                   trained['fusionnet'])
+                   train_argv(trained['fusionnet']['manifests'], fn_ckpt, 10),
+                   16, False, trained['fusionnet'])
+    traced_fusionnet_resume('train_bf16 fusionnet',
+                            trained['fusionnet']['manifests'], fn_ckpt, tmp,
+                            torch.bfloat16)
     torch.cuda.empty_cache()
+    rn_ckpt = os.path.join(tmp, 'bf16_rn')
     train_bf16_cli(device, record, 'radarnet', train_radarnet.main,
                    radarnet_train_argv(trained['radarnet']['manifests'],
-                                       os.path.join(tmp, 'bf16_rn'), 2), 6,
+                                       rn_ckpt, 2), 6,
                    True, trained['radarnet'])
+    traced_radarnet_resume(device, record, 'train_bf16 radarnet',
+                           trained['radarnet']['manifests'], rn_ckpt, tmp,
+                           torch.bfloat16)
     torch.cuda.empty_cache()
     train_radarnet_wide(device, record, trained['radarnet']['manifests'],
                         torch.bfloat16)
@@ -3820,7 +4146,7 @@ def phase_run(device, record, rn, fn, tmp):
             CLI_FRAMES, CLI_FRAMES,
             sum(int((x > 0).sum()) for x in got['output_depth_radar'])))
     del pipe
-    return paths, checkpoints[0]
+    return paths, checkpoints[0], inputs['fusionnet']
 
 
 # phase bridge: the stage-1.5 bridge's scripts with
@@ -4293,6 +4619,248 @@ def bridge_card_vs_cpu(device, paths, checkpoint, tmp):
             ', '.join('{:.3g}'.format(e) for e in crop_err), tol))
 
 
+# -- the model configurations the port took last --------------------------------
+
+# phase configs: the training CLI with bash/train_fusionnet_nuscenes.sh's
+# flags on the train phase's files, CONFIG_STEPS steps of batch 16 (one an
+# epoch; a checkpoint and a validation at the last), in the configurations
+# of CONFIG_CASES; ms a step is the median of CONFIG_TIMED (steps 1-2
+# choose cuDNN's algorithms). (a) and (b) also serve CONFIG_SERVED frames
+# of the run phase with run_fusionnet.main from their checkpoint. (d) has
+# no flag in the JAX CLI: fusionnet_main.TrainStep on a model built with
+# deconv_type='transpose', on the loader's batches
+CONFIG_STEPS = 5
+CONFIG_TIMED = range(3, CONFIG_STEPS + 1)
+CONFIG_SERVED = 2
+CONFIG_CASES = (
+    ('a', ['--n_resolutions_decoder', '3'], True),
+    ('b', ['--encoder_type', 'resnet18', 'batch_norm'], True),
+    ('c', ['--encoder_type', 'fusionnet34', 'batch_norm'], False),
+)
+# card vs CPU: a narrow FusionNet of each case at 64 x 128 (every side
+# halves evenly down its 6 levels, which the transposed route needs)
+CONFIG_NARROW = dict(FUSIONNET,
+                     n_filters_encoder_image=[8, 16, 16, 16, 16, 16],
+                     n_filters_encoder_depth=[8, 8, 16, 16, 16, 16],
+                     n_filters_decoder=[16, 16, 16, 8, 8, 8])
+CONFIG_MODELS = {'a': dict(n_resolution_decoder=3),
+                 'b': dict(encoder_type='resnet18_batch_norm'),
+                 'c': dict(encoder_type='fusionnet34_batch_norm'),
+                 'd': dict(deconv_type='transpose')}
+
+
+def config_step_numbers(name, timings, wall, peak):
+    """Check a case's CONFIG_STEPS steps and print its ms a step, host wait,
+    samples/s and peak memory."""
+    losses = [t['loss'] for t in timings]
+    check([t['step'] for t in timings] ==
+          list(range(1, CONFIG_STEPS + 1)) and
+          all(math.isfinite(v) for v in losses),
+          '{}: steps {} losses {}'.format(
+              name, [t['step'] for t in timings], losses))
+    timed = [t for t in timings if t['step'] in CONFIG_TIMED]
+    out = dict(step_ms=float(np.median([t['step_ms'] for t in timed])),
+               wait_ms=float(np.median([t['wait_ms'] for t in timed])),
+               peak=peak)
+    out['samples_per_s'] = 16e3 / float(np.median(
+        [t['step_ms'] + t['wait_ms'] for t in timed]))
+    log('{}: {} steps of batch 16 at 448x448 in {:.2f} s; over steps {}, '
+        'medians: ms a step (synchronized) {:.2f}, host wait {:.2f} ms, '
+        'samples/s {:.2f}; peak memory {} bytes; losses {}; per step (ms, '
+        'wait ms): {}; {}'.format(
+            name, CONFIG_STEPS, wall, [t['step'] for t in timed],
+            out['step_ms'], out['wait_ms'], out['samples_per_s'], peak,
+            ', '.join('{:.4f}'.format(v) for v in losses),
+            ', '.join('{:.1f}/{:.1f}'.format(t['step_ms'], t['wait_ms'])
+                      for t in timings), gpu_name_and_power()))
+    return out
+
+
+def config_cli(device, case, flags, serve, manifests, served, tmp):
+    """Case a, b or c: the training CLI with ``flags``; with ``serve``
+    run_fusionnet.main on ``served`` (the run phase's FusionNet inputs,
+    CONFIG_SERVED frames) from the case's checkpoint."""
+    from rcfd_tpu_torch import run_fusionnet, train_fusionnet
+
+    name = 'configs {}'.format(case)
+    ckpt = os.path.join(tmp, 'config_' + case)
+    timings = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    t0 = time.perf_counter()
+    train_fusionnet.main(train_argv(manifests, ckpt, CONFIG_STEPS) + flags,
+                         timings=timings)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(not any(launches.values()), '{}: launches {} (none expected)'
+          .format(name, launches))
+    path = os.path.join(ckpt, 'model-{}.pth'.format(CONFIG_STEPS))
+    check_checkpoint(path, CONFIG_STEPS)
+    rows = validation_lines(os.path.join(ckpt, 'results.txt'))
+    check(len(rows) == 2 and all(len(r) == 5 and all(map(math.isfinite, r))
+                                 for r in rows),
+          '{}: validation rows {}'.format(name, rows))
+    log('{}: flags {}; validation (step, MAE, RMSE, iMAE, iRMSE) {}'.format(
+        name, ' '.join(flags), rows))
+    numbers = config_step_numbers(name, timings, wall,
+                                  torch.cuda.max_memory_allocated(device))
+    if not serve:
+        return numbers
+    out_dir = os.path.join(tmp, 'config_{}_run'.format(case))
+    argv = run_argv('fusionnet', dict(served, **{'--restore_path': [path]}),
+                    out_dir, True, flags)
+    t0 = time.perf_counter()
+    summary = run_fusionnet.main(argv, device=device)
+    wall = time.perf_counter() - t0
+    written = sorted(os.listdir(os.path.join(out_dir, 'output_depth_fusion')))
+    check(summary['frames'] == CONFIG_SERVED and
+          len(written) == CONFIG_SERVED and
+          all(math.isfinite(v) for v in summary['metrics'].values()),
+          '{}: run_fusionnet served {} frames, wrote {}, metrics {}'.format(
+              name, summary['frames'], written, summary['metrics']))
+    log('{}: run_fusionnet.main from model-{}.pth served {} full-size frames '
+        'in {:.3f} s (setup {:.3f} s, serve {:.2f} ms a frame); metrics {}'
+        .format(name, CONFIG_STEPS, CONFIG_SERVED, wall,
+                summary['seconds']['setup'],
+                1e3 * summary['seconds']['serve'] / CONFIG_SERVED,
+                summary['metrics']))
+    return numbers
+
+
+def config_transpose(device, manifests):
+    """Case d: fusionnet_main.TrainStep on FusionNet at the script's widths
+    with deconv_type='transpose', CONFIG_STEPS steps on the loader's
+    batches (one an epoch, as the CLI's), the script's augmentation."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.data.datasets import FusionNetTrainingDataset
+    from rcfd_tpu_torch.data.loader import DataLoader, device_prefetch
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.models import FusionNetModel
+    from rcfd_tpu_torch.nn import init_parameters
+    from rcfd_tpu_torch.training import step_seed, step_timing, timed
+
+    flags = script_flags(TRAIN_SCRIPT)
+    floats = lambda k: [float(v) for v in flags[k]]  # noqa: E731
+    model = FusionNetModel(**dict(FUSIONNET, deconv_type='transpose'),
+                           device='cpu', trainable=True)
+    init_parameters(model, torch.Generator().manual_seed(SEED + 60))
+    model.to(device)
+    dataset = FusionNetTrainingDataset(
+        *[io.read_paths(manifests['train', k]) for k in TRAIN_STREAMS],
+        shape=(int(flags['--n_height'][0]), int(flags['--n_width'][0])),
+        random_crop_type=flags['--augmentation_random_crop_type'],
+        device=device)
+    loader = DataLoader(dataset, batch_size=16, shuffle=True, num_workers=8,
+                        seed=SEED + 60, drop_last=True)
+    transforms = Transforms(
+        normalized_image_range=floats('--normalized_image_range'),
+        random_brightness=floats('--augmentation_random_brightness'),
+        random_contrast=floats('--augmentation_random_contrast'),
+        random_saturation=floats('--augmentation_random_saturation'),
+        random_flip_type=flags['--augmentation_random_flip_type'])
+    step = fm.TrainStep(model, transforms, fm.make_optimizer(model, 1e-3,
+                                                             0.0),
+                        'l1', 0.0, 2.0, -1, 7, 1.5, -1)
+    generator = torch.Generator(device=device)
+    timings = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t_start = time.perf_counter()
+    with fm.training_numerics():
+        for n in range(1, CONFIG_STEPS + 1):
+            loader.set_epoch(n)
+            for batch, wait_ms, t0 in timed(device_prefetch(loader, device)):
+                generator.manual_seed(step_seed(SEED + 60, n))
+                info = step(batch, transforms.draws(generator, 16, 1.0),
+                            1e-3)
+                timings.append(step_timing(device, n, t0, wait_ms,
+                                           info['loss']))
+    return config_step_numbers(
+        'configs d (deconv_type transpose, TrainStep)', timings,
+        time.perf_counter() - t_start,
+        torch.cuda.max_memory_allocated(device))
+
+
+def config_card_vs_cpu(device, case):
+    """A narrow FusionNet of ``case``: one train step card vs CPU (phase
+    train's tolerances: the loss within CARD_LOSS_RTOL, the running
+    statistics within CARD_STATS_RTOL; each device's gradients within
+    CARD_GRAD_TOL of the largest gradient of the CPU's float64 step, as
+    phase train_radarnet holds its narrow steps, since the per-tensor
+    measure of phase train's check puts the CPU's own float32 gradients
+    of (a) and (d) 6.0e-3 and 7.2e-3 from float64 on a batch-norm weight
+    and a projection) and then, from the two models, one
+    return_multiscale forward in eval mode: each output within
+    CARD_LOSS_RTOL of the CPU's largest value."""
+    kw = dict(CONFIG_NARROW, **CONFIG_MODELS[case])
+    r = narrow_step_card_vs_cpu(device, kw, (64, 128), SEED + 61,
+                                float64=True)
+    rng = np.random.default_rng(SEED + 62)
+    image = torch.from_numpy(rng.random((2, 3, 64, 128), dtype=np.float32))
+    depth = torch.from_numpy(rng.random((2, 2, 64, 128), dtype=np.float32))
+    with torch.no_grad():
+        outs = [model.eval()(image.to(dev), depth.to(dev),
+                             return_multiscale=True)
+                for model, dev in ((r['cpu'], 'cpu'), (r['card'], device))]
+    check(len(outs[0]) == len(outs[1]) == max(
+        kw['n_resolution_decoder'], 1), 'configs {}: {} and {} outputs'
+        .format(case, len(outs[0]), len(outs[1])))
+    out_err = max(float((b.cpu() - a).abs().max() / a.abs().max())
+                  for a, b in zip(*outs))
+    check(r['loss_err'] <= CARD_LOSS_RTOL and
+          r['card_err'] <= CARD_GRAD_TOL and r['cpu_err'] <= CARD_GRAD_TOL
+          and r['stats_err'] <= CARD_STATS_RTOL and
+          out_err <= CARD_LOSS_RTOL,
+          'configs {}: card vs CPU: loss rel err {}, gradients from float64 '
+          'card {} CPU {} of the largest, running statistics rel err {}, '
+          'outputs {}'.format(case, r['loss_err'], r['card_err'],
+                              r['cpu_err'], r['stats_err'], out_err))
+    log('configs {}: a narrow model ({}) card vs CPU from the same weights '
+        'and batch: one step: loss rel err {:.3g} (tolerance {:g}), '
+        'gradients from the CPU\'s float64 step, of its largest gradient: '
+        'card {:.3g}, CPU {:.3g} (tolerance {:g}), card vs CPU {:.3g} of '
+        'each tensor\'s max-abs over {} tensors; running statistics rel '
+        'err {:.3g} (tolerance {:g}); return_multiscale forward, {} outputs, '
+        'max err {:.3g} of their max-abs (tolerance {:g})'.format(
+            case, CONFIG_MODELS[case], r['loss_err'], CARD_LOSS_RTOL,
+            r['card_err'], r['cpu_err'], CARD_GRAD_TOL, r['grad_err'],
+            r['n_grads'], r['stats_err'], CARD_STATS_RTOL, len(outs[0]),
+            out_err, CARD_LOSS_RTOL))
+
+
+def phase_configs(device, trained, served, tmp):
+    """FusionNet in the configurations of CONFIG_CASES and (d) on the train
+    phase's files (``trained`` holds their manifests), and each case card
+    vs CPU at narrow widths. Prints the fusionnet18 step of phase train
+    beside them."""
+    from rcfd_tpu_torch.data import io
+
+    # CONFIG_SERVED frames of the run phase's FusionNet inputs
+    two = {}
+    for flag, (path,) in served.items():
+        if flag == '--restore_path':
+            continue
+        two[flag] = [os.path.join(tmp, 'configs_' + os.path.basename(path))]
+        io.write_paths(two[flag][0], io.read_paths(path)[:CONFIG_SERVED])
+    numbers = {}
+    for case, flags, serve in CONFIG_CASES:
+        numbers[case] = config_cli(device, case, flags, serve,
+                                   trained['manifests'], two, tmp)
+        torch.cuda.empty_cache()
+    numbers['d'] = config_transpose(device, trained['manifests'])
+    torch.cuda.empty_cache()
+    for case in sorted(CONFIG_MODELS):
+        config_card_vs_cpu(device, case)
+    log('configs: ms a step (a) n_resolutions_decoder 3 {:.2f}, (b) '
+        'resnet18 image only {:.2f}, (c) fusionnet34 {:.2f}, (d) transpose '
+        '{:.2f}, against fusionnet18 {:.2f} (phase train, steps 3-10); peak '
+        'memory {}; {}'.format(
+            *[numbers[c]['step_ms'] for c in 'abcd'], trained['step_ms'],
+            [numbers[c]['peak'] for c in 'abcd'], gpu_name_and_power()))
+
+
 def native_codes(maps):
     """The 16-bit codes the float writers make of (dense, quasi,
     response)."""
@@ -4407,25 +4975,33 @@ def main():
     with Phase('cli'), tempfile.TemporaryDirectory() as tmp:
         phase_cli(device, record, rn, fn, tmp)
     torch.cuda.empty_cache()
-    # the three training phases share their files
-    with tempfile.TemporaryDirectory() as tmp:
+    # the three training phases share their files, and the configs phase
+    # trains on them too
+    with tempfile.TemporaryDirectory() as train_tmp:
         with Phase('train'):
-            fusionnet_f32 = phase_train(device, rn, tmp)
+            fusionnet_f32 = phase_train(device, rn, train_tmp)
         torch.cuda.empty_cache()
         with Phase('train_radarnet'):
-            radarnet_f32 = phase_train_radarnet(device, record, fn, tmp)
+            radarnet_f32 = phase_train_radarnet(device, record, fn,
+                                                train_tmp)
         torch.cuda.empty_cache()
         with Phase('train_bf16'):
             phase_train_bf16(device, record, dict(
-                tmp=tmp, fusionnet=fusionnet_f32, radarnet=radarnet_f32))
-    torch.cuda.empty_cache()
-    # the bridge reuses the run phase's frames and RadarNet checkpoint
-    with tempfile.TemporaryDirectory() as tmp:
-        with Phase('run'):
-            paths, rn_checkpoint = phase_run(device, record, rn, fn, tmp)
+                tmp=train_tmp, fusionnet=fusionnet_f32,
+                radarnet=radarnet_f32))
         torch.cuda.empty_cache()
-        with Phase('bridge'):
-            phase_bridge(device, record, paths, rn_checkpoint, tmp)
+        # the bridge reuses the run phase's frames and RadarNet checkpoint,
+        # the configs phase serves FusionNet's inputs of the run phase
+        with tempfile.TemporaryDirectory() as tmp:
+            with Phase('run'):
+                paths, rn_checkpoint, fn_inputs = phase_run(
+                    device, record, rn, fn, tmp)
+            torch.cuda.empty_cache()
+            with Phase('bridge'):
+                phase_bridge(device, record, paths, rn_checkpoint, tmp)
+            torch.cuda.empty_cache()
+            with Phase('configs'):
+                phase_configs(device, fusionnet_f32, fn_inputs, tmp)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

@@ -18,10 +18,13 @@ network computes in bf16 from bf16 copies of the float32 master weights;
 the ground truth, its dilation and outlier removal, the validity maps, the
 losses, the gradients in the masters and Adam's state stay float32.
 
+Every ``n_step_per_summary`` steps the loop writes the loss scalars, the
+image panel and two histograms (``log_image_summary``) to TensorBoard.
+RCFD_PROFILE_DIR and RCFD_PROFILE_STEPS trace a window of steps with
+torch.profiler (utils/profiling.py ``TraceWindow``).
+
 Not in the port yet, each refused with a message: data parallelism over
-more than one card (``n_data_parallel`` > 1), ``device='tpu'``. The
-TensorBoard image panels of the JAX training loop are not written; scalars
-are.
+more than one card (``n_data_parallel`` > 1), ``device='tpu'``.
 
 A run restored at step s resumes at step s + 1 (rcfd_tpu_torch/training.py
 says how this differs from the JAX training loop).
@@ -52,7 +55,8 @@ from .training import (OptimizerStep, epochs, eval_mode, make_optimizer,
                        step_timing, timed, train_dtype, training_numerics)
 from .utils import eval_utils
 from .utils.checkpoint import find_latest_checkpoint
-from .utils.log_utils import log
+from .utils.log_utils import colorize, log
+from .utils.profiling import TraceWindow
 from .utils.summary import SummaryWriter
 
 
@@ -203,6 +207,36 @@ def iter_forward_outputs(forward_fn, dataset, eval_batch_size: int, device,
             time.perf_counter() - t1
         for j, idx in enumerate(idxs):
             yield idx, transport.decode_np(samples[j]), outputs[j]
+
+
+def log_image_summary(writer, tag: str, step: int, forward_fn, batch,
+                      max_depth: float, n_display: int = 4):
+    """The distributions of the output depth and of the ground truth of
+    the first ``n_display`` samples of a training batch, and, where
+    ``colorize`` has matplotlib, their panel: a row each of the images,
+    the input depths, the output depths and the ground truths, the depths
+    colorized over [0, ``max_depth``] (rcfd_tpu/fusionnet_main.py
+    ``_log_image_summary``). ``forward_fn`` is ``make_forward_fn``'s, on
+    the loader's (image, depth, response, ground_truth, lidar_map)
+    batch."""
+    if not writer.enabled:
+        return
+    output = forward_fn(*(t[:n_display] for t in batch[:3])).cpu().numpy()
+    image, depth, _, ground_truth = transport.decode_np(
+        [t[:n_display].cpu().numpy() for t in batch[:4]])
+    writer.add_histogram(tag + '-output_depth_distro', output,
+                         global_step=step)
+    writer.add_histogram(tag + '-ground_truth_distro', ground_truth,
+                         global_step=step)
+    try:
+        rows = [np.clip(image / 255.0, 0, 1)] + [
+            colorize(t / max_depth, 'viridis')
+            for t in (depth, output, ground_truth)]
+    except ImportError:
+        return
+    panel = np.concatenate([np.concatenate(list(r), axis=1) for r in rows],
+                           axis=0)
+    writer.add_image(tag + '-image-depth-output-gt', panel, global_step=step)
 
 
 def validate(forward_fn, dataset, step, best_results, min_evaluate_depth,
@@ -368,6 +402,7 @@ def train(train_image_path, train_depth_path, train_response_path,
     generator = torch.Generator(device=device)
     done = train_step  # steps restored from the checkpoint
     time_start = time.time()
+    trace_window = TraceWindow(device)
 
     def run_validation():
         nonlocal best_results
@@ -393,11 +428,15 @@ def train(train_image_path, train_depth_path, train_response_path,
                 if timings is not None:
                     timings.append(step_timing(device, train_step, t0,
                                                wait_ms, loss_info['loss']))
+                trace_window.after_step(train_step)
                 if train_step % n_step_per_summary == 0:
                     for name, value in loss_info.items():
                         train_summary_writer.add_scalar(
                             'train-' + name, float(value),
                             global_step=train_step)
+                    log_image_summary(train_summary_writer, 'train',
+                                      train_step, forward_fn, batch,
+                                      max_predict_depth)
                 if train_step % n_step_per_checkpoint == 0:
                     loss_value = float(loss_info['loss'])
                     elapsed = time.time() - time_start
@@ -415,6 +454,7 @@ def train(train_image_path, train_depth_path, train_response_path,
                     model.save_checkpoint(
                         checkpoint_path.format(train_step), train_step,
                         optimizer.state_dict())
+        trace_window.close()
         run_validation()
         model.save_checkpoint(checkpoint_path.format(train_step), train_step,
                               optimizer.state_dict())

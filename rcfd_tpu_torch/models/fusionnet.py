@@ -10,9 +10,10 @@ import torch
 from torch import nn
 
 from .. import default_device
+from ..nn import functional as F
 from ..utils.checkpoint import restore_module, save_checkpoint
 from . import losses
-from .networks import FusionNetEncoder, MultiScaleDecoder
+from .networks import FusionNetEncoder, MultiScaleDecoder, ResNetEncoder
 
 # the reference .pth keys of the two halves (src/fusionnet_model.py:360-368)
 PTH_KEYS = {'encoder': 'encoder_state_dict',
@@ -23,7 +24,11 @@ class FusionNetModel(nn.Module):
     """Two-branch fusion encoder + multiscale decoder; the output maps to
     depth by ``min_d / (sigmoid(x) + min_d / max_d)``
     (src/fusionnet_model.py:162-165). Built on ``device`` like
-    RadarNetModel.
+    RadarNetModel. ``encoder_type`` 'fusionnet18' / 'fusionnet34' fuses
+    the image and the input depth; 'resnet18' / 'resnet34' encodes the
+    image alone (the input depth is ignored). ``n_resolution_decoder``
+    above 1 adds the decoder's side outputs (``forward(...,
+    return_multiscale=True)``); ``deconv_type`` is 'up' or 'transpose'.
 
     By default the model serves: every parameter is frozen and it is in
     eval mode (batch norm by its running statistics). ``trainable=True``
@@ -55,19 +60,29 @@ class FusionNetModel(nn.Module):
         else:
             raise ValueError('Unsupported fusion type: {}'.format(
                 fusion_type))
-        if 'fusionnet18' in encoder_type:
+        if 'fusionnet18' in encoder_type or 'resnet18' in encoder_type:
             n_layer = 18
-        elif 'fusionnet34' in encoder_type:
+        elif 'fusionnet34' in encoder_type or 'resnet34' in encoder_type:
             n_layer = 34
         else:
-            # the image-only resnet encoders are in the port queue
             raise ValueError('Unsupported encoder type: {}'.format(
                 encoder_type))
-        self.encoder = FusionNetEncoder(
-            n_layer, input_channels_image, input_channels_depth,
-            n_filters_encoder_image, n_filters_encoder_depth,
-            weight_initializer, activation_func,
-            'batch_norm' in encoder_type, fusion_type)
+        use_batch_norm = 'batch_norm' in encoder_type
+        # image only: a ResNet encoder of the image; the input depth is
+        # taken and not used
+        self.image_only = not ('fusionnet18' in encoder_type or
+                               'fusionnet34' in encoder_type)
+        if self.image_only:
+            self.encoder = ResNetEncoder(
+                n_layer, input_channels_image, n_filters_encoder_image,
+                weight_initializer, activation_func, use_batch_norm)
+            n_filters_encoder = list(n_filters_encoder_image)
+        else:
+            self.encoder = FusionNetEncoder(
+                n_layer, input_channels_image, input_channels_depth,
+                n_filters_encoder_image, n_filters_encoder_depth,
+                weight_initializer, activation_func, use_batch_norm,
+                fusion_type)
         if 'multiscale' not in decoder_type:
             raise ValueError('Unsupported decoder type: {}'.format(
                 decoder_type))
@@ -84,19 +99,28 @@ class FusionNetModel(nn.Module):
             self.requires_grad_(False)
             self.to(device).eval()
 
-    def forward(self, image, input_depth):
+    def forward(self, image, input_depth, return_multiscale: bool = False):
         """NCHW forward: image (N, 3, H, W), input_depth (N, 2, H, W) ->
-        depth (N, 1, H, W) in [min_predict_depth, max_predict_depth]."""
-        latent, skips = self.encoder(image, input_depth)
-        out = self.decoder(latent, skips, shape=image.shape[2:])[-1]
-        return self.min_predict_depth / (
+        depth (N, 1, H, W) in [min_predict_depth, max_predict_depth]; with
+        ``return_multiscale`` the list of the decoder's outputs, each
+        mapped to depth, from the coarsest to the full-resolution one."""
+        if self.image_only:
+            latent, skips = self.encoder(image)
+        else:
+            latent, skips = self.encoder(image, input_depth)
+        outputs = [self.min_predict_depth / (
             torch.sigmoid(out) +
             self.min_predict_depth / self.max_predict_depth)
+            for out in self.decoder(latent, skips, shape=image.shape[2:])]
+        return outputs if return_multiscale else outputs[-1]
 
-    def apply(self, image, input_depth):
+    def apply(self, image, input_depth, return_multiscale: bool = False):
         """The JAX package's ``FusionNetModel.apply`` contract in NHWC."""
         out = self.forward(image.permute(0, 3, 1, 2),
-                           input_depth.permute(0, 3, 1, 2))
+                           input_depth.permute(0, 3, 1, 2),
+                           return_multiscale)
+        if return_multiscale:
+            return [o.permute(0, 2, 3, 1) for o in out]
         return out.permute(0, 2, 3, 1)
 
     def compute_loss(self, image, output_depth, ground_truth, lidar_map,
@@ -123,10 +147,12 @@ class FusionNetModel(nn.Module):
                    'smoothl1': losses.smooth_l1_loss}.get(loss_func)
         if loss_fn is None:
             raise ValueError('No such loss: {}'.format(loss_func))
-        # one output resolution (the decoder's only one here), at the
-        # ground truth's size
         n_scales = len(output_depth)
         for scale, output in enumerate(output_depth):
+            oh, ow = output.shape[2:]
+            th, tw = ground_truth.shape[2:]
+            if oh > th and ow > tw:
+                output = F.resize_bilinear_align_corners(output, (th, tw))
             w_scale = 1.0 / (2 ** (n_scales - scale - 1))
             loss_supervised = loss_supervised + w_scale * loss_fn(
                 output, ground_truth, weight=validity_map_ground_truth)

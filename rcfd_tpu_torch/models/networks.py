@@ -1,9 +1,10 @@
 """Network architectures (counterpart of rcfd_tpu/models/networks.py), NCHW.
 
 Child names follow the JAX package's parameter trees. Ported: the ResNet
-encoder, the FusionNet twin encoder, the MLP point encoder, the RadarNet
-v1 encoder and the multiscale decoder with one output resolution, on the
-plain path (the TPU layout rewrites are not ported).
+encoder, the FusionNet twin encoder, the twin ResNet-based encoder, the
+MLP point encoder, the RadarNet v1 encoder and the multiscale decoder at
+one to four output resolutions, on the plain path (the TPU layout
+rewrites are not ported).
 """
 
 from __future__ import annotations
@@ -268,9 +269,50 @@ class RadarNetV1Encoder(nn.Module):
                                 box_height)
 
 
+class ResNetBasedEncoder(nn.Module):
+    """Twin ResNet-18 encoders, image and depth, fused by concatenating
+    each scale's features (src/networks.py:1259-1331,
+    rcfd_tpu/models/networks.py ``ResNetBasedEncoder``; the JAX package
+    builds it with 18 layers whatever ``n_layer`` says)."""
+
+    def __init__(self, n_layer: int, input_channels_image: int = 3,
+                 input_channels_depth: int = 1,
+                 n_filters_image: List[int] = (48, 96, 192, 384, 384),
+                 n_filters_depth: List[int] = (16, 32, 64, 128, 128),
+                 weight_initializer: str = 'kaiming_uniform',
+                 activation_func: str = 'leaky_relu',
+                 use_batch_norm: bool = False):
+        super().__init__()
+        self.encoder_image = ResNetEncoder(
+            18, input_channels_image, n_filters_image, weight_initializer,
+            activation_func, use_batch_norm)
+        self.encoder_depth = ResNetEncoder(
+            18, input_channels_depth, n_filters_depth, weight_initializer,
+            activation_func, use_batch_norm)
+
+    def forward(self, image, depth):
+        latent_image, skips_image = self.encoder_image(image)
+        latent_depth, skips_depth = self.encoder_depth(depth)
+        skips = [torch.cat([a, b], dim=1)
+                 for a, b in zip(skips_image, skips_depth)]
+        return torch.cat([latent_image, latent_depth], dim=1), skips
+
+
 class MultiScaleDecoder(nn.Module):
-    """Multiscale decoder with skip connections (src/networks.py:1337-1657),
-    one output resolution (the configuration of both serving models)."""
+    """Multiscale decoder with skip connections (src/networks.py:1337-1657,
+    rcfd_tpu/models/networks.py ``MultiScaleDecoder`` on its plain path).
+
+    With ``n_resolution`` r > 1 the blocks at 1/8, 1/4 and 1/2 of the
+    output's resolution (deconv3, deconv2, deconv1) get side heads
+    ``output3`` (r > 3), ``output2`` (r > 2) and ``output1``; each head's
+    output, resized 2x (bilinear, align corners), joins the next block's
+    skip, and deconv0 takes output1's as its skip (after the encoder's
+    first skip, where that skip is deconv0's). A 2x resize of a side that
+    is odd misses its skip by one and the concat fails, as in the JAX
+    package. An ``output_func`` with 'upsample' in it makes r at least 2
+    and output0 the resized output1 (deconv0 and output0 are built all the
+    same, as the checkpoints hold them). ``forward`` returns the outputs
+    from the coarsest to output0."""
 
     def __init__(self, input_channels: int = 256, output_channels: int = 1,
                  n_resolution: int = 1,
@@ -285,33 +327,57 @@ class MultiScaleDecoder(nn.Module):
         n_skips = list(n_skips)
         network_depth = len(n_filters)
         assert network_depth < 8, 'Does not support network depth of 8 or more'
-        if n_resolution != 1 or 'upsample' in output_func:
-            raise NotImplementedError(
-                'MultiScaleDecoder: only n_resolution=1 is ported (ROADMAP.md, '
-                'port queue)')
+        assert 0 < n_resolution < network_depth
+        self.upsample_output = 'upsample' in output_func
+        if self.upsample_output:
+            n_resolution = max(n_resolution, 2)
         act = F.activation_fn(activation_func)
         out_act = F.activation_fn(output_func)
-        names = ['deconv{}'.format(i) for i in range(network_depth - 1, -1, -1)]
+        self.block_names = []
+        self.heads = {}  # block -> the side head after it
         in_ch = input_channels
-        for i, name in enumerate(names):
+        for i in range(network_depth):
+            level = network_depth - 1 - i  # deconv<level>
+            name = 'deconv{}'.format(level)
+            # the side output of the block before joins this block's skip
+            side = output_channels if level < 3 and \
+                n_resolution > level + 1 else 0
             self.add_module(name, DecoderBlock(
-                in_ch, n_skips[i], n_filters[i], weight_initializer, act,
-                use_batch_norm, deconv_type))
+                in_ch, n_skips[i] + side, n_filters[i], weight_initializer,
+                act, use_batch_norm, deconv_type))
+            self.block_names.append(name)
+            if 0 < level < 4 and n_resolution > level:
+                self.heads[name] = 'output{}'.format(level)
+                self.add_module(self.heads[name], Conv2d(
+                    n_filters[i], output_channels, 3, 1, weight_initializer,
+                    out_act, False))
             in_ch = n_filters[i]
-        self.block_names = names
         self.output0 = Conv2d(n_filters[-1], output_channels, 3, 1,
                               weight_initializer, out_act, False)
 
     def forward(self, x, skips, shape=None):
         """Decode the latent ``x`` with ``skips`` (shallowest first). The
-        last block upsamples to ``shape`` (or 2x) when it has no skip."""
+        last block upsamples to ``shape`` (or 2x) when it has neither a
+        skip nor a side output."""
         n = len(skips) - 1
+        outputs = []
+        side = None  # the last side output, resized 2x
         for name in self.block_names:
             block = getattr(self, name)
-            if n >= 0:
-                x = block(x, skip=skips[n])
+            if name == 'deconv0' and self.upsample_output:
+                return outputs + [side]
+            skip = skips[n] if n >= 0 else None
+            if side is not None:
+                skip = side if skip is None else torch.cat([skip, side], 1)
+            if skip is not None:
+                x = block(x, skip=skip)
             else:
                 x = block(x, shape=tuple(shape[-2:]) if shape is not None
                           else None)
             n -= 1
-        return [self.output0(x)]
+            head = self.heads.get(name)
+            if head is not None:
+                outputs.append(getattr(self, head)(x))
+                side = F.resize_bilinear_align_corners(
+                    outputs[-1], (2 * x.shape[2], 2 * x.shape[3]))
+        return outputs + [self.output0(x)]

@@ -10,6 +10,8 @@ Semantics kept from the JAX package:
   does not use ``F.interpolate``, whose float scale can pick another
   source row at ratios such as 57 -> 113 or 112 -> 225. At integer
   factors it repeats each pixel by a broadcast, as the JAX package does;
+- ``resize_bilinear_align_corners`` takes its source coordinates in
+  float32 as the JAX package does, not through ``F.interpolate``;
 - batch norm (inference) computes ``x * scale + shift`` with
   ``scale = w * rsqrt(var + eps)`` in float32, rounded to x's dtype, as
   the JAX package does. Training batch norm (``layers.BatchNorm2d.train()``)
@@ -119,6 +121,18 @@ def conv2d(x, w, stride=1, padding: Optional[int] = None):
     return F.conv2d(x, w, stride=stride, padding=pad)
 
 
+def conv_transpose2d(x, w, stride: int = 2, padding: Optional[int] = None,
+                     output_padding: int = 1):
+    """NCHW x IOHW transposed convolution, torch.nn.ConvTranspose2d's
+    (stride 2, padding k // 2, output padding 1 by default), which the
+    JAX package computes as a convolution of the dilated input with the
+    flipped kernel (rcfd_tpu/nn/functional.py ``conv_transpose2d``)."""
+    if padding is None:
+        padding = w.shape[2] // 2
+    return F.conv_transpose2d(x, w, stride=stride, padding=padding,
+                              output_padding=output_padding)
+
+
 def max_pool2d(x, kernel_size: int = 3, stride: int = 2, padding: int = 1):
     """Max pool with -inf padding (torch.nn.MaxPool2d)."""
     return F.max_pool2d(x, kernel_size, stride, padding)
@@ -190,3 +204,39 @@ def resize_nearest(x, shape: Tuple[int, int]):
     rows = torch.arange(out_h, device=x.device) * h // out_h
     cols = torch.arange(out_w, device=x.device) * w // out_w
     return x.index_select(2, rows).index_select(3, cols)
+
+
+def _align_corners_coords(out_dim: int, in_dim: int, device):
+    """Source coordinates of an align-corners resize, in float32 as the
+    JAX package computes them: arange(out) * ((in - 1) / (out - 1)), the
+    ratio rounded to float32 first; 0 when ``out_dim`` is 1. Returns
+    (the lower index, the upper index, the fraction past the lower)."""
+    if out_dim == 1:
+        coords = torch.zeros(1, dtype=torch.float32, device=device)
+    else:
+        ratio = torch.tensor((in_dim - 1) / (out_dim - 1),
+                             dtype=torch.float32, device=device)
+        coords = torch.arange(out_dim, dtype=torch.float32,
+                              device=device) * ratio
+    lo = torch.floor(coords).long().clamp(0, in_dim - 1)
+    hi = (lo + 1).clamp(0, in_dim - 1)
+    return lo, hi, coords - lo.to(torch.float32)
+
+
+def resize_bilinear_align_corners(x, shape: Tuple[int, int]):
+    """Bilinear resize of NCHW x to (H, W) with align_corners=True
+    (rcfd_tpu/nn/functional.py ``resize_bilinear_align_corners``, torch's
+    ``interpolate(mode='bilinear', align_corners=True)`` up to the last
+    bit of the coordinates): rows, then columns, each a lerp
+    ``a + f * (b - a)`` in x's dtype with the fraction rounded to it. The
+    identity at equal size. Differentiable (gathers and lerps)."""
+    h, w = x.shape[2], x.shape[3]
+    out_h, out_w = int(shape[0]), int(shape[1])
+    if (out_h, out_w) == (h, w):
+        return x
+    y0, y1, wy = _align_corners_coords(out_h, h, x.device)
+    x0, x1, wx = _align_corners_coords(out_w, w, x.device)
+    top, bot = x.index_select(2, y0), x.index_select(2, y1)
+    rows = top + wy.to(x.dtype)[:, None] * (bot - top)
+    left, right = rows.index_select(3, x0), rows.index_select(3, x1)
+    return left + wx.to(x.dtype) * (right - left)

@@ -139,6 +139,40 @@ class Conv2d(nn.Module):
         return y
 
 
+class TransposeConv2d(nn.Module):
+    """Transposed conv (+ batch norm) (+ activation), stride 2, padding
+    k // 2, output padding 1: each side doubles (src/net_utils.py:94-153,
+    rcfd_tpu/nn/layers.py ``TransposeConv2d``). The weight is torch's
+    ConvTranspose2d layout, IOHW, as in the reference's checkpoints; no
+    bias until a folded batch norm's (``deconv.bias``)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3,
+                 weight_initializer: str = 'kaiming_uniform',
+                 activation_func=('leaky_relu_default', 0.10),
+                 use_batch_norm: bool = False):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.weight_initializer = weight_initializer
+        self.activation = _resolve_activation(activation_func)
+        self.deconv = nn.ConvTranspose2d(
+            in_channels, out_channels, kernel_size, stride=2,
+            padding=kernel_size // 2, output_padding=1, bias=False)
+        self.batch_norm = BatchNorm2d(out_channels) if use_batch_norm \
+            else None
+
+    def forward(self, x):
+        deconv = self.deconv
+        y = F.conv_transpose2d(x, deconv.weight.to(x.dtype))
+        if deconv.bias is not None:
+            y.add_(deconv.bias.to(y.dtype)[:, None, None])
+        if self.batch_norm is not None:
+            y = self.batch_norm(y)
+        if self.activation is not None:
+            y = self.activation(y)
+        return y
+
+
 class UpConv2d(nn.Module):
     """Nearest upsample to a target shape + conv. src/net_utils.py:156-198."""
 
@@ -204,9 +238,61 @@ class ResNetBlock(nn.Module):
         return self.activation(y + shortcut)
 
 
+class ResNetBottleneckBlock(nn.Module):
+    """Bottleneck residual block, 1x1 -> 3x3 (strided) -> 1x1 to 4 x
+    ``out_channels``, plus a 1x1 projection of the input that always
+    applies (src/net_utils.py:326-407, rcfd_tpu/nn/layers.py
+    ``ResNetBottleneckBlock``, which keeps the reference's quirk)."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 weight_initializer: str = 'kaiming_uniform',
+                 activation_func=('leaky_relu_default', 0.10),
+                 use_batch_norm: bool = False):
+        super().__init__()
+        self.activation = _resolve_activation(activation_func)
+        wi, act, bn = weight_initializer, activation_func, use_batch_norm
+        self.conv1 = Conv2d(in_channels, out_channels, 1, 1, wi, act, bn)
+        self.conv2 = Conv2d(out_channels, out_channels, 3, stride, wi, act,
+                            bn)
+        self.conv3 = Conv2d(out_channels, 4 * out_channels, 1, 1, wi, act,
+                            bn)
+        self.projection = Conv2d(in_channels, 4 * out_channels, 1, stride,
+                                 wi, None, False)
+
+    def forward(self, x):
+        y = self.conv3(self.conv2(self.conv1(x)))
+        return self.activation(y + self.projection(x))
+
+
+class VGGNetBlock(nn.Module):
+    """``n_conv`` 3x3 convolutions, the last one strided
+    (src/net_utils.py:410-467, rcfd_tpu/nn/layers.py ``VGGNetBlock``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, n_conv: int = 1,
+                 stride: int = 1,
+                 weight_initializer: str = 'kaiming_uniform',
+                 activation_func=('leaky_relu_default', 0.10),
+                 use_batch_norm: bool = False):
+        super().__init__()
+        layers = []
+        for n in range(n_conv):
+            layers.append(Conv2d(in_channels, out_channels, 3,
+                                 stride if n == n_conv - 1 else 1,
+                                 weight_initializer, activation_func,
+                                 use_batch_norm))
+            in_channels = out_channels
+        self.conv_block = nn.Sequential(*layers)
+
+    def forward(self, x):
+        return self.conv_block(x)
+
+
 class DecoderBlock(nn.Module):
-    """Upconv + skip concat + conv. src/net_utils.py:473-569 ('up' deconv
-    only)."""
+    """Deconvolution + skip concat + conv. src/net_utils.py:473-569. The
+    deconvolution is ``deconv_type`` 'up' (a nearest upsample to the
+    skip's shape, then a conv) or 'transpose' (a TransposeConv2d, which
+    doubles each side and does not fit itself to the skip: a skip of
+    another shape fails the concat, as in the JAX package)."""
 
     def __init__(self, in_channels: int, skip_channels: int,
                  out_channels: int,
@@ -214,24 +300,32 @@ class DecoderBlock(nn.Module):
                  activation_func=('leaky_relu_default', 0.10),
                  use_batch_norm: bool = False, deconv_type: str = 'up'):
         super().__init__()
-        if deconv_type != 'up':
-            raise NotImplementedError(
-                'deconv_type {!r} is not ported yet (ROADMAP.md, port '
-                'queue)'.format(deconv_type))
         self.skip_channels = skip_channels
-        self.deconv = UpConv2d(in_channels, out_channels, 3,
-                               weight_initializer, activation_func,
-                               use_batch_norm)
+        self.deconv_type = deconv_type
+        if deconv_type == 'transpose':
+            self.deconv = TransposeConv2d(in_channels, out_channels, 3,
+                                          weight_initializer,
+                                          activation_func, use_batch_norm)
+        elif deconv_type == 'up':
+            self.deconv = UpConv2d(in_channels, out_channels, 3,
+                                   weight_initializer, activation_func,
+                                   use_batch_norm)
+        else:
+            raise ValueError('Unsupported deconv type: {}'.format(
+                deconv_type))
         self.conv = Conv2d(skip_channels + out_channels, out_channels, 3, 1,
                            weight_initializer, activation_func,
                            use_batch_norm)
 
     def forward(self, x, skip=None, shape=None):
-        if skip is not None:
-            shape = skip.shape[2:]
-        elif shape is None:
-            shape = (2 * x.shape[2], 2 * x.shape[3])
-        y = self.deconv(x, shape)
+        if self.deconv_type == 'transpose':
+            y = self.deconv(x)
+        else:
+            if skip is not None:
+                shape = skip.shape[2:]
+            elif shape is None:
+                shape = (2 * x.shape[2], 2 * x.shape[3])
+            y = self.deconv(x, shape)
         if isinstance(skip, LazyColumnWindows):
             # conv(concat[y, windows]) with the skip half convolved once on
             # the global map and its windows gathered into the sum
@@ -256,6 +350,11 @@ def init_parameters(module: nn.Module, generator: torch.Generator):
         if isinstance(m, Conv2d):
             F.init_conv_weight_(m.conv.weight, m.weight_initializer,
                                 generator)
+        elif isinstance(m, TransposeConv2d):
+            # IOHW, drawn as the JAX package draws its HWIO kernel: the fan
+            # in counts the input channels
+            F.init_conv_weight_(m.deconv.weight.transpose(0, 1),
+                                m.weight_initializer, generator)
         elif isinstance(m, FullyConnected):
             F.init_linear_(m.fully_connected.weight,
                            m.fully_connected.bias, m.weight_initializer,

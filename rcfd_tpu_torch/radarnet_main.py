@@ -31,6 +31,9 @@ rcfd_tpu_torch.run_radarnet``), with RadarNet's batch norm folded, in
 float32 or bf16, writing the outputs as PNGs and the metrics to
 results.txt.
 
+RCFD_PROFILE_DIR and RCFD_PROFILE_STEPS trace a window of train steps
+with torch.profiler (utils/profiling.py ``TraceWindow``).
+
 As in the JAX package, training writes no optimizer state into its
 checkpoints (an empty ``radarnet_optimizer_state_dict``), so a restored run
 starts Adam afresh. Not in the port yet, each refused with a message: data
@@ -69,6 +72,7 @@ from .training import (OptimizerStep, epochs, eval_mode, make_optimizer,
 from .utils import eval_utils
 from .utils.checkpoint import find_latest_checkpoint
 from .utils.log_utils import colorize, log
+from .utils.profiling import TraceWindow
 from .utils.summary import SummaryWriter
 
 METRICS = ('mae_intersection', 'rmse_intersection', 'imae_intersection',
@@ -556,6 +560,7 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
     points_shape = (batch_size, total_points_sampled, 3)
     done = train_step  # steps restored from the checkpoint
     time_start = time.time()
+    trace_window = TraceWindow(device)
 
     def run_validation():
         nonlocal best_results
@@ -582,6 +587,7 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
                 if timings is not None:
                     timings.append(step_timing(device, train_step, t0,
                                                wait_ms, loss_info['loss']))
+                trace_window.after_step(train_step)
                 if train_step % n_step_per_summary == 0:
                     for name, value in loss_info.items():
                         train_summary_writer.add_scalar(
@@ -605,6 +611,7 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
                         run_validation()
                     model.save_checkpoint(checkpoint_path.format(train_step),
                                           train_step)
+        trace_window.close()
         run_validation()
         model.save_checkpoint(checkpoint_path.format(train_step), train_step)
     train_summary_writer.close()

@@ -1013,3 +1013,26 @@ def test_bridge_on_card_takes_k1_and_matches_cpu(cuda_device, rng, tmp_path,
     for (dg, rg), (dc, rc) in zip(card, cpu):
         assert int((dg != dc).sum()) <= 2
         assert int(np.abs(rg - rc).max()) <= 1
+
+
+@pytest.mark.cuda
+def test_trace_window_traces_the_card(cuda_device, tmp_path, monkeypatch):
+    """The train loops' trace window on a CUDA device writes one Chrome
+    trace of the steps asked for, holding the card's kernels."""
+    import json
+
+    from rcfd_tpu_torch.utils.profiling import TraceWindow
+
+    monkeypatch.setenv('RCFD_PROFILE_DIR', str(tmp_path))
+    monkeypatch.setenv('RCFD_PROFILE_STEPS', '1-3')
+    window = TraceWindow(cuda_device)
+    x = torch.randn(2, 3, 32, 32, device=cuda_device)
+    w = torch.randn(4, 3, 3, 3, device=cuda_device)
+    for step in range(1, 6):
+        torch.nn.functional.conv2d(x, w).relu().sum()
+        window.after_step(step)
+    window.close()
+    assert os.listdir(tmp_path) == ['trace-steps-2-3.json']
+    with open(window.path) as f:
+        events = json.load(f)['traceEvents']
+    assert any(e.get('cat') == 'kernel' for e in events)

@@ -37,7 +37,8 @@ def test_port_sources_include_the_measurement_tool():
                  'rcfd_tpu_torch/train_fusionnet.py',
                  'rcfd_tpu_torch/data/loader.py',
                  'rcfd_tpu_torch/models/losses.py',
-                 'rcfd_tpu_torch/utils/summary.py'):
+                 'rcfd_tpu_torch/utils/summary.py',
+                 'rcfd_tpu_torch/utils/profiling.py'):
         assert path in paths
 
 

@@ -170,12 +170,22 @@ def test_state_dict_keys_match_reference_layout(radarnet, fusionnet):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        FusionNetModel(**dict(FUSIONNET_TINY, n_resolution_decoder=2),
+    """The multi-resolution decoder and the transposed deconvolution,
+    refused until they were ported, build (tests/test_torch_configs.py
+    holds them to the JAX package); the values the JAX package refuses
+    raise here too."""
+    for extra in (dict(n_resolution_decoder=2),
+                  dict(deconv_type='transpose'),
+                  dict(encoder_type='resnet18_batch_norm')):
+        FusionNetModel(**dict(FUSIONNET_TINY, **extra), device='cpu')
+    with pytest.raises(AssertionError):
+        FusionNetModel(**dict(FUSIONNET_TINY, n_resolution_decoder=6),
                        device='cpu')
-    with pytest.raises(NotImplementedError):
-        FusionNetModel(**dict(FUSIONNET_TINY, deconv_type='transpose'),
-                       device='cpu')
+    for extra in (dict(deconv_type='nearest'),
+                  dict(encoder_type='resnet50_batch_norm'),
+                  dict(decoder_type='unet')):
+        with pytest.raises(ValueError):
+            FusionNetModel(**dict(FUSIONNET_TINY, **extra), device='cpu')
 
 
 def test_models_need_a_card_unless_asked_for_cpu(monkeypatch):
