@@ -1,6 +1,7 @@
 """Host-side data I/O: path manifests and the 8- and 16-bit PNG codecs
 (counterpart of rcfd_tpu/data/io.py), through the port's own codec
-(rcfd_tpu_torch/native), without Pillow.
+(rcfd_tpu_torch/native), without Pillow; and stage 0's densification of
+the ground truth (``interpolate_depth``, scipy on the host).
 
 Byte-compatible with the reference's formats: depth maps are 16-bit
 grayscale PNGs quantized by x256 (PIL's mode-'I' save: uint32(z * m),
@@ -114,6 +115,15 @@ def load_depth(path: str, multiplier: float = 256.0, data_format: str = 'HW'):
     return depth_from_raw(load_depth_raw(path), multiplier, data_format)
 
 
+def load_depth_with_validity_map(path: str, multiplier: float = 256.0,
+                                 data_format: str = 'HW'):
+    """load_depth and its validity map: 1 where the depth is positive, else
+    0 (float32)."""
+    z = depth_from_raw(load_depth_raw(path), multiplier)
+    v = (z > 0).astype(np.float32)
+    return _expand(z, data_format), _expand(v, data_format)
+
+
 def load_depth_u16(path: str, data_format: str = 'HW'):
     """Raw 16-bit-PNG integers (x256 codec implied) for integer transport;
     their decode (float32 / 256) equals load_depth exactly."""
@@ -156,3 +166,33 @@ def load_response(path: str, multiplier: float = 2 ** 14,
 
 def save_response(response, path: str, multiplier: float = 2 ** 14):
     native.write_depth(path, response, multiplier)
+
+
+def interpolate_depth(depth_map, validity_map, log_space: bool = False):
+    """Densify a sparse depth map by barycentric (Delaunay) interpolation
+    over (row, col) (src/data_utils.py:337-379), on the host with scipy's
+    Qhull: 0 outside the hull (log(1e-3) in log space, where values below
+    0.1 are then cut to 0). Returns float64, as the JAX package's."""
+    from scipy.interpolate import LinearNDInterpolator
+
+    if depth_map.ndim != 2 or validity_map.ndim != 2:
+        raise ValueError('interpolate_depth takes (H, W) maps, got {} and '
+                         '{}'.format(depth_map.shape, validity_map.shape))
+    rows, cols = depth_map.shape
+    data_row_idx, data_col_idx = np.where(validity_map)
+    depth_values = depth_map[data_row_idx, data_col_idx]
+    if log_space:
+        depth_values = np.log(depth_values)
+    interpolator = LinearNDInterpolator(
+        points=np.stack([data_row_idx, data_col_idx], axis=1),
+        values=depth_values,
+        fill_value=0 if not log_space else np.log(1e-3))
+    query_row_idx, query_col_idx = np.meshgrid(
+        np.arange(rows), np.arange(cols), indexing='ij')
+    query_coord = np.stack(
+        [query_row_idx.ravel(), query_col_idx.ravel()], axis=1)
+    z = interpolator(query_coord).reshape([rows, cols])
+    if log_space:
+        z = np.exp(z)
+        z[z < 1e-1] = 0.0
+    return z

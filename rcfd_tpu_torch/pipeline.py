@@ -1,7 +1,7 @@
 """Two-stage serving pipeline: RadarNet -> quasi-dense scatter ->
-FusionNet, one frame a call (``__call__``) or a batch of frames
-(``forward_batched``); counterpart of rcfd_tpu/pipeline.py
-``TwoStagePipeline``.
+FusionNet, one frame a call (``__call__``, or ``from_raw_radar`` from radar
+returns in the sensor frame) or a batch of frames (``forward_batched``);
+counterpart of rcfd_tpu/pipeline.py ``TwoStagePipeline``.
 
 The reference composes the stages through 16-bit PNGs: the bridge writes
 responses with save_response (x2^14) but FusionNet reads them back with
@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from . import default_device
 from .data import transport
 from .data.transforms import Transforms
+from .geometry.transforms import project_points_to_image
 from .models import FusionNetModel, RadarNetModel
 from .nn.optimize import fold_batch_norm
 from .ops import scatter as exact_scatter
@@ -215,6 +216,30 @@ class TwoStagePipeline:
         uint16 on the codec grid when ``codec_encode`` is set."""
         with serving_numerics():
             return self._serve(image, points, valid)
+
+    @torch.inference_mode()
+    def from_raw_radar(self, image, points_sensor, valid, sensor_to_camera,
+                       intrinsics, min_distance_from_camera: float = 1.0):
+        """Serve from raw radar returns: points_sensor (K, 3) in the radar
+        sensor frame, valid (K,), sensor_to_camera the 4x4 rigid transform
+        (geometry.sensor_to_camera_matrix), intrinsics the 3x3 K. The
+        returns are projected on the device (project_points_to_image), each
+        becomes (round(x), round(y), depth) in float32, the ones behind the
+        camera or off the frame are made invalid and zeroed, and the rest
+        is ``__call__``'s (the same scatter route and outputs)."""
+        with serving_numerics():
+            xy, depth, proj_mask = project_points_to_image(
+                self._tensor(points_sensor).float(), sensor_to_camera,
+                intrinsics, self.image_height, self.image_width,
+                min_distance_from_camera=min_distance_from_camera,
+                device=self.device)
+            # image-plane points as stage 0's .npy files carry them
+            points_img = torch.stack([torch.round(xy[:, 0]),
+                                      torch.round(xy[:, 1]), depth], -1)
+            valid_all = self._tensor(valid).to(torch.bool) & proj_mask
+            points_img = torch.where(valid_all[:, None], points_img,
+                                     torch.zeros_like(points_img))
+            return self._serve(image, points_img, valid_all)
 
     def _scatter_for(self, k: int, batched: bool):
         """The scatter of a request of k points a frame: the chosen route,

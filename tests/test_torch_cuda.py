@@ -1036,3 +1036,147 @@ def test_trace_window_traces_the_card(cuda_device, tmp_path, monkeypatch):
     with open(window.path) as f:
         events = json.load(f)['traceEvents']
     assert any(e.get('cat') == 'kernel' for e in events)
+
+
+def _stage0_rig(rng, h, w):
+    """A random 4x4 rig (a turn of a few degrees about each axis and a
+    lever arm), two intrinsics and a depth map of a random cloud seen from
+    the source camera, rasterized on the CPU."""
+    from rcfd_tpu_torch import geometry
+
+    def k():
+        f = rng.uniform(0.8, 1.2) * w
+        return np.array([[f, 0, w / 2 + rng.uniform(-5, 5)],
+                         [0, f, h / 2 + rng.uniform(-5, 5)], [0, 0, 1]],
+                        np.float32)
+    angles = rng.uniform(-0.05, 0.05, 3)
+    q = np.array([1.0, *angles / 2])
+    m = geometry.pose_matrix(q, rng.uniform(-1, 1, 3)).numpy()
+    k_src, k_dst = k(), k()
+    pts = np.stack([rng.uniform(-20, 20, 20000), rng.uniform(-8, 8, 20000),
+                    rng.uniform(3, 60, 20000)], 1).astype(np.float32)
+    xy, z, mask = geometry.project_points_to_image(
+        pts, np.eye(4, dtype=np.float32), k_src, h, w, device='cpu')
+    src = geometry.points_to_depth_map(xy, z, mask, h, w, device='cpu')
+    return src.numpy(), k_src, m, k_dst
+
+
+@pytest.mark.cuda
+def test_stage0_geometry_on_card_matches_cpu(cuda_device, rng):
+    """Projection, rasterization and a 180x320 merge with both mover masks
+    on the card against the CPU: equal, except at ties (none are expected:
+    both compute the same float32 multiplies and adds), each shown by the
+    point's two computations."""
+    from rcfd_tpu_torch import geometry
+    from rcfd_tpu_torch.geometry import reproject
+
+    from torch_stage0 import unexplained_pixels
+
+    h, w = 180, 320
+    src, k_src, m, k_dst = _stage0_rig(rng, h, w)
+    pts = (rng.standard_normal((5000, 3)) * 15).astype(np.float32)
+    for dev_out in (geometry.project_points_to_image(
+            pts, m, k_dst, h, w, device=cuda_device),):
+        cpu_out = geometry.project_points_to_image(pts, m, k_dst, h, w,
+                                                   device='cpu')
+        for a, b in zip(dev_out, cpu_out):
+            assert torch.equal(a.cpu(), b)
+    main = np.zeros((h, w), np.float32)
+    main[::7, ::5] = 30.0
+    src_mask = np.zeros((h, w), bool)
+    src_mask[40:90, 100:160] = True
+    dst_mask = np.zeros((h, w), bool)
+    dst_mask[120:170, 20:60] = True
+    maps, points = [], []
+    for device in (cuda_device, 'cpu'):
+        maps.append(reproject.merge_neighbor_into_main(
+            main, src, k_src, m, k_dst, src_mask, dst_mask,
+            device=device).cpu().numpy())
+        points.append(tuple(a.cpu().numpy() for a in
+                            reproject.reprojected_points(
+                                src, k_src, m, k_dst, h, w, src_mask,
+                                device=device)))
+    bad, ties, n_diff, _ = unexplained_pixels(maps[0], maps[1], *points)
+    assert not bad and n_diff <= ties
+    assert (maps[0] > 0).sum() > (main > 0).sum() + 1000
+
+
+@pytest.mark.cuda
+def test_stage0_pixels_do_not_move_under_tf32(cuda_device, rng):
+    """The caller's TF32 settings reach no product of the stage-0 geometry
+    (they are multiplies and adds, not matrix products): a merge and a
+    projection give the same bits with TF32 on and off, and the settings
+    are the caller's afterwards."""
+    from rcfd_tpu_torch import geometry
+    from rcfd_tpu_torch.geometry import reproject
+
+    h, w = 180, 320
+    src, k_src, m, k_dst = _stage0_rig(rng, h, w)
+    pts = (rng.standard_normal((5000, 3)) * 15).astype(np.float32)
+    b, mm = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (b.allow_tf32, mm.allow_tf32)
+    outs = []
+    try:
+        for tf32 in (True, False):
+            b.allow_tf32 = mm.allow_tf32 = tf32
+            outs.append((
+                reproject.reproject_depth_map(src, k_src, m, k_dst, h, w,
+                                              device=cuda_device).cpu(),
+                geometry.project_points_to_image(pts, m, k_dst, h, w,
+                                                 device=cuda_device)[0]
+                .cpu()))
+            assert (b.allow_tf32, mm.allow_tf32) == (tf32, tf32)
+    finally:
+        b.allow_tf32, mm.allow_tf32 = saved
+    for a, c in zip(*outs):
+        assert torch.equal(a, c)
+    assert (outs[0][0] > 0).sum() > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('route', ['exact', 'k1'])
+def test_from_raw_radar_on_card(cuda_device, rng, route):
+    """from_raw_radar on the card on both scatter routes: __call__'s
+    outputs bit for bit on the points its projection gives, K1 launched
+    once on the kernel's route and never on the exact max's, and K1 equal
+    to its plain version on that request's crops."""
+    from rcfd_tpu_torch import geometry
+
+    gen = torch.Generator().manual_seed(11)
+    perf = PerfConfig(pallas_scatter=True) if route == 'k1' else None
+    rn = RadarNetModel(**RADARNET_TINY, device='cpu', perf=perf)
+    fn = FusionNetModel(**FUSIONNET_TINY, device='cpu')
+    init_parameters(rn, gen)
+    init_parameters(fn, gen)
+    pipe = pipeline.TwoStagePipeline(rn, fn, H, W, device=cuda_device)
+    image = rng.integers(0, 256, (1, H, W, 3), dtype=np.uint8)
+    k = np.array([[60.0, 0, W / 2], [0, 60.0, H / 2], [0, 0, 1]],
+                 np.float32)
+    m = geometry.compose(
+        geometry.pose_matrix([0.5, -0.5, 0.5, -0.5], [0.2, -0.4, 1.1],
+                             inverse=True),
+        geometry.pose_matrix([0.9998, 0.0, 0.0, 0.02], [0.0, 0.0, 0.0]))
+    pts = np.stack([rng.uniform(-5, 60, 16), rng.uniform(-15, 15, 16),
+                    rng.uniform(-1, 2, 16)], 1).astype(np.float32)
+    valid = np.ones(16, bool)
+    valid[-2:] = False
+    before = sc.scatter_quasi_dense.launches
+    raw = pipe.from_raw_radar(image, pts, valid, m, k)
+    torch.cuda.synchronize()
+    assert sc.scatter_quasi_dense.launches - before == (route == 'k1')
+    xy, z, mask = geometry.project_points_to_image(pts, m, k, H, W,
+                                                   device=cuda_device)
+    use = torch.from_numpy(valid).to(cuda_device) & mask
+    points = torch.where(use[:, None], torch.stack(
+        [torch.round(xy[:, 0]), torch.round(xy[:, 1]), z], -1),
+        torch.zeros(1, device=cuda_device))
+    assert 0 < int(use.sum()) < 14
+    pre = pipe(image, points, use)
+    for a, c in zip(raw, pre):
+        assert torch.equal(a, c)
+    with torch.inference_mode(), pipeline.serving_numerics():
+        _, crops, xs, zs = pipe.radarnet_stage(image, points)
+    args = (crops, xs, zs, use, H, W, rn.input_patch_size_image)
+    for a, c in zip(sc.scatter_quasi_dense(*args),
+                    sc.scatter_quasi_dense_plain(*args)):
+        assert torch.equal(a, c)

@@ -38,7 +38,16 @@ def test_port_sources_include_the_measurement_tool():
                  'rcfd_tpu_torch/data/loader.py',
                  'rcfd_tpu_torch/models/losses.py',
                  'rcfd_tpu_torch/utils/summary.py',
-                 'rcfd_tpu_torch/utils/profiling.py'):
+                 'rcfd_tpu_torch/utils/profiling.py',
+                 'rcfd_tpu_torch/geometry/__init__.py',
+                 'rcfd_tpu_torch/geometry/transforms.py',
+                 'rcfd_tpu_torch/geometry/rasterize.py',
+                 'rcfd_tpu_torch/geometry/reproject.py',
+                 'rcfd_tpu_torch/geometry/nuscenes_adapter.py',
+                 'rcfd_tpu_torch/setup/setup_dataset_nuscenes.py',
+                 'rcfd_tpu_torch/setup/setup_dataset_nuscenes_test.py',
+                 'rcfd_tpu_torch/setup/setup_dataset_nuscenes_with_denseGT.py',
+                 'rcfd_tpu_torch/setup/make_data_split.py'):
         assert path in paths
 
 
@@ -60,6 +69,24 @@ def test_source_imports_nothing_forbidden(path):
     # kernels are built by hand with nvcc, not by torch.utils.cpp_extension
     assert not re.search(r'^\s*(?:import|from)\s+torch\.utils\.cpp_extension',
                          text, re.M), path
+
+
+ROOT_SETUP_IMPORT = re.compile(
+    r'^\s*(?:import|from)\s+(?:setup\b|setup_dataset_nuscenes|data_gen\b|'
+    r'make_data_split\b|gen_panoptic_seg\b)', re.M)
+
+
+@pytest.mark.parametrize('path', sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_no_root_setup_script(path):
+    """The port's stage-0 and bridge scripts keep their own copies of what
+    they take from the root setup/ scripts: no port source imports one of
+    them, nor puts setup/ on the module path."""
+    with open(path) as f:
+        text = f.read()
+    assert not ROOT_SETUP_IMPORT.findall(text), path
+    assert 'sys.path.insert' not in text or path.endswith('chip_smoke.py'), \
+        path
 
 
 def test_import_and_build_pipeline_without_jax():
@@ -118,6 +145,20 @@ io.save_depth(np.full((4, 6), 7.5, np.float32), os.path.join(d, 'd.png'))
 assert (io.load_depth(os.path.join(d, 'd.png')) == 7.5).all()
 io.save_image(np.ones((4, 6, 3)), os.path.join(d, 'i.png'))
 assert (io.load_image_u8(os.path.join(d, 'i.png')) == 255).all()
+# stage 0's geometry, its densification and serving from raw radar
+from rcfd_tpu_torch import geometry
+from rcfd_tpu_torch.geometry import reproject
+k = np.array([[50.0, 0, 48], [0, 50.0, 32], [0, 0, 1]], np.float32)
+m = geometry.pose_matrix([1.0, 0, 0, 0], [0.1, 0, 0.5]).numpy()
+dm = np.zeros((64, 96), np.float32)
+dm[20:40:3, 30:70:4] = 12.0
+merged = reproject.merge_neighbor_into_main(dm, dm, k, m, k, device='cpu')
+assert (merged > 0).sum() > (dm > 0).sum()
+assert (io.interpolate_depth(dm, (dm > 0).astype(np.float32)) > 0).sum() > 500
+raw = np.array([[0.5, 0.2, 9.0], [-0.4, 0.1, 20.0]], np.float32)
+dense, _, _ = pipe.from_raw_radar(np.zeros((1, 64, 96, 3), np.uint8), raw,
+                                  np.ones(2, bool), np.eye(4), k)
+assert dense.shape == (64, 96)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'rcfd_tpu', 'PIL',
                                     'torchvision'))
