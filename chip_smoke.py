@@ -176,6 +176,26 @@ Phases, each printed as it starts and ends:
              samples/s, peak memory; each case at narrow widths card vs
              CPU, one train step and one return_multiscale forward
 
+  legacy     the legacy v0 pipeline (rcfd_tpu_torch.setup.data_gen,
+             train_legacy_v0, save_depth_radar, save_stage_1_depth,
+             eval_stage_1_depth, in process) on the run phase's 8 frames:
+             (a) data_gen.process_scene over 2 keyframes of a StageZeroDB
+             scene at the train split's +-9, then on the CPU, file for file
+             (ground truth, .npy, label samples, records); (b)
+             train_legacy_v0 at its defaults (batch 6, 900x288 crops) for
+             10 steps, a checkpoint and a validation (2 frames, K = 128)
+             every 5, resumed for one epoch; (c) save_depth_radar with
+             bash/train_nuscenes.sh's flags (batch 64, 900x60, validation
+             and checkpoint every step), 2 steps; (d) save_stage_1_depth
+             from (b)'s checkpoint over 4 frames at K = 128, then
+             eval_stage_1_depth against a numpy recount; (e) narrow train
+             steps at 64x32 and 64x60 card vs CPU against a float64 step,
+             one full-size make_forward_fn frame at K = 128 card vs CPU (each
+             differing depth pixel a tie or at the threshold), and no K1, K2
+             or K3 launch on (b)-(e); (f) ops/roi_pool.roi_pool, the general
+             box pool, card vs CPU bit for bit at a 1/8-scale map of a
+             900x1600 frame, 64 boxes at 7x7
+
 The resumed runs of phases train (FusionNet, float32), train_radarnet
 (RadarNet, float32, resumed at the 900x300 patch so that K2 and its
 backward run) and train_bf16 (both, resumed under
@@ -215,6 +235,7 @@ import copy
 import json
 import math
 import os
+import pickle
 import subprocess
 import sys
 import tempfile
@@ -5626,6 +5647,548 @@ def phase_stage0(device, record, slice_pipe, tmp):
             peak, gpu_name_and_power()))
 
 
+# the legacy v0 pipeline (phase legacy): (a) data_gen over 2 keyframes of
+# a StageZeroDB scene at the train split's +-9 (the walk starts at keyframe
+# 9 of 11, so keyframe 9 merges 9 back and 1 ahead, keyframe 10 9 back);
+# (b) train_legacy_v0 at its defaults on 30 records of the run phase's 8
+# frames; (c) save_depth_radar with bash/train_nuscenes.sh's flags, 2
+# steps; (d) save_stage_1_depth and eval_stage_1_depth; (e) card vs CPU;
+# (f) the general ROI pool
+LEGACY_SCRIPT = os.path.join('bash', 'train_nuscenes.sh')
+LEGACY_KEYFRAMES = (range(0, 101, 10), 101)
+LEGACY_WALK_FROM = 's9'
+LEGACY_FRAMES = 9
+LEGACY_TRAIN_RECORDS = 30
+LEGACY_VAL_FRAMES = 2
+LEGACY_STAGE1_FRAMES = 4
+LEGACY_K = 128
+LEGACY_DRS_TRAIN = 64
+LEGACY_DRS_SCHEDULE = (['--learning_rates', '5e-5', '1e-4'],
+                       ['--learning_schedule', '1', '2'])
+LEGACY_NARROW = ((64, 32), (64, 60))
+LEGACY_NARROW_FRAME = (64, 96)
+# a narrow step's gradients card vs CPU: each device's largest error from
+# the CPU's float64 step as a share of its largest gradient, a limit a
+# patch. 64x60 at the other trainings' 1e-3. 64x32 at 2e-2: there the
+# CPU's float32 step is itself 1.9e-3 off (at 64x60 3.4e-5), as the
+# deepest stage's batch norms normalize 8 values a channel and the radar
+# branch's BatchNorm1d 4 a feature (the JAX formula, E[x^2] - mean^2), so
+# float32 rounding is amplified some 10^4-fold whatever the device. The
+# card's float64 step is held to the CPU's at LEGACY_FLOAT64_TOL at both
+# patches, so a fault of the card's arithmetic shows at 64x32 all the same;
+# the card's float32 step under deterministic cuDNN algorithms is printed
+LEGACY_GRAD_TOL = {(64, 32): 2e-2, (64, 60): 1e-3}
+LEGACY_FLOAT64_TOL = 1e-9
+LEGACY_ROI = dict(channels=64, boxes=64, output_size=(7, 7), scale=1 / 8.)
+
+
+def legacy_inputs(paths, tmp):
+    """The v0 inputs over the run phase's frames: an image directory of
+    links named by each frame's ground truth (the v0 datasets find the
+    image by the ground truth's basename), the pickled path lists of
+    training (30 records over the 8 frames), validation (the last 2),
+    stage 1 (the first 4) and stage 1's warm-up (the first), and the
+    Data_Struct manifests of save_depth_radar (64 train records with radar
+    paths, 2 val records with radar arrays, each label path a real
+    ground-truth file)."""
+    from rcfd_tpu_torch.data.legacy_datasets import save_pickle_paths
+
+    image_dir = os.path.join(tmp, 'legacy_images')
+    os.makedirs(image_dir, exist_ok=True)
+    for image, gt in zip(paths['image'], paths['ground_truth']):
+        os.symlink(image, os.path.join(image_dir, os.path.basename(gt)))
+    gt, radar = paths['ground_truth'], paths['radar']
+    n = len(gt)
+    lists = {
+        'gt_train': [gt[i % n] for i in range(LEGACY_TRAIN_RECORDS)],
+        'radar_train': [radar[i % n] for i in range(LEGACY_TRAIN_RECORDS)],
+        'gt_val': gt[-LEGACY_VAL_FRAMES:],
+        'radar_val': radar[-LEGACY_VAL_FRAMES:],
+        'gt_stage1': gt[:LEGACY_STAGE1_FRAMES],
+        'radar_stage1': radar[:LEGACY_STAGE1_FRAMES],
+        'gt_warm': gt[:1], 'radar_warm': radar[:1]}
+    out = dict(image_dir=image_dir)
+    for name, plist in lists.items():
+        out[name] = os.path.join(tmp, 'legacy_{}.pkl'.format(name))
+        save_pickle_paths(out[name], plist)
+    train = {(0, i): [(0, i, paths['image'][i % n], radar[i % n], gt[i % n],
+                       gt[i % n])] for i in range(LEGACY_DRS_TRAIN)}
+    val = {(0, i): [(0, i, paths['image'][i], np.zeros((4, 2)),
+                     np.load(radar[i]), gt[i], gt[i])]
+           for i in range(n - LEGACY_VAL_FRAMES, n)}
+    for name, manifest in (('drs_train', train), ('drs_val', val)):
+        out[name] = os.path.join(tmp, 'legacy_{}.pkl'.format(name))
+        with open(out[name], 'wb') as f:
+            pickle.dump(manifest, f)
+    return out
+
+
+def legacy_data_gen(device, tmp):
+    """(a) data_gen.process_scene over the last 2 keyframes of an 11-keyframe
+    StageZeroDB scene at the train split's +-9, on the card, then on the
+    CPU: the records and every file equal (the ground truth's and labels'
+    samples, the .npy). Returns the ms-a-keyframe numbers."""
+    from rcfd_tpu_torch import native
+    from rcfd_tpu_torch.setup import data_gen
+
+    world = StageZeroWorld(np.random.default_rng(SEED + 80))
+    db = StageZeroDB(world, *LEGACY_KEYFRAMES)
+    db.scene = [dict(db.scene[0], first_sample_token=LEGACY_WALK_FROM)]
+    for token in db.tables['sample_data']:
+        if token.startswith(('lidar', 'radar')) and \
+                int(token.lstrip('lidarar')) % S0_KEYFRAME_SWEEPS == 0:
+            db.load_point_cloud(db, token)
+    runs = {}
+    for side, dev in (('card', device), ('cpu', 'cpu')):
+        seconds = {}
+        root = os.path.join(tmp, 'data_gen_' + side)
+        t0 = time.perf_counter()
+        with s0_fake(db, seconds), patched(data_gen, dict(
+                _build_nusc=lambda d, v: db)):
+            records = data_gen.process_scene(
+                (0, '/data/nuscenes', 'v1.0-trainval', root, 'train',
+                 LEGACY_FRAMES, 4, 0.4, 0.6), device=dev, seconds=seconds)
+        if dev != 'cpu':
+            torch.cuda.synchronize(device)
+        runs[side] = (records, root, seconds, time.perf_counter() - t0)
+    (records, root, seconds, wall), (records_c, root_c, _, wall_c) = \
+        runs['card'], runs['cpu']
+    check(sorted(records) == sorted(records_c) and len(records) == 2,
+          'legacy (a): records {} on the card, {} on the CPU'.format(
+              sorted(records), sorted(records_c)))
+    n_labels = 0
+    for key in records:
+        (a,), (b,) = records[key], records_c[key]
+        check(tuple(str(v).replace(root, root_c) for v in a) ==
+              tuple(str(v) for v in b), 'legacy (a): records differ: {} {}'
+              .format(a, b))
+        radar, radar_c = np.load(a.radar_points_path), np.load(
+            b.radar_points_path)
+        check(np.array_equal(radar, radar_c), 'legacy (a): {} differs'.format(
+            a.radar_points_path))
+        check(np.array_equal(
+            native.read_png(a.ground_truth_depth_path).samples,
+            native.read_png(b.ground_truth_depth_path).samples),
+            'legacy (a): the ground truth {} differs'.format(
+                a.ground_truth_depth_path))
+        for p in range(radar.shape[0]):
+            la = native.read_png(a.ground_truth_label_path.format(p))
+            lb = native.read_png(b.ground_truth_label_path.format(p))
+            check((la.color_type, la.bit_depth) == (0, 8) and
+                  np.array_equal(la.samples, lb.samples) and
+                  (la.samples == 1).any(),
+                  'legacy (a): label {} of {} differs'.format(p, key))
+            n_labels += 1
+    per = {k: 1e3 * seconds.get(k, 0.0) / 2 for k in
+           ('merge', 'host', 'register', 'labels', 'write')}
+    per['merge'] -= per['host']
+    per['wall'] = 1e3 * wall / 2
+    log('legacy (a): data_gen.process_scene, 2 keyframes at +-{} (9 back): '
+        '{} matched radar points, one label PNG each; ms a keyframe: merges '
+        'on the device {:.2f}, host loads and masks {:.2f}, registration '
+        '{:.2f}, labels {:.2f}, writes {:.2f}; wall {:.2f} (the CPU run '
+        '{:.2f}); card == CPU in every file; {}'.format(
+            LEGACY_FRAMES, n_labels, per['merge'], per['host'],
+            per['register'], per['labels'], per['write'], per['wall'],
+            1e3 * wall_c / 2, gpu_name_and_power()))
+    check(n_labels > 0, 'legacy (a): no radar point was matched')
+    return per
+
+
+def legacy_train_numbers(name, timings, batch, peak, seconds):
+    """ms a step (median of steps 3-10), samples/s, the loader's wait and
+    validation ms a frame of a training run."""
+    steps = [t for t in timings if t['step'] in TIMED_STEPS]
+    step_ms = float(np.median([t['step_ms'] for t in steps]))
+    wait_ms = float(np.median([t['wait_ms'] for t in steps]))
+    n_val = len(seconds['validations'])
+    val_ms = 1e3 * seconds['serve'] / max(seconds.get('frames', 0), 1)
+    later_ms = 1e3 * sum(seconds['validations'][1:]) / max(
+        seconds['frames'] * (n_val - 1) / n_val, 1)
+    check(all(np.isfinite(t['loss']) for t in timings),
+          '{}: a loss is not finite'.format(name))
+    log('{}: {:.2f} ms a step (median of steps {}-{}), {:.2f} samples/s '
+        '(batch {} over step + wait), loader wait {:.2f} ms, validation '
+        '{:.2f} ms a frame over {} validations of {} frames (K = {}; the '
+        'first with cuDNN\'s autotuning, the later ones {:.2f}), peak memory '
+        '{} bytes; {}'.format(
+            name, step_ms, steps[0]['step'], steps[-1]['step'],
+            1e3 * batch / (step_ms + wait_ms), batch, wait_ms, val_ms, n_val,
+            seconds['frames'] // n_val, LEGACY_K, later_ms, peak,
+            gpu_name_and_power()))
+    return dict(step_ms=step_ms, wait_ms=wait_ms, val_ms=val_ms,
+                later_val_ms=later_ms, peak=peak,
+                samples_per_s=1e3 * batch / (step_ms + wait_ms))
+
+
+def legacy_check_checkpoint(path, step):
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    check(sorted(ckpt) == ['model_state_dict', 'optimizer_state_dict',
+                           'train_step'] and ckpt['train_step'] == step and
+          ckpt['optimizer_state_dict'] == {},
+          'legacy: {} is no v0 checkpoint at step {}'.format(path, step))
+
+
+def legacy_train(device, inputs, tmp):
+    """(b) python -m rcfd_tpu_torch.train_legacy_v0 at its defaults (batch
+    6, 900x288 crops) for 10 steps in 2 epochs, a checkpoint and a
+    validation (2 frames, K = 128) every 5 steps, then resumed from
+    model-10.pth for one epoch."""
+    from rcfd_tpu_torch import train_legacy_v0
+
+    out = os.path.join(tmp, 'legacy_train')
+    argv = ['--path_to_pickle_file_gt_train_paths', inputs['gt_train'],
+            '--path_to_pickle_file_radar_train_numpys',
+            inputs['radar_train'],
+            '--path_to_pickle_file_gt_val_paths', inputs['gt_val'],
+            '--path_to_pickle_file_radar_val_numpys', inputs['radar_val'],
+            '--image_path', inputs['image_dir'], '--checkpoint_dirpath', out,
+            '--learning_schedule', '2', '--num_step_per_checkpoint', '5',
+            '--num_step_per_summary', '5', '--start_step_validation', '5',
+            '--max_points_inference', str(LEGACY_K)]
+    torch.cuda.reset_peak_memory_stats(device)
+    timings, seconds = [], {}
+    train_legacy_v0.main(argv, timings=timings, seconds=seconds)
+    numbers = legacy_train_numbers(
+        'legacy (b) train_legacy_v0 defaults', timings, 6,
+        torch.cuda.max_memory_allocated(device), seconds)
+    check([t['step'] for t in timings] == list(range(1, 11)),
+          'legacy (b): steps {}'.format([t['step'] for t in timings]))
+    for step in (5, 10):
+        legacy_check_checkpoint(os.path.join(out, 'model-{}.pth'.format(
+            step)), step)
+    with open(os.path.join(out, 'results.txt')) as f:
+        check(f.read().count('Legacy validation step') == 3,
+              'legacy (b): not 3 validations')
+    resumed = []
+    argv[argv.index('--learning_schedule') + 1] = '3'
+    train_legacy_v0.main(argv + ['--restore_path', os.path.join(
+        out, 'model-10.pth')], timings=resumed)
+    check([t['step'] for t in resumed] == list(range(11, 16)),
+          'legacy (b): the resumed run took steps {}'.format(
+              [t['step'] for t in resumed]))
+    legacy_check_checkpoint(os.path.join(out, 'model-15.pth'), 15)
+    log('legacy (b): resumed from model-10.pth: steps 11-15, median {:.2f} '
+        'ms a step'.format(float(np.median([t['step_ms'] for t in
+                                            resumed[2:]]))))
+    return os.path.join(out, 'model-10.pth'), numbers
+
+
+def legacy_save_depth_radar(device, inputs, tmp):
+    """(c) python -m rcfd_tpu_torch.save_depth_radar with
+    bash/train_nuscenes.sh's flags (batch 64, 900x60 crops, smoothness
+    1e-7 at 11x3, a checkpoint and a validation every step), its schedule
+    cut to its first 2 epochs (1 step each: 64 records)."""
+    from rcfd_tpu_torch import save_depth_radar
+
+    flags = script_flags(LEGACY_SCRIPT)
+    flags['--path_to_pickle_file_train'] = [inputs['drs_train']]
+    flags['--path_to_pickle_file_val'] = [inputs['drs_val']]
+    flags['--image_path'] = [inputs['image_dir']]
+    flags['--checkpoint_dirpath'] = [os.path.join(tmp, 'legacy_drs')]
+    for flag in LEGACY_DRS_SCHEDULE:
+        flags[flag[0]] = flag[1:]
+    argv = [t for k, v in flags.items() for t in [k] + v]
+    torch.cuda.reset_peak_memory_stats(device)
+    timings, seconds = [], {}
+    save_depth_radar.main(argv, timings=timings, seconds=seconds)
+    peak = torch.cuda.max_memory_allocated(device)
+    check([t['step'] for t in timings] == [1, 2] and
+          all(np.isfinite(t['loss']) for t in timings),
+          'legacy (c): steps {}'.format(timings))
+    for step in (1, 2):
+        legacy_check_checkpoint(os.path.join(
+            flags['--checkpoint_dirpath'][0], 'model-{}.pth'.format(step)),
+            step)
+    val_ms = 1e3 * seconds['serve'] / seconds['frames']
+    log('legacy (c) save_depth_radar with {}\'s flags (batch {}, 900x60, '
+        '{} workers): steps {:.2f} and {:.2f} ms (the first with cuDNN\'s '
+        'autotuning), loader wait {:.2f} and {:.2f} ms, {:.2f} samples/s '
+        'at step 2, validation {:.2f} ms a frame ({} frames, K = {}), peak '
+        'memory {} bytes; {}'.format(
+            LEGACY_SCRIPT, flags['--batch_size'][0],
+            flags['--num_workers'][0], timings[0]['step_ms'],
+            timings[1]['step_ms'], timings[0]['wait_ms'],
+            timings[1]['wait_ms'], 1e3 * LEGACY_DRS_TRAIN /
+            (timings[1]['step_ms'] + timings[1]['wait_ms']), val_ms,
+            seconds['frames'], LEGACY_K, peak, gpu_name_and_power()))
+    return dict(step_ms=timings[1]['step_ms'], wait_ms=timings[1]['wait_ms'],
+                val_ms=val_ms, peak=peak)
+
+
+def legacy_stage_1(device, inputs, checkpoint, tmp):
+    """(d) python -m rcfd_tpu_torch.save_stage_1_depth from (b)'s
+    checkpoint over 4 frames at K = 128, after a warm-up run over the first
+    of them, then eval_stage_1_depth on its outputs, held to a numpy
+    recount of the metrics."""
+    from rcfd_tpu_torch import eval_stage_1_depth, save_stage_1_depth
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.data.legacy_datasets import load_pickle_paths
+
+    out = os.path.join(tmp, 'legacy_stage1')
+    manifests = [os.path.join(tmp, n) for n in ('legacy_out.pkl',
+                                                'legacy_resp.pkl')]
+
+    def argv(frames, out):
+        return ['--restore_path', checkpoint,
+                '--path_to_pickle_file_gt_paths', inputs['gt_' + frames],
+                '--path_to_pickle_file_radar_numpy_paths',
+                inputs['radar_' + frames], '--image_dirpath',
+                inputs['image_dir'], '--output_dirpath', out,
+                '--max_points_inference', str(LEGACY_K),
+                '--file_to_save_radar_output_paths', manifests[0],
+                '--file_to_save_radar_response_paths', manifests[1]]
+
+    save_stage_1_depth.main(argv('warm', out + '_warm'))  # warm-up
+    torch.cuda.reset_peak_memory_stats(device)
+    seconds = {}
+    t0 = time.perf_counter()
+    depth_paths, _ = save_stage_1_depth.main(argv('stage1', out),
+                                             seconds=seconds)
+    wall = time.perf_counter() - t0
+    n = len(depth_paths)
+    check(n == LEGACY_STAGE1_FRAMES and
+          load_pickle_paths(manifests[0]) == depth_paths,
+          'legacy (d): {} outputs'.format(n))
+    got = eval_stage_1_depth.main(
+        ['--path_to_pickle_file_output_paths', manifests[0],
+         '--path_to_pickle_file_gt_paths', inputs['gt_stage1']])
+    errors = []
+    for dp, gp in zip(depth_paths, load_pickle_paths(inputs['gt_stage1'])):
+        o, g = io.load_depth(dp), io.load_depth(gp)
+        m = (o > 0) & (g > 0.0) & (g < 100.0)
+        o, g = 1000.0 * o[m], 1000.0 * g[m]
+        errors.append([np.mean(np.abs(g - o)), np.sqrt(np.mean((g - o) ** 2)),
+                       np.mean(np.abs(1e6 / g - 1e6 / o)),
+                       np.sqrt(np.mean((1e6 / g - 1e6 / o) ** 2))])
+    ref = np.nanmean(np.asarray(errors), 0)
+    check(all(np.isfinite(v) for v in got.values()) and np.allclose(
+        [got[k] for k in ('mae', 'rmse', 'imae', 'irmse')], ref,
+        rtol=1e-5), 'legacy (d): eval_stage_1_depth {} against numpy {}'
+        .format(got, ref))
+    per = {k: 1e3 * v / n for k, v in seconds.items()}
+    log('legacy (d) save_stage_1_depth: ms a frame (K = {}): read {:.2f}, '
+        'serve {:.2f}, write {:.2f}; wall {:.2f}; peak memory {} bytes; '
+        'eval_stage_1_depth {} == numpy; {}'.format(
+            LEGACY_K, per['read'], per['serve'], per['write'],
+            1e3 * wall / n, torch.cuda.max_memory_allocated(device), got,
+            gpu_name_and_power()))
+    return dict(per, wall=1e3 * wall / n)
+
+
+def legacy_narrow_step(device, patch, seed):
+    """One train step of the v0 FusionNet at a narrow patch from the same
+    weights and batch (4 frames of 64x96, augmentation off): on the card,
+    on the card under deterministic cuDNN algorithms (benchmark off), on
+    the CPU, and in float64 on the card and on the CPU. Returns the
+    losses' relative error card vs CPU, and each run's largest gradient
+    error from the CPU's float64 step as a share of its largest gradient
+    (and the parameter it is on)."""
+    from rcfd_tpu_torch import legacy_main
+    from rcfd_tpu_torch.data import transport
+    from rcfd_tpu_torch.data.transforms import Transforms
+
+    cpu = legacy_main.build_model(patch, 'cpu', seed)
+    rng = np.random.default_rng(seed)
+    h, w = LEGACY_NARROW_FRAME
+    point = np.stack([[0.0, w - 1.0, 40.5, 70.0], rng.random(4) * h,
+                      rng.random(4) * 40 + 10], 1).astype(np.float32)
+    gt = point[:, 2, None, None, None] + rng.uniform(-0.8, 0.8,
+                                                     (4, h, w, 1))
+    gt[rng.random(gt.shape) < 0.4] = 0.0
+    batch = (torch.from_numpy(rng.integers(0, 256, (4, h, w, 3),
+                                           dtype=np.uint8)),
+             torch.from_numpy(point),
+             torch.from_numpy(np.floor(gt * 256).astype(np.uint16)))
+    double = tuple(t.double() for t in transport.decode(batch))
+    runs = [('cpu', 'cpu', False, False), ('card', device, False, False),
+            ('card deterministic', device, False, True),
+            ('float64', 'cpu', True, False),
+            ('card float64', device, True, False)]
+    out = {}
+    for name, dev, in_float64, deterministic in runs:
+        model = copy.deepcopy(cpu).to(dev)
+        inputs = tuple(t.to(dev) for t in (double if in_float64 else batch))
+        if in_float64:
+            model = model.double()
+        step = legacy_main.TrainStep(
+            model, Transforms(normalized_image_range=[0, 1]),
+            legacy_main.make_optimizer(model, 1e-3, 0.0), patch, 0.4, False,
+            1.0, 1e-2, 2.0, (11, 3))
+        with legacy_main.training_numerics():
+            if deterministic:
+                torch.backends.cudnn.deterministic = True
+                torch.backends.cudnn.benchmark = False
+            info = step.backward(inputs, {})
+        out[name] = (float(info['loss']), {
+            n: p.grad.cpu().double() for n, p in model.named_parameters()
+            if p.grad is not None})
+    truth = out['float64'][1]
+    largest = max(float(g.abs().max()) for g in truth.values())
+    err, worst = {}, {}
+    for k in ('card', 'card deterministic', 'cpu', 'card float64'):
+        by_name = {n: float((out[k][1][n] - g).abs().max()) / largest
+                   for n, g in truth.items()}
+        worst[k] = max(by_name, key=by_name.get)
+        err[k] = by_name[worst[k]]
+    loss_err = abs(out['card'][0] - out['cpu'][0]) / abs(out['cpu'][0])
+    return loss_err, err, worst
+
+
+def legacy_full_frame(device, paths, checkpoint):
+    """A full-size make_forward_fn frame (900x1600, K = 128) from (b)'s
+    checkpoint on the card, and on the CPU over the frame's valid points
+    alone (in eval mode no crop depends on another, and the padding's
+    reach no map; half the CPU's time at this frame's 61 points), the
+    crops each scatter took caught on their way in: the valid points'
+    crops card vs CPU within BRIDGE_CARD_CPU_CROP_TOL, and with d their
+    largest difference, the
+    responses within d where both maps have one, and where only one has,
+    it within d of the 0.5 threshold; every differing depth pixel one
+    that a perturbation of the crops by d can change (``excused`` with the
+    exact max's step of 0: the top response within d of 0.5, or the top
+    two within 2d of each other)."""
+    from rcfd_tpu_torch import legacy_main
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.data.datasets import pad_points
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.ops import scatter as exact
+
+    image = torch.from_numpy(io.load_image_u8(paths['image'][0],
+                                              device='cpu')[None])
+    points, valid = pad_points(np.load(paths['radar'][0]), LEGACY_K)
+    points, valid = torch.from_numpy(points), torch.from_numpy(valid)
+    n = int(valid.sum())
+    inputs = {'card': (points, valid), 'cpu': (points[:n], valid[:n])}
+    outs, ms, seen = {}, {}, []
+    scatter = exact.scatter_quasi_dense
+
+    def scatter_and_keep(crops, *args, **kw):
+        seen.append(crops.cpu())
+        return scatter(crops, *args, **kw)
+
+    for side, dev in (('card', device), ('cpu', 'cpu')):
+        model = legacy_main.build_model()
+        legacy_main.restore_model(model, checkpoint, dev)
+        fwd = legacy_main.make_forward_fn(
+            model, Transforms(normalized_image_range=[0, 1]), H, W)
+        with legacy_main.training_numerics(), patched(
+                exact, dict(scatter_quasi_dense=scatter_and_keep)):
+            torch.backends.cudnn.benchmark = False
+            t0 = time.perf_counter()
+            outs[side] = [t.cpu() for t in fwd(image.to(dev), *(
+                t.to(dev) for t in inputs[side]))]
+            ms[side] = (time.perf_counter() - t0) * 1e3
+    check(len(seen) == 2, 'legacy (e): {} scatters for 2 frames'.format(
+        len(seen)))
+    (depth, response), (depth_c, response_c) = outs['card'], outs['cpu']
+    crops, crops_c = seen[0][:n], seen[1]
+    tol = float((crops - crops_c).abs().max())
+    check(tol <= BRIDGE_CARD_CPU_CROP_TOL, 'legacy (e): the full frame\'s '
+          'crops differ card vs CPU by {} > {:g}'.format(
+              tol, BRIDGE_CARD_CPU_CROP_TOL))
+    pw = crops.shape[2]
+    differ = torch.nonzero(depth != depth_c).numpy()
+    bad = unexplained_quasi(crops_c.numpy(), (points[:n, 0] + pw // 2).numpy(),
+                            valid[:n].numpy(), differ, tol, step=0.0)
+    both = (response > 0) & (response_c > 0)
+    resp_err = float((response - response_c)[both].abs().max())
+    one_side = float(torch.maximum(response, response_c)[~both].max())
+    check(not bad and resp_err <= tol + 2.0 ** -24 and
+          one_side <= 0.5 + tol, 'legacy (e): the full frame differs card '
+          'vs CPU at {} unexplained depth pixels {}, responses by {} where '
+          'both have one, up to {} where one side has none (crops within '
+          '{})'.format(len(bad), bad[:10], resp_err, one_side, tol))
+    log('legacy (e): make_forward_fn of one 900x1600 frame: card {:.2f} ms '
+        'at K = {}, CPU {:.2f} ms at the {} valid points on {} threads '
+        '(host clock, first call); crops differ by at most {:.3g} '
+        '(tolerance {:g}), responses by {:.3g} where both maps have one; {} '
+        'of {} covered depth pixels differ, each at the threshold or a tie'
+        .format(ms['card'], LEGACY_K, ms['cpu'], n, torch.get_num_threads(),
+                tol, BRIDGE_CARD_CPU_CROP_TOL, resp_err, len(differ),
+                int((depth_c > 0).sum())))
+    return ms
+
+
+def legacy_roi_pool(device):
+    """(f) ops/roi_pool.roi_pool on the card against the CPU, bit for bit:
+    a 1/8-scale map of a 900x1600 frame, 64 boxes of the frame (one across
+    its right edge, one right of it) pooled to 7x7; the card's time."""
+    from rcfd_tpu_torch.ops import roi_pool
+
+    rng = np.random.default_rng(SEED + 81)
+    cfg = LEGACY_ROI
+    feat = torch.from_numpy(rng.standard_normal(
+        (1, cfg['channels'], int(np.ceil(H * cfg['scale'])),
+         int(np.ceil(W * cfg['scale'])))).astype(np.float32))
+    x = np.sort(rng.uniform(0, W, (cfg['boxes'], 2)), 1)
+    y = np.sort(rng.uniform(0, H, (cfg['boxes'], 2)), 1)
+    boxes = np.stack([x[:, 0], y[:, 0], x[:, 1], y[:, 1]], 1)
+    boxes[0] = [W - 40, 100, W + 60, 400]
+    boxes[1] = [W + 20, 0, W + 90, 50]
+    boxes = torch.from_numpy(boxes[None].astype(np.float32))
+    args = (cfg['scale'], cfg['output_size'])
+    got = roi_pool.roi_pool(feat.to(device), boxes.to(device), *args)
+    ref = roi_pool.roi_pool(feat, boxes, *args)
+    check(torch.equal(got.cpu(), ref) and (ref == 0).any(),
+          'legacy (f): roi_pool differs card vs CPU')
+    fd, bd = feat.to(device), boxes.to(device)
+    ms = device_ms(lambda: roi_pool.roi_pool(fd, bd, *args), 10)
+    log('legacy (f): roi_pool of {} boxes at {} over a {}x{}x{} map: card '
+        '== CPU bit for bit; {:.4f} device ms (median of 10); {}'.format(
+            cfg['boxes'], cfg['output_size'], *feat.shape[1:], ms,
+            gpu_name_and_power()))
+    return ms
+
+
+def phase_legacy(device, paths, tmp):
+    """The legacy v0 pipeline on the card: (a) data_gen, (b) the default
+    trainer with a resume, (c) save_depth_radar at bash/train_nuscenes.sh's
+    flags, (d) save_stage_1_depth and eval_stage_1_depth, (e) narrow train
+    steps and a full-size frame card vs CPU, (f) the general ROI pool. No
+    kernel launches on the legacy path: its scatter is the exact float max
+    (ops/scatter.py), as the JAX package's legacy path reaches no Pallas
+    kernel."""
+    t0 = time.perf_counter()
+    numbers = {'a': legacy_data_gen(device, tmp)}
+    log('legacy (a) took {:.2f} s'.format(time.perf_counter() - t0))
+    inputs = legacy_inputs(paths, tmp)
+    reset_launches()
+    checkpoint, numbers['b'] = legacy_train(device, inputs, tmp)
+    numbers['c'] = legacy_save_depth_radar(device, inputs, tmp)
+    numbers['d'] = legacy_stage_1(device, inputs, checkpoint, tmp)
+    ms = legacy_full_frame(device, paths, checkpoint)
+    launches = read_launches()
+    check(not any(launches.values()), 'legacy: a kernel launched on the '
+          'legacy path: {}'.format({k: v for k, v in launches.items() if v}))
+    for patch in LEGACY_NARROW:
+        loss_err, err, worst = legacy_narrow_step(device, patch, SEED + 82)
+        tol = LEGACY_GRAD_TOL[patch]
+        check(loss_err <= 1e-4 and max(err['card'], err['cpu']) <= tol and
+              err['card float64'] <= LEGACY_FLOAT64_TOL,
+              'legacy (e): the {} step card vs CPU: loss {:.3g}, gradients '
+              'from float64 {} at {}'.format(patch, loss_err, err, worst))
+        log('legacy (e): a {}x{} train step card vs CPU: loss rel {:.3g}; '
+            'largest gradient error from the CPU\'s float64 step, as a '
+            'share of the largest gradient: card {:.3g} ({}), CPU {:.3g} '
+            '({}) (limit {:g}); the card under deterministic cuDNN '
+            'algorithms {:.3g} ({}), printed; the card in float64 {:.3g} '
+            '(limit {:g})'.format(
+                *patch, loss_err, err['card'], worst['card'], err['cpu'],
+                worst['cpu'], tol, err['card deterministic'],
+                worst['card deterministic'], err['card float64'],
+                LEGACY_FLOAT64_TOL))
+    numbers['f_ms'] = legacy_roi_pool(device)
+    log('legacy: K1, K2 and K3 launched 0 times on the legacy path (b)-(e); '
+        'ms a keyframe (a) {:.2f}; (b) {:.2f} ms a step, {:.2f} samples/s; '
+        '(c) {:.2f} ms a step; (d) {:.2f} ms a frame; (e) one full frame '
+        'card {:.2f} / CPU {:.2f} ms; {}'.format(
+            numbers['a']['wall'], numbers['b']['step_ms'],
+            numbers['b']['samples_per_s'], numbers['c']['step_ms'],
+            numbers['d']['wall'], ms['card'], ms['cpu'],
+            gpu_name_and_power()))
+
+
 def native_codes(maps):
     """The 16-bit codes the float writers make of (dense, quasi,
     response)."""
@@ -5770,6 +6333,9 @@ def main():
             torch.cuda.empty_cache()
             with Phase('configs'):
                 phase_configs(device, fusionnet_f32, fn_inputs, tmp)
+            torch.cuda.empty_cache()
+            with Phase('legacy'):
+                phase_legacy(device, paths, tmp)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

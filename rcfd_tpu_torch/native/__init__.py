@@ -315,18 +315,25 @@ def _png_chunk(ctype: bytes, body) -> bytes:
 
 def encode_png(samples: np.ndarray, color_type: int) -> bytes:
     """A non-interlaced PNG of ``samples``: (H, W) uint16 as 16-bit
-    grayscale (color type 0), or (H, W, 3) uint8 as 8-bit RGB (type 2).
-    Each row takes the filter of least cost, as libpng's default does."""
+    grayscale (color type 0), (H, W) uint8 as 8-bit grayscale (type 0, the
+    legacy label maps: PIL's mode 'L'), or (H, W, 3) uint8 as 8-bit RGB
+    (type 2). Each row takes the filter of least cost, as libpng's default
+    does."""
     if color_type == 0 and samples.dtype == np.uint16 and samples.ndim == 2:
         rows = samples.astype('>u2').view(np.uint8)
         bit_depth, bpp = 16, 2
+    elif color_type == 0 and samples.dtype == np.uint8 and \
+            samples.ndim == 2:
+        rows = samples
+        bit_depth, bpp = 8, 1
     elif color_type == 2 and samples.dtype == np.uint8 and \
             samples.ndim == 3 and samples.shape[2] == 3:
         rows = samples
         bit_depth, bpp = 8, 3
     else:
-        raise TypeError('encode_png writes (H, W) uint16 as grayscale or '
-                        '(H, W, 3) uint8 as RGB; got {} {} as color type {}'
+        raise TypeError('encode_png writes (H, W) uint16 or uint8 as '
+                        'grayscale or (H, W, 3) uint8 as RGB; got {} {} as '
+                        'color type {}'
                         .format(samples.dtype, samples.shape, color_type))
     h, w = samples.shape[:2]
     rows = np.ascontiguousarray(rows).reshape(h, -1)
@@ -400,6 +407,17 @@ def write_u16(path: str, codes):
         raise TypeError('write_u16 takes (H, W) uint16, got {} {}'.format(
             codes.dtype, codes.shape))
     data = encode_png(codes, 0)
+    with open(path, 'wb') as f:
+        f.write(data)
+
+
+def write_u8(path: str, samples):
+    """Save (H, W) uint8 samples as an 8-bit grayscale PNG."""
+    samples = np.asarray(samples)
+    if samples.dtype != np.uint8 or samples.ndim != 2:
+        raise TypeError('write_u8 takes (H, W) uint8, got {} {}'.format(
+            samples.dtype, samples.shape))
+    data = encode_png(samples, 0)
     with open(path, 'wb') as f:
         f.write(data)
 

@@ -33,6 +33,11 @@ from .crop_cuda import batch_column_crop
 from .fused_skip import LazyColumnWindows
 
 
+# boxes of one gather of the general pool (``roi_pool``): a gather holds
+# C * this many boxes * (pooled_h * max_bin_h) * (pooled_w * max_bin_w) cells
+ROI_POOL_CHUNK = 16
+
+
 def _round_half_away(v):
     """C++ std::round for non-negative inputs (torchvision uses round())."""
     return torch.floor(v + 0.5)
@@ -178,3 +183,68 @@ def roi_pool_column(feat, x1, box_width: int, box_y1: int, box_y2: int,
         acc = seg if acc is None else torch.maximum(acc, seg)
     pooled = torch.where(torch.isfinite(acc), acc, torch.zeros_like(acc))
     return pooled.reshape(n * k, c, pooled_h, pooled_w)
+
+
+def roi_pool(feat, boxes, spatial_scale: float, output_size: Tuple[int, int],
+             max_roi_size: Tuple[int, int] = None):
+    """General ROI max pool with torchvision's semantics
+    (rcfd_tpu/ops/roi_pool.py:270 ``roi_pool``), NCHW, in plain PyTorch:
+    no kernel stands behind it in the JAX package, and no path of either
+    package calls it.
+
+    Each box [x1, y1, x2, y2] starts at round(coord * scale) (half away
+    from zero) and spans max(end - start + 1, 1) cells; bin i covers
+    [floor(i * bin), ceil((i + 1) * bin)) of it in float32, clamped to the
+    map, and an empty bin gives 0. ``max_roi_size`` (h, w) bounds the box
+    at the feature scale, as in the JAX package (each bin gathers at most
+    ceil(max / pooled) + 1 cells a side); by default the whole map.
+
+    Arg(s): feat (N, C, H, W); boxes (N, K, 4). Returns (N * K, C,
+    pooled_h, pooled_w). The boxes are pooled ROI_POOL_CHUNK at a time."""
+    n, c, h_f, w_f = feat.shape
+    k = boxes.shape[1]
+    pooled_h, pooled_w = output_size
+    if max_roi_size is None:
+        max_roi_size = (h_f + 1, w_f + 1)
+    device = feat.device
+
+    coords = _round_half_away(boxes.to(device, torch.float32) *
+                              spatial_scale).to(torch.int32)
+    start_w, start_h, end_w, end_h = coords.unbind(-1)
+    roi_w = torch.clamp_min(end_w - start_w + 1, 1)
+    roi_h = torch.clamp_min(end_h - start_h + 1, 1)
+    max_bin_h = int(math.ceil(max_roi_size[0] / pooled_h)) + 1
+    max_bin_w = int(math.ceil(max_roi_size[1] / pooled_w)) + 1
+
+    def bins(start, size, pooled, max_bin, limit):
+        # a division by a tensor: by a Python number the card multiplies
+        # by its reciprocal, which is not the JAX package's quotient
+        b = size.float() / torch.full_like(size, pooled, dtype=torch.float32)
+        i = torch.arange(pooled, dtype=torch.float32, device=device)
+        s = torch.floor(i * b[..., None]).to(torch.int32)
+        e = torch.ceil((i + 1.0) * b[..., None]).to(torch.int32)
+        s = torch.clamp(s + start[..., None], 0, limit)
+        e = torch.clamp(e + start[..., None], 0, limit)
+        idx = s[..., None] + torch.arange(max_bin, dtype=torch.int32,
+                                          device=device)
+        return torch.clamp(idx, 0, limit - 1).long(), idx < e[..., None]
+
+    ridx, rvalid = bins(start_h, roi_h, pooled_h, max_bin_h, h_f)
+    cidx, cvalid = bins(start_w, roi_w, pooled_w, max_bin_w, w_f)
+    neg_inf = torch.tensor(float('-inf'), dtype=feat.dtype, device=device)
+    out = []
+    for b_ in range(n):
+        for k0 in range(0, k, ROI_POOL_CHUNK):
+            rows = slice(k0, k0 + ROI_POOL_CHUNK)
+            ri, rv = ridx[b_, rows], rvalid[b_, rows]
+            ci, cv = cidx[b_, rows], cvalid[b_, rows]
+            m = ri.shape[0]
+            # (C, m, ph, Th, pw, Tw): rows, then columns, of each bin
+            g = feat[b_][:, ri.reshape(m, -1)[:, :, None],
+                         ci.reshape(m, -1)[:, None, :]]
+            g = g.reshape(c, m, pooled_h, max_bin_h, pooled_w, max_bin_w)
+            mask = rv[:, :, :, None, None] & cv[:, None, None, :, :]
+            g = torch.where(mask, g, neg_inf).amax(dim=(3, 5))
+            g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+            out.append(g.permute(1, 0, 2, 3))
+    return torch.cat(out).reshape(n * k, c, pooled_h, pooled_w)

@@ -16,7 +16,12 @@ Two checkpoint formats are read and written: the reference's torch
 DataParallel's ``module.`` prefix stripped on read, beside ``train_step``
 and ``optimizer_state_dict``, a torch.optim.Adam state_dict) and the JAX
 package's native ``.npz`` (the flattened params and state trees in JAX
-layout, with a JSON manifest; no optimizer state).
+layout, with a JSON manifest; no optimizer state). The legacy v0 model's
+checkpoints (``load_legacy_checkpoint``, ``save_legacy_checkpoint``) keep
+the reference's v0 keys: a ``.pth`` of ``train_step``,
+``optimizer_state_dict`` and one ``model_state_dict``, or the JAX legacy
+trainer's ``.npz`` fallback of ``model_state_dict/<key>`` arrays in torch
+layout beside ``train_step``.
 
 The Adam state of a ``.pth`` is indexed as the JAX package indexes it, so
 that either package restores the other's exactly: parameter i is the i-th
@@ -59,7 +64,10 @@ def _is_deconv_key(key: str) -> bool:
 def state_dict_from_jax(params, state=None) -> Dict[str, torch.Tensor]:
     """The port's state_dict from the JAX package's (params, state) trees,
     given as nested dicts of numpy arrays, keyed as the reference's torch
-    state_dicts are."""
+    state_dicts are. Every model of the port maps so, the legacy v0 one
+    too: its radar branch's ``linear{i}.fully_connected`` weights are
+    transposed as any linear weight, its ``bn{i}`` BatchNorm1d weights,
+    biases and buffers (1-D, and the 0-d count) pass as they are."""
     out: Dict[str, torch.Tensor] = {}
     for key, arr in _flatten(params).items():
         arr = np.asarray(arr)
@@ -267,6 +275,47 @@ def save_checkpoint(module, path: str, pth_keys: Mapping[str, str],
     for part, key in pth_keys.items():
         checkpoint[key] = cpu(getattr(module, part).state_dict())
     torch.save(checkpoint, path)
+
+
+def load_legacy_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], int]:
+    """The legacy v0 model's state_dict (on the CPU) and train step from a
+    checkpoint file of the reference's v0 keys (rcfd_tpu/legacy_main.py
+    ``restore_model``): a ``.npz`` of ``model_state_dict/<key>`` arrays in
+    torch layout and ``train_step`` (read by numpy without pickle), or a
+    ``.pth`` with ``model_state_dict`` and ``train_step`` (read with
+    ``torch.load(weights_only=True)``)."""
+    path = str(path)
+    if path.endswith('.npz'):
+        prefix = 'model_state_dict/'
+        with np.load(path, allow_pickle=False) as data:
+            state_dict = {k[len(prefix):]: torch.from_numpy(np.array(data[k]))
+                          for k in data.files if k.startswith(prefix)}
+            step = int(data['train_step'])
+        return _from_pth(state_dict), step
+    checkpoint = torch.load(path, map_location='cpu', weights_only=True)
+    return (_from_pth(checkpoint['model_state_dict']),
+            int(checkpoint.get('train_step', 0)))
+
+
+def save_legacy_checkpoint(module, path: str, step: int):
+    """Write the legacy v0 model's weights with the reference's v0 keys
+    (rcfd_tpu/legacy_main.py ``save_model``): a path ending ``.npz`` gets
+    ``model_state_dict/<key>`` arrays in torch layout and ``train_step``;
+    any other path a ``.pth`` of ``train_step``, an empty
+    ``optimizer_state_dict`` (as the JAX package writes it) and
+    ``model_state_dict``. Tensors are written from the CPU."""
+    path = str(path)
+    state_dict = {k: v.detach().cpu() for k, v in module.state_dict().items()}
+    if path.endswith('.npz'):
+        tmp = path + '.tmp'
+        with open(tmp, 'wb') as f:
+            np.savez(f, train_step=np.int64(step),
+                     **{'model_state_dict/' + k: v.numpy()
+                        for k, v in state_dict.items()})
+        os.replace(tmp, path)
+        return
+    torch.save({'train_step': int(step), 'optimizer_state_dict': {},
+                'model_state_dict': state_dict}, path)
 
 
 def find_latest_checkpoint(checkpoint_dirpath: str) -> Optional[str]:

@@ -18,6 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import default_device
+
 DEFAULT_STEPS = (10, 12)
 
 
@@ -81,14 +83,14 @@ def _stop(prof, device, path: str):
 @contextlib.contextmanager
 def trace(log_dir: Optional[str], device=None):
     """A torch.profiler trace of the block into ``log_dir/trace.json``; a
-    no-op when ``log_dir`` is None. ``device`` (CUDA when a card is
-    available, else the CPU) decides whether the card's kernels are
+    no-op when ``log_dir`` is None. ``device`` (``cuda`` unless the
+    caller passes ``device='cpu'``, as the port's entry points; without a
+    card ``None`` raises) decides whether the card's kernels are
     traced."""
     if log_dir is None:
         yield
         return
-    if device is None:
-        device = 'cuda' if torch.cuda.is_available() else 'cpu'
+    device = default_device(device)
     prof = _profiler(device)
     prof.start()
     try:

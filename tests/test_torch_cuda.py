@@ -23,7 +23,7 @@ from rcfd_tpu_torch.ops import scatter_cuda as sc  # noqa: E402
 
 from torch_parity import (FUSIONNET_TINY, H, RADARNET_TINY,  # noqa: E402
                           RADARNET_WIDE, SCATTER_CASES, W, frame_and_points,
-                          scatter_case)
+                          scatter_case, scattered_crops, unexplained_depth)
 
 
 @pytest.fixture
@@ -1180,3 +1180,94 @@ def test_from_raw_radar_on_card(cuda_device, rng, route):
     for a, c in zip(sc.scatter_quasi_dense(*args),
                     sc.scatter_quasi_dense_plain(*args)):
         assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_legacy_registration_and_crops_on_card_match_cpu(cuda_device, rng):
+    """The legacy v0 registration (float32 passes, chunked) and the
+    point-centred crops on the card equal the CPU's bit for bit, TF32 on
+    or off."""
+    from rcfd_tpu_torch.models import legacy_v0
+    lx = np.round(rng.uniform(0, 1600, 20000)).astype(np.float32)
+    lz = rng.uniform(1, 70, 20000).astype(np.float32)
+    rx = rng.uniform(0, 1600, 700).astype(np.float32)
+    rz = rng.uniform(1, 70, 700).astype(np.float32)
+    rx[:50], rz[:50] = lx[:50] + np.float32(0.4), lz[:50]
+    cpu = legacy_v0.register_points_radius(lx, lz, rx, rz, device='cpu')
+    b, m = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = (b.allow_tf32, m.allow_tf32)
+    try:
+        for tf32 in (False, True):
+            b.allow_tf32 = m.allow_tf32 = tf32
+            card = legacy_v0.register_points_radius(lx, lz, rx, rz,
+                                                    device=cuda_device)
+            assert len(card) == len(cpu)
+            for a, c in zip(card, cpu):
+                np.testing.assert_array_equal(a, c)
+    finally:
+        b.allow_tf32, m.allow_tf32 = saved
+    assert sum(len(c) > 0 for c in cpu) >= 50
+    images = rng.random((4, 40, 70, 3)).astype(np.float32)
+    labels = rng.random((4, 40, 70, 1)).astype(np.float32)
+    points = np.array([[0, 3, 9], [69, 5, 9], [80, 1, 9], [-40, 2, 9]],
+                      np.float32)
+    got = [legacy_v0.crop_image_to_shape_on_point(
+        torch.from_numpy(points).to(d), torch.from_numpy(images).to(d),
+        torch.from_numpy(labels).to(d), 32, 18) for d in (cuda_device, 'cpu')]
+    for a, c in zip(*got):
+        assert torch.equal(a.cpu(), c)
+
+
+@pytest.mark.cuda
+def test_legacy_forward_and_roi_pool_on_card(cuda_device, rng):
+    """The legacy v0 scatter inference on the card against the CPU at a
+    64x96 frame: no kernel launched (the exact scatter); with d the
+    crops' largest difference, the responses within d except where one
+    side's lies under the 0.5 threshold and the other's within d of it,
+    and the depth equal except where a response lies within 2d of the
+    threshold or the two largest responses within 2d of each other; the
+    general ROI pool card == CPU bit for bit."""
+    from rcfd_tpu_torch import legacy_main
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.ops import roi_pool
+    model = legacy_main.build_model((64, 32), seed=3)
+    image = torch.from_numpy(rng.integers(0, 256, (1, 64, 96, 3)).astype(
+        np.uint8))
+    points = torch.from_numpy(np.stack([
+        rng.uniform(0, 96, 8), rng.uniform(0, 64, 8), rng.uniform(3, 60, 8)],
+        1).astype(np.float32))
+    valid = torch.arange(8) < 6
+    launches = (sc.scatter_quasi_dense.launches, cc.batch_column_crop.launches,
+                fs.fused_skip_gather_add.launches)
+    outs = []
+    for d in (cuda_device, 'cpu'):
+        m = copy.deepcopy(model).to(d)
+        fwd = legacy_main.make_forward_fn(
+            m, Transforms(normalized_image_range=[0, 1]), 64, 96, (64, 32))
+        with scattered_crops() as caught:
+            outs.append([t.cpu() for t in fwd(image.to(d), points.to(d),
+                                               valid.to(d))] + caught)
+    torch.cuda.synchronize()
+    assert launches == (sc.scatter_quasi_dense.launches,
+                        cc.batch_column_crop.launches,
+                        fs.fused_skip_gather_add.launches)
+    (depth, response, crops), (depth_c, response_c, crops_c) = outs
+    assert (response_c > 0).sum() > 100
+    tol = max(float((crops - crops_c).abs().max()), 2.0 ** -24)
+    assert tol < 1e-3
+    both = (response > 0) & (response_c > 0)
+    assert float((response - response_c)[both].abs().max()) <= tol
+    assert float(torch.maximum(response, response_c)[~both].max()) <= \
+        0.5 + tol
+    assert not unexplained_depth(depth.numpy(), depth_c.numpy(),
+                                 crops_c.numpy(), points.numpy(),
+                                 valid.numpy(), (64, 32), 2 * tol)
+    feat = torch.from_numpy(rng.standard_normal((1, 16, 113, 200)).astype(
+        np.float32))
+    boxes = torch.from_numpy(np.sort(rng.uniform(0, 1600, (1, 64, 4)), -1)
+                             .astype(np.float32)[..., [0, 1, 3, 2]])
+    boxes[..., 1], boxes[..., 3] = boxes[..., 1] % 900, boxes[..., 3] % 900
+    got = roi_pool.roi_pool(feat.to(cuda_device), boxes.to(cuda_device),
+                            1 / 8., (7, 7))
+    assert torch.equal(got.cpu(), roi_pool.roi_pool(feat, boxes, 1 / 8.,
+                                                    (7, 7)))

@@ -47,7 +47,16 @@ def test_port_sources_include_the_measurement_tool():
                  'rcfd_tpu_torch/setup/setup_dataset_nuscenes.py',
                  'rcfd_tpu_torch/setup/setup_dataset_nuscenes_test.py',
                  'rcfd_tpu_torch/setup/setup_dataset_nuscenes_with_denseGT.py',
-                 'rcfd_tpu_torch/setup/make_data_split.py'):
+                 'rcfd_tpu_torch/setup/make_data_split.py',
+                 'rcfd_tpu_torch/setup/data_gen.py',
+                 'rcfd_tpu_torch/models/legacy_v0.py',
+                 'rcfd_tpu_torch/legacy_main.py',
+                 'rcfd_tpu_torch/data/legacy_datasets.py',
+                 'rcfd_tpu_torch/train_legacy_v0.py',
+                 'rcfd_tpu_torch/save_depth_radar.py',
+                 'rcfd_tpu_torch/save_stage_1_depth.py',
+                 'rcfd_tpu_torch/eval_stage_1_depth.py',
+                 'rcfd_tpu_torch/ops/roi_pool.py'):
         assert path in paths
 
 
@@ -159,6 +168,24 @@ raw = np.array([[0.5, 0.2, 9.0], [-0.4, 0.1, 20.0]], np.float32)
 dense, _, _ = pipe.from_raw_radar(np.zeros((1, 64, 96, 3), np.uint8), raw,
                                   np.ones(2, bool), np.eye(4), k)
 assert dense.shape == (64, 96)
+# the legacy v0 forward, its registration and an 8-bit label PNG, and the
+# general ROI pool
+from rcfd_tpu_torch import legacy_main
+from rcfd_tpu_torch.data.transforms import Transforms
+from rcfd_tpu_torch.models import legacy_v0
+from rcfd_tpu_torch.ops import roi_pool
+v0 = legacy_main.build_model((64, 32))
+fwd = legacy_main.make_forward_fn(v0, Transforms(normalized_image_range=[0, 1]),
+                                  64, 96, (64, 32))
+depth, _ = fwd(torch.zeros((1, 64, 96, 3), dtype=torch.uint8),
+               torch.tensor([[40.0, 10, 9]]), torch.ones(1, dtype=torch.bool))
+assert depth.shape == (64, 96)
+assert len(legacy_v0.register_points_radius([1.0, 2.0], [5.0, 6.0], [1.1],
+                                            [5.0])[0]) == 1
+from rcfd_tpu_torch import native
+native.write_u8(os.path.join(d, 'l.png'), np.full((4, 6), 2, np.uint8))
+assert roi_pool.roi_pool(torch.ones(1, 2, 8, 8), torch.tensor(
+    [[[0.0, 0, 7, 7]]]), 1.0, (2, 2)).shape == (1, 2, 2, 2)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'rcfd_tpu', 'PIL',
                                     'torchvision'))

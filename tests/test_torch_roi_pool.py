@@ -131,3 +131,60 @@ def test_column_crop_plain_matches_pallas_interpret(case, rng):
                                       win)
     assert out.shape == (len(starts), c, ph, win)
     np.testing.assert_array_equal(nhwc(out), ref)
+
+
+def _boxes(rng, n, k, h, w):
+    """Boxes [x1, y1, x2, y2] at the frame's scale: inside, across the
+    edges, a point box, one of zero size, one inverted, the whole frame and
+    one wholly right of the map."""
+    x = np.sort(rng.uniform(-20, w + 20, (n, k, 2)), -1)
+    y = np.sort(rng.uniform(-20, h + 20, (n, k, 2)), -1)
+    boxes = np.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]], -1)
+    boxes[:, 0] = [3.5, 4.5, 3.5, 4.5]
+    boxes[:, 1] = [40, 30, 40, 30]
+    boxes[:, 2] = [60, 50, 20, 10]
+    boxes[:, 3] = [0, 0, w - 1, h - 1]
+    boxes[:, 4] = [w + 30, 0, w + 60, 20]  # wholly right of the map
+    return boxes.astype(np.float32)
+
+
+@pytest.mark.parametrize('scale,output_size,max_roi', [
+    (1 / 8., (7, 7), None), (1 / 4., (3, 5), None), (1 / 8., (2, 3),
+                                                     (20, 30))])
+def test_general_roi_pool_matches_jax(rng, scale, output_size, max_roi):
+    """The general box pool (rcfd_tpu/ops/roi_pool.py:270) against JAX's,
+    exactly: boxes inside and across the map's edges, a one-cell box, an
+    inverted box (a size of 1), the whole frame; a box right of the map
+    (its bins empty: 0); with and without max_roi_size; five boxes a frame
+    more than ROI_POOL_CHUNK, so that the last gather is a partial one."""
+    h, w = 96, 160
+    feat = rng.standard_normal((2, int(h * scale), int(w * scale),
+                                4)).astype(np.float32)
+    boxes = _boxes(rng, 2, roi_pool.ROI_POOL_CHUNK + 5, h, w)
+    ref = jax_roi.roi_pool(jnp.asarray(feat), jnp.asarray(boxes), scale,
+                           output_size, max_roi)
+    out = roi_pool.roi_pool(nchw(feat), torch.from_numpy(boxes), scale,
+                            output_size, max_roi)
+    assert out.shape == (2 * (roi_pool.ROI_POOL_CHUNK + 5), 4) + output_size
+    np.testing.assert_array_equal(nhwc(out), np.asarray(ref))
+    assert (np.asarray(ref) == 0).any()
+
+
+def test_general_roi_pool_with_torchvision_semantics(rng):
+    """On a map of distinct values each bin's max is the max over
+    [floor(i * bin), ceil((i + 1) * bin)) of the rounded box, computed
+    here in numpy."""
+    feat = rng.permutation(12 * 20).reshape(1, 1, 12, 20).astype(np.float32)
+    box = np.array([[[2.4, 1.6, 13.5, 9.49]]], np.float32)
+    out = roi_pool.roi_pool(torch.from_numpy(feat), torch.from_numpy(box),
+                            1.0, (3, 4))[0, 0].numpy()
+    x1, y1, x2, y2 = 2, 2, 14, 9
+    bh, bw = np.float32(y2 - y1 + 1) / 3, np.float32(x2 - x1 + 1) / 4
+    for i in range(3):
+        for j in range(4):
+            r0, r1 = y1 + int(np.floor(i * bh)), y1 + int(np.ceil((i + 1) *
+                                                                  bh))
+            c0, c1 = x1 + int(np.floor(j * bw)), x1 + int(np.ceil((j + 1) *
+                                                                  bw))
+            assert out[i, j] == feat[0, 0, r0:min(r1, 12),
+                                     c0:min(c1, 20)].max()

@@ -3,6 +3,8 @@ configurations, batch-norm statistics drawn from a seed (so that batch
 norm is not the identity), and the NHWC <-> NCHW hand-over between the JAX
 package and the port. Inputs are made with numpy and passed to both."""
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -117,3 +119,45 @@ def scatter_case(name, rng):
 
 SCATTER_CASES = ['random', 'padding', 'ties', 'edges', 'full_height',
                  'odd_width']
+
+
+@contextlib.contextmanager
+def scattered_crops():
+    """Within the block, the response crops (K, ph, pw) of every call of
+    the exact single-frame scatter (ops/scatter.py
+    ``scatter_quasi_dense``), caught on their way in, in a list."""
+    from rcfd_tpu_torch.ops import scatter
+    crops, plain = [], scatter.scatter_quasi_dense
+
+    def scatter_and_keep(response_crops, *args, **kw):
+        crops.append(response_crops.detach().cpu())
+        return plain(response_crops, *args, **kw)
+
+    scatter.scatter_quasi_dense = scatter_and_keep
+    try:
+        yield crops
+    finally:
+        scatter.scatter_quasi_dense = plain
+
+
+def unexplained_depth(depth, depth_ref, crops, points, valid, patch, tol):
+    """The differing depth pixels that no threshold or tie explains: a
+    pixel is explained when a valid point's response there lies within
+    ``tol`` of 0.5, or when the two largest responses there lie within
+    ``tol`` of each other."""
+    ph, pw = patch
+    h, w = depth.shape
+    bad = []
+    for y, x in zip(*np.nonzero(depth != depth_ref)):
+        r = y - (h - ph)
+        vals = []
+        for p in np.nonzero(valid)[0]:
+            j = x - (int(points[p, 0] + pw // 2) - 2 * (pw // 2))
+            if 0 <= r < ph and 0 <= j < pw:
+                vals.append(float(crops[p, r, j]))
+        vals = sorted(vals, reverse=True)
+        near = any(abs(v - 0.5) <= tol for v in vals)
+        tie = len(vals) > 1 and vals[0] - vals[1] <= tol
+        if not (near or tie):
+            bad.append((y, x))
+    return bad
