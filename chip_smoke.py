@@ -97,7 +97,8 @@ Phases, each printed as it starts and ends:
              default (the exact max); with RCFD_PALLAS_SCATTER=1 (K1): b
              float32, 4 a request, without (the codec_encode writers); c as
              b in bf16; d at the 900x300 patch; e with RCFD_FUSED_POOL2/4
-             set; each after a warm-up run of the same configuration:
+             set; each run once (no warm-up run since the parallel phase
+             came: a new shape's cuDNN autotuning is in its run's time):
              launches, every file against the same frame served in memory,
              run a's files against run b's, frames/s and the
              read/serve/write split
@@ -149,8 +150,8 @@ Phases, each printed as it starts and ends:
              ground truth and metrics, b without (codes made on the card;
              its files equal a's byte for byte), c under
              RCFD_COMPUTE_DTYPE=bfloat16, and for RadarNet d at the 900x300
-             patch (K2) and e under the fused gates (K3); each after a
-             warm-up run: launches, frames/s and the read / serve / write
+             patch (K2) and e under the fused gates (K3); each run once, as
+             in cli: launches, frames/s and the read / serve / write
              split; RadarNet's a against stage 1 of TwoStagePipeline
   bridge     the stage-1.5 bridge (rcfd_tpu_torch.setup.
              setup_dataset_nuscenes_radarnet.main and its _test form, in
@@ -160,8 +161,8 @@ Phases, each printed as it starts and ends:
              --run_evaluation (the float route: a's files byte for byte,
              the metrics), c the 900x300 patch (K2), d the fused gates
              (K3), e the _test script on the val frames at K = 128, f
-             RCFD_DECODE_CHUNKS=2 (e and f against a's files); each after
-             a warm-up run: launches, frames/s, the read / serve / write
+             RCFD_DECODE_CHUNKS=2 (e and f against a's files); each run
+             once, as in cli: launches, frames/s, the read / serve / write
              split and peak memory; then 1 frame on the card and on the
              CPU under RCFD_PALLAS_SCATTER=0
   configs    FusionNet in the configurations the port took last, at
@@ -195,6 +196,33 @@ Phases, each printed as it starts and ends:
              or K3 launch on (b)-(e); (f) ops/roi_pool.roi_pool, the general
              box pool, card vs CPU bit for bit at a 1/8-scale map of a
              900x1600 frame, 64 boxes at 7x7
+  parallel   data parallelism on the one card, two shards or two gloo
+             ranks sharing cuda:0 (rcfd_tpu_torch.parallel; a check of
+             the sharded code, not of how it scales): (a)
+             TwoStagePipeline.forward_sharded over [cuda:0, cuda:0] at B
+             = 8 on the canonical models with K1 (2 launches a request),
+             the exact max (none) and at the 900x300 patch (K2 3 a shard),
+             each shard equal to forward_batched of the shard on the
+             shard's thread bit for bit, K1 and K2 held to their plain
+             versions, frames held to __call__ by the batched phase's rule
+             (check_frames); then a pipeline built on the CPU sharded
+             over [cuda:0, cuda:0]: one replica on cuda:0, kept, each
+             shard equal to the replica's forward_batched bit for bit; (b)
+             run_pipeline.main --data_parallel --batch_size 4 on the run
+             phase's 8 frames, its files equal to the run without the
+             flag but at ties (the shard threads choose their cuDNN
+             algorithms apart); (c) one float64 step of a
+             narrow FusionNet and a narrow RadarNet on 2 ranks on the card
+             against 2 ranks on the CPU,
+             within 1e-9; (d) in (c)'s card ranks, train_radarnet.main at
+             900x300 (global batch 6, 3 a rank: K2 and its backward on
+             both ranks), 3 steps, and train_fusionnet.main with
+             bash/train_fusionnet_nuscenes.sh's flags (global batch 16, 8 a
+             rank, 448x448), 4 steps, each with --n_data_parallel 2: ms a
+             step, each rank's wait and peak memory, checkpoints from rank
+             0 only, restored; (e) a one-rank NCCL
+             group on cuda:0, the wrapped step equal to the unwrapped step
+             bit for bit
 
 The resumed runs of phases train (FusionNet, float32), train_radarnet
 (RadarNet, float32, resumed at the 900x300 patch so that K2 and its
@@ -213,7 +241,9 @@ and fails unless each kernel of its path was launched as often as its
 requests need and every other kernel not at all. A kernel's entry of the
 kernels line sums the counts read after each path that launched it
 (``launches_by_path``); the scatter has one count for its two entries,
-one frame a launch (slice) and a batch a launch (batched).
+one frame a launch (slice) and a batch a launch (batched). The ranks of
+phase parallel count their launches in their own processes and return
+them; each rank's are added as a path of its own.
 
 Then a line with the card's name and power limit, a line
 {"kernels": [...]} and, last, {"ok": true, "device": {...}}. Any failed
@@ -1019,14 +1049,16 @@ def phase_reference(device):
                 {k: n for k, n in launches.items() if n}))
 
 
-def serve_path(name, pipe, reqs, device, expect, batched=False):
+def serve_path(name, pipe, reqs, device, expect, batched=False,
+               serve=None):
     """Serve the warm-up request, then the counted ones with every launch
     count set to 0 just before and read just after, through ``__call__``
-    or, with ``batched``, ``forward_batched``. ``expect`` maps each kernel
-    of the path to the launches it must make; every other kernel must make
-    none. Checks the outputs; returns (outs, ms per request, peak memory
-    bytes, launches)."""
-    serve = pipe.forward_batched if batched else pipe
+    or, with ``batched``, ``forward_batched`` (or ``serve``, a batched
+    entry of ``pipe``). ``expect`` maps each kernel of the path to the
+    launches it must make; every other kernel must make none. Checks the
+    outputs; returns (outs, ms per request, peak memory bytes,
+    launches)."""
+    serve = serve or (pipe.forward_batched if batched else pipe)
     serve(*reqs[0])  # warm-up request: cuDNN chooses its algorithms
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
@@ -2259,10 +2291,11 @@ def compare_codes(name, files, ref, crops_of_frame, samples, crop_tol,
 
 def phase_cli(device, record, rn, fn, tmp):
     """rcfd_tpu_torch.run_pipeline.main in process on files the port wrote,
-    in the five configurations of CLI_RUNS, each after a warm-up run of the
-    same configuration, with every launch count set to 0 just before the
-    timed run and read just after; each run's files against the same frames
-    served in memory by a pipeline built the same way; run a's (float
+    in the five configurations of CLI_RUNS, each run once (its time holds
+    cuDNN's autotuning of shapes no earlier phase served), with every
+    launch count set to 0 just before the run and read just after; each
+    run's files against the same frames served in memory by a pipeline
+    built the same way; run a's (float
     writers, one frame a request) against run b's (codec writers, batched)."""
     from rcfd_tpu_torch import run_pipeline
     from rcfd_tpu_torch.data.datasets import RadarNetInferenceDataset
@@ -2284,8 +2317,6 @@ def phase_cli(device, record, rn, fn, tmp):
                                 manifests['ground_truth']] if with_gt else [])
         out_dir = os.path.join(tmp, name.replace(' ', '_'))
         with environ(env):
-            run_pipeline.main(argv + ['--output_dirpath', out_dir + '_warm'],
-                              device=device)
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
@@ -4066,11 +4097,10 @@ def run_files(out_dir, model, names):
 def phase_run(device, record, rn, fn, tmp):
     """run_radarnet.main and run_fusionnet.main in process on CLI_FRAMES
     full-size frames the port's writers made, with the smoke's weights as
-    .pth files, in the cases of RUN_CASES, each after a warm-up run of the
-    same case, every launch count set to 0 just before the timed run and
-    read just after: (a) with ground truth and metrics, (b) --save_outputs
-    without ground truth (the codes made on the card), whose files must
-    equal (a)'s byte for byte, (c) RCFD_COMPUTE_DTYPE=bfloat16, and for
+    .pth files, in the cases of RUN_CASES, each run once, every launch
+    count set to 0 just before the run and read just after: (a) with
+    ground truth and metrics, (b) --save_outputs without ground truth (the
+    codes made on the card), whose files must equal (a)'s byte for byte, (c) RCFD_COMPUTE_DTYPE=bfloat16, and for
     RadarNet (d) the 900x300 patch (K2) and (e) the fused gates (K3).
     RadarNet's (a) quasi depth and response must equal stage 1 of
     TwoStagePipeline (folded, K1) on the same frames. Prints frames/s and
@@ -4102,8 +4132,6 @@ def phase_run(device, record, rn, fn, tmp):
             out_dir = os.path.join(tmp, name.replace(' ', '_'))
             argv = run_argv(model, inputs[model], out_dir, with_gt, flags)
             with environ(env):
-                cli.main(run_argv(model, inputs[model], out_dir + '_warm',
-                                  with_gt, flags), device=device)
                 torch.cuda.synchronize()
                 reset_launches()
                 t0 = time.perf_counter()
@@ -4433,11 +4461,10 @@ def phase_bridge(device, record, paths, checkpoint, tmp):
     radarnet.main and its _test form, in process) with
     bash/setup_dataset_nuscenes_radarnet.sh's flags on the run phase's
     CLI_FRAMES full-size frames and RadarNet .pth, 4 train and 4 val, in
-    the cases of BRIDGE_CASES, each after a warm-up run of the same case,
-    every launch count set to 0 just before the timed run and read just
-    after: (a) the defaults (codes made on the card, K1), (b)
-    --run_evaluation with ground truth (the float route; (a)'s files), (c)
-    the 900x300 patch (K2), (d) the fused gates (K3), (e) the _test script
+    the cases of BRIDGE_CASES, each run once, every launch count set to 0
+    just before the run and read just after: (a) the defaults (codes made
+    on the card, K1), (b) --run_evaluation with ground truth (the float
+    route; (a)'s files), (c) the 900x300 patch (K2), (d) the fused gates (K3), (e) the _test script
     on the val frames at its K = 128 ((a)'s val files), (f) (a) under
     RCFD_DECODE_CHUNKS=2 ((a)'s files). Then BRIDGE_CARD_CPU_FRAMES frames
     on the card and on the CPU under RCFD_PALLAS_SCATTER=0. Prints
@@ -4475,7 +4502,6 @@ def phase_bridge(device, record, paths, checkpoint, tmp):
                 device=device)
 
         with environ(env):
-            run(os.path.join(tmp, 'bridge_{}_warm'.format(case)))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats(device)
             reset_launches()
@@ -6189,6 +6215,606 @@ def phase_legacy(device, paths, tmp):
             gpu_name_and_power()))
 
 
+# -- data parallelism ---------------------------------------------------------
+
+# phase parallel: the sharded paths on the one card. Two shards or two ranks
+# share cuda:0 (two ranks over gloo, since NCCL refuses two ranks on one
+# GPU): a check of the sharded code, not of how it scales
+PAR_DEVICES = (torch.device('cuda', 0),) * 2
+PAR_FRAMES = 8
+# (c): a float64 step of narrow models on 2 ranks, card against CPU: every
+# gradient, parameter and loss within this share of its max-abs, the
+# running statistics within it relative
+PAR_FLOAT64_TOL = 1e-9
+# (c): RadarNet at a patch width that is a multiple of 32 (K2 has no
+# float64 instance)
+PAR_RN_NARROW = dict(RN_NARROW, input_patch_size_image=(128, 96))
+# (d): steps of each training; RadarNet at 900x300 (global batch 6, 3 a
+# rank: K2 and its backward on both ranks)
+PAR_FN_STEPS, PAR_RN_STEPS = 4, 3
+
+
+def parallel_sharded(device, record, slice_pipe):
+    """(a): forward_sharded over PAR_DEVICES at B = PAR_FRAMES on the
+    canonical models, under pallas_scatter=True (K1 once a shard a
+    request), the exact max (no kernel) and, with K1, at the 900x300 patch
+    (K2 3 times a shard): launches counted; each shard's frames equal to
+    forward_batched of that shard on the shard's own thread (whose cuDNN
+    plans the sharded path uses), bit for bit; K1 and K2 held to their
+    plain versions on the sharded path; the frames at both ends of each
+    shard (K1) or of the batch (exact, wide) held to __call__ by the
+    batched phase's rule (check_frames). Returns ms per request of each
+    path."""
+    from rcfd_tpu_torch import parallel
+    from rcfd_tpu_torch.ops import crop_cuda as cc
+    from rcfd_tpu_torch.ops import roi_pool
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline
+
+    # a warm-up request (cuDNN autotunes on the shard threads) and a
+    # counted one
+    reqs = batched_requests(np.random.default_rng(SEED + 90), 2, PAR_FRAMES)
+    shard = PAR_FRAMES // len(PAR_DEVICES)
+    k1 = {'scatter_quasi_dense': len(PAR_DEVICES)}
+    ends = (0, PAR_FRAMES - 1)
+    paths = (
+        ('parallel (a) sharded', slice_pipe, k1,
+         (slice_pipe, 'scatter_batched',
+          sc.scatter_quasi_dense_batched_plain),
+         (0, shard - 1, shard, PAR_FRAMES - 1)),
+        ('parallel (a) sharded exact', TwoStagePipeline(
+            radarnet_like(slice_pipe.radarnet, device, pallas_scatter=False),
+            slice_pipe.fusionnet, H, W, device=device), {}, None, ends),
+        ('parallel (a) sharded wide', TwoStagePipeline(
+            radarnet_like(slice_pipe.radarnet, device,
+                          input_patch_size_image=WIDE_PATCH),
+            slice_pipe.fusionnet, H, W, device=device),
+         dict(k1, column_crop=3 * len(PAR_DEVICES)),
+         (roi_pool, 'batch_column_crop', cc.batch_column_crop_plain), ends))
+    threads = parallel.shard_threads(len(PAR_DEVICES))
+    ms = {}
+    for name, pipe, expect, plain, frames in paths:
+        def sharded(*req, pipe=pipe):
+            return pipe.forward_sharded(*req, devices=list(PAR_DEVICES))
+
+        outs, times, _, launches = serve_path(name, pipe, reqs, device,
+                                              expect, batched=True,
+                                              serve=sharded)
+        count_launches(record, name, launches, list(expect))
+        check(len(pipe._sharded) == len(PAR_DEVICES) and
+              all(r is pipe for r in pipe._sharded),
+              '{}: a device that repeats got a replica of its own'.format(
+                  name))
+        # one shard at a time: forward_batched sets the global cuDNN flags
+        # for its call and restores them after it
+        refs = [threads.submit(i, pipe.forward_batched, *part).result()
+                for i, part in enumerate(parallel.shard_batch(
+                    reqs[1], len(PAR_DEVICES)))]
+        for i, ref in enumerate(refs):
+            part = slice(i * shard, (i + 1) * shard)
+            for label, got, want in zip(('dense', 'quasi', 'response'),
+                                        outs[0], ref):
+                check(torch.equal(got[part], want), '{}: shard {}: {} '
+                      'differs from forward_batched of the shard'.format(
+                          name, i, label))
+        if plain is not None:
+            check_plain_route(name, sharded, reqs[1], outs[0], *plain)
+        check_frames(name, pipe, reqs[1], outs[0], frames)
+        ms[name] = float(np.median(times))
+        log('{}: each of the {} shards of {} frames equals forward_batched '
+            'of the shard on its thread, bit for bit'.format(
+                name, len(PAR_DEVICES), shard))
+        del outs
+        torch.cuda.empty_cache()
+    parallel_replica(device, record, slice_pipe, reqs[1])
+    return ms
+
+
+def parallel_replica(device, record, slice_pipe, req):
+    """(a) from a pipeline built on the CPU with the canonical weights (K1):
+    forward_sharded over PAR_DEVICES copies its models to cuda:0 once, a
+    replica that both shards use and the next request finds cached, its
+    weights equal to the card's; K1 once a shard; each shard's frames equal
+    to the replica's forward_batched of the shard on the shard's thread, bit
+    for bit, and gathered on cuda:0."""
+    from rcfd_tpu_torch import parallel
+    from rcfd_tpu_torch.pipeline import TwoStagePipeline
+
+    name = 'parallel (a) replica'
+    pipe = TwoStagePipeline(
+        radarnet_like(slice_pipe.radarnet, 'cpu'),
+        copy.deepcopy(slice_pipe.fusionnet).cpu(), H, W, device='cpu')
+    devices = list(PAR_DEVICES)
+    expect = {'scatter_quasi_dense': len(devices)}
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = pipe.forward_sharded(*req, devices=devices)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(all(n == expect.get(k, 0) for k, n in launches.items()),
+          '{}: launches {} (expected {})'.format(name, launches, expect))
+    count_launches(record, name, launches, list(expect))
+    replica = pipe._sharded[0]
+    check(replica is not pipe and all(r is replica for r in pipe._sharded)
+          and replica.device == device and
+          all(t.device == device for m in (replica.radarnet,
+                                           replica.fusionnet)
+              for t in list(m.parameters()) + list(m.buffers())),
+          '{}: not one replica on {} for the repeated device'.format(
+              name, device))
+    for label, model, card in (('RadarNet', replica.radarnet,
+                                slice_pipe.radarnet),
+                               ('FusionNet', replica.fusionnet,
+                                slice_pipe.fusionnet)):
+        want = card.state_dict()
+        check(all(torch.equal(t, want[k])
+                  for k, t in model.state_dict().items()),
+              '{}: the replica\'s {} differs from the card\'s weights'.format(
+                  name, label))
+    check(all(o.device == device for o in outs),
+          '{}: outputs not gathered on {}'.format(name, device))
+    threads = parallel.shard_threads(len(devices))
+    shard = PAR_FRAMES // len(devices)
+    for i, part in enumerate(parallel.shard_batch(req, len(devices))):
+        ref = threads.submit(i, replica.forward_batched, *part).result()
+        check(all(torch.equal(o[i * shard:(i + 1) * shard], r)
+                  for o, r in zip(outs, ref)),
+              '{}: shard {} differs from the replica\'s forward_batched of '
+              'the shard'.format(name, i))
+    pipe.forward_sharded(*req, devices=devices)
+    check(pipe._sharded[0] is replica,
+          '{}: the replica was not kept for the next request'.format(name))
+    log('{}: a pipeline built on the CPU, sharded over {}: one replica on '
+        '{} (weights equal to the card\'s), kept for the next request; '
+        'launches {}; each of the {} shards equals the replica\'s '
+        'forward_batched of the shard on its thread, bit for bit'.format(
+            name, [str(d) for d in devices], device,
+            {k: n for k, n in launches.items() if n}, len(devices)))
+    del outs, pipe, replica
+    torch.cuda.empty_cache()
+
+
+def parallel_cli(device, record, rn_checkpoint):
+    """(b): run_pipeline.main with --data_parallel --batch_size 4 over
+    PAR_DEVICES (K1, RCFD_PALLAS_SCATTER=1) on the run phase's frames: two
+    sharded requests of two shards; its files equal those of the run
+    without the flag (--batch_size 4) except where a 14-bit tie or the
+    threshold explains a code (compare_codes): the shard threads choose
+    their cuDNN algorithms apart from this thread. Returns the sharded
+    run's seconds."""
+    from rcfd_tpu_torch import run_pipeline
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.data.datasets import RadarNetInferenceDataset
+
+    root = os.path.dirname(rn_checkpoint)
+    checkpoints = (rn_checkpoint, os.path.join(root, 'fusionnet.pth'))
+    base = ['--radarnet_restore_path', checkpoints[0],
+            '--fusionnet_restore_path', checkpoints[1],
+            '--image_path', os.path.join(root, 'image.txt'),
+            '--radar_path', os.path.join(root, 'radar.txt'), '--save_outputs']
+    env = {'RCFD_PALLAS_SCATTER': '1'}
+    names = ['{:010d}.png'.format(i) for i in range(CLI_FRAMES)]
+    files, seconds = {}, None
+    for run, flags, devices, expect in (
+            ('sharded', ['--data_parallel', '--batch_size', '4'],
+             list(PAR_DEVICES), 2 * len(PAR_DEVICES)),
+            ('batch 4', ['--batch_size', '4'], None, CLI_FRAMES // 4)):
+        out_dir = os.path.join(root, 'parallel_' + run.replace(' ', '_'))
+        with environ(env):
+            reset_launches()
+            t0 = time.perf_counter()
+            summary = run_pipeline.main(base + flags + [
+                '--output_dirpath', out_dir], device=device, devices=devices)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        check(launches['scatter_quasi_dense'] == expect and
+              sum(launches.values()) == expect,
+              'parallel (b) {}: launches {}, K1 expected {}'.format(
+                  run, {k: v for k, v in launches.items() if v}, expect))
+        files[run] = cli_files(out_dir, names)
+        if run == 'sharded':
+            count_launches(record, 'parallel (b) run_pipeline --data_parallel',
+                           launches, ['scatter_quasi_dense'])
+            seconds = dict(summary['seconds'], wall=wall)
+            with open(os.path.join(out_dir, 'results.txt')) as f:
+                check('Data-parallel serving over 2 device(s)' in f.read(),
+                      'parallel (b): no data-parallel line in results.txt')
+    # the shard threads choose their cuDNN algorithms apart from this
+    # thread's, so the runs without the flag may differ in the last bits:
+    # the batched phase's rule for the codes
+    dataset = RadarNetInferenceDataset(
+        *[io.read_paths(os.path.join(root, n + '.txt'))
+          for n in ('image', 'radar')], max_points=None, device=device)
+    samples = [dataset.get(i) for i in range(CLI_FRAMES)]
+    with environ(env):
+        pipe = cli_pipeline(checkpoints, ['--batch_size', '4'], env, device)
+    counts = compare_codes(
+        'parallel (b) vs batch 4', files['sharded'], files['batch 4'],
+        lambda f: tuple(t.float().cpu().numpy() for t in radarnet_outputs(
+            pipe, (samples[f][0][None], samples[f][1], samples[f][2]))),
+        samples, FOLD_TOL, 1)
+    del pipe
+    log('parallel (b): run_pipeline --data_parallel --batch_size 4 over {} '
+        'shards on cuda:0, {} frames: codes that differ (dense, quasi, '
+        'response) from the run without the flag {}, each quasi and '
+        'response difference at a 14-bit tie or the threshold; {:.2f} s of '
+        'main, read / serve / write {:.2f} / {:.2f} / {:.2f} ms a '
+        'frame'.format(
+            len(PAR_DEVICES), CLI_FRAMES, counts.tolist(), seconds['wall'],
+            *[1e3 * seconds[k] / CLI_FRAMES
+              for k in ('read', 'serve', 'write')]))
+    return seconds
+
+
+def parallel_cases():
+    """(c)'s steps: a narrow FusionNet (FN_NARROW) on 4 frames of 192x256
+    and a narrow RadarNet (PAR_RN_NARROW) on 2 frames of 4 points, weights
+    and batches from SEED, decoded to float64."""
+    from rcfd_tpu_torch.models import FusionNetModel, RadarNetModel
+    from rcfd_tpu_torch.nn import init_parameters
+
+    rng = np.random.default_rng(SEED + 91)
+    gen = torch.Generator().manual_seed(SEED + 91)
+    fn = FusionNetModel(**FN_NARROW, device='cpu', trainable=True)
+    rn = RadarNetModel(**PAR_RN_NARROW, device='cpu', trainable=True)
+    init_parameters(fn, gen)
+    init_parameters(rn, gen)
+    shape = (4, 192, 256)
+    fn_batch = (rng.integers(0, 256, shape + (3,)).astype(np.float64),
+                *[rng.random(shape + (1,)) * 60 for _ in range(4)])
+    ph, pw = PAR_RN_NARROW['input_patch_size_image']
+    b, k, w = 2, 4, 256
+    x = rng.integers(0, w, (b, k)).astype(np.float64)
+    points = np.stack([x + pw // 2, rng.random((b, k)) * ph,
+                       rng.random((b, k)) * 60 + 5], -1)
+    boxes = np.stack([x, np.zeros_like(x), x + 2 * (pw // 2),
+                      np.full_like(x, ph)], -1)
+    gt = points[..., 2, None, None, None] + rng.uniform(
+        -0.8, 0.8, (b, k, ph, pw, 1))
+    gt[rng.random(gt.shape) < 0.4] = 0.0
+    rn_batch = (rng.integers(0, 256, (b, ph, w + pw, 3)).astype(np.float64),
+                points, boxes, gt)
+    return [('fusionnet', FN_NARROW, fn.state_dict(), fn_batch),
+            ('radarnet', PAR_RN_NARROW, rn.state_dict(), rn_batch)]
+
+
+def parallel_steps(device, cases):
+    """(c) on one rank: each case's data-parallel step in float64 on this
+    rank's slice of its batch (Adam at 1e-3, augmentation off): the
+    averaged loss_info and gradients, the parameters after Adam and the
+    buffers, on the host."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch import parallel
+    from rcfd_tpu_torch import radarnet_main as rm
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.models import FusionNetModel, RadarNetModel
+
+    out = []
+    for kind, config, state_dict, batch in cases:
+        if kind == 'fusionnet':
+            model = FusionNetModel(**config, device='cpu', trainable=True)
+        else:
+            model = RadarNetModel(**config, device='cpu', trainable=True)
+        model.load_state_dict(state_dict, strict=True)
+        model = model.to(device, torch.float64)
+        optimizer = fm.make_optimizer(model, 1e-3, 0.0)
+        if kind == 'fusionnet':
+            step = fm.TrainStep(model, Transforms([0, 1]), optimizer, 'l1',
+                                0.0, 2.0, -1, 7, 1.5, -1)
+        else:
+            step = rm.TrainStep(model, Transforms([0, 1]), optimizer,
+                                config['input_patch_size_image'], 0.4,
+                                False, 2.0)
+        local = parallel.shard_batch(batch, parallel.world_size())[
+            parallel.rank()]
+        with fm.training_numerics():
+            info = parallel.data_parallel_step(step)(
+                tuple(torch.from_numpy(a).to(device) for a in local), {},
+                1e-3)
+        out.append(dict(
+            info={k: float(v) for k, v in info.items()},
+            grads={n: p.grad.cpu().numpy()
+                   for n, p in model.named_parameters()
+                   if p.grad is not None},
+            params={n: p.detach().cpu().numpy()
+                    for n, p in model.named_parameters()},
+            buffers={n: b.cpu().numpy() for n, b in model.named_buffers()}))
+    return out
+
+
+def parallel_rank(device, cases, trainings):
+    """One rank of (c) and, with ``trainings`` ({'radarnet': argv,
+    'fusionnet': argv}), (d): its steps of ``cases``
+    (``parallel_steps``), then each training CLI's main on its argv as the
+    rank's part of the group; of each, the checkpoints it writes, its step
+    entries, its launches and its peak memory."""
+    import importlib
+
+    from rcfd_tpu_torch.models import FusionNetModel, RadarNetModel
+
+    out = {'steps': parallel_steps(device, cases)}
+    for kind, argv in (trainings or {}).items():
+        model_cls = RadarNetModel if kind == 'radarnet' else FusionNetModel
+        saved = []
+        save = model_cls.save_checkpoint
+
+        def recording(self, path, *args, **kw):
+            saved.append(os.path.basename(path))
+            return save(self, path, *args, **kw)
+
+        model_cls.save_checkpoint = recording
+        timings = []
+        reset_launches()
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        try:
+            importlib.import_module('rcfd_tpu_torch.train_' + kind).main(
+                argv, device=device, timings=timings)
+        finally:
+            model_cls.save_checkpoint = save
+        out[kind] = dict(saved=saved, timings=timings,
+                         launches=read_launches(),
+                         peak=torch.cuda.max_memory_allocated(device),
+                         wall=time.perf_counter() - t0)
+    return out
+
+
+def parallel_float64(card, cpu):
+    """(c): the card ranks' float64 steps against the CPU ranks': both
+    ranks' parameters equal on each device; loss_info, every averaged
+    gradient and parameter within PAR_FLOAT64_TOL of its max-abs, the
+    running statistics within it relative. Returns the largest error."""
+    worst = 0.0
+    for case, (g0, g1, c0, c1) in enumerate(zip(card[0]['steps'],
+                                                card[1]['steps'],
+                                                cpu[0]['steps'],
+                                                cpu[1]['steps'])):
+        for key in ('grads', 'params', 'buffers'):
+            check(sorted(g0[key]) == sorted(c0[key]),
+                  'parallel (c) case {}: {} differ in names'.format(case, key))
+            for n, v in c0[key].items():
+                check(np.array_equal(g0[key][n], g1[key][n]) and
+                      np.array_equal(v, c1[key][n]),
+                      'parallel (c) case {}: {} {} differs between the '
+                      'ranks'.format(case, key, n))
+                if not np.issubdtype(v.dtype, np.floating):
+                    check(np.array_equal(g0[key][n], v),
+                          'parallel (c): {} {}'.format(key, n))
+                    continue
+                err = float(np.abs(g0[key][n] - v).max() /
+                            max(float(np.abs(v).max()), 1e-300))
+                check(err <= PAR_FLOAT64_TOL, 'parallel (c) case {}: {} {} '
+                      'card vs CPU {:.3g} > {:g}'.format(
+                          case, key, n, err, PAR_FLOAT64_TOL))
+                worst = max(worst, err)
+        for n, v in c0['info'].items():
+            err = abs(g0['info'][n] - v) / max(abs(v), 1e-300)
+            check(err <= PAR_FLOAT64_TOL, 'parallel (c) case {}: {} card vs '
+                  'CPU {:.3g}'.format(case, n, err))
+            worst = max(worst, err)
+    return worst
+
+
+def parallel_training(device, record, manifests, tmp, cases, cpu_ranks):
+    """(c) and (d) in one pair of ranks that share the card: ``cases``'
+    float64 steps, against ``cpu_ranks`` (a future of the same on two CPU
+    ranks); then train_radarnet.main at 900x300 (PAR_RN_STEPS steps of
+    global batch 6, a checkpoint at the last step and again at the end, a
+    validation at the end) and train_fusionnet.main with
+    bash/train_fusionnet_nuscenes.sh's flags (PAR_FN_STEPS steps of global
+    batch 16, a checkpoint every 2 steps, a validation at the end), each
+    with --n_data_parallel 2, as the ranks' part of the group. Rank 0
+    alone writes; the checkpoints restore. Prints ms a step, each rank's
+    wait for its batches and peak memory."""
+    from rcfd_tpu_torch import parallel
+    from rcfd_tpu_torch.data import io
+    from rcfd_tpu_torch.models import FusionNetModel, RadarNetModel
+
+    # one epoch of PAR_RN_STEPS batches of 6: the first frames of the
+    # train_radarnet phase's
+    rn_manifests = dict(manifests['radarnet'])
+    for k in RN_STREAMS:
+        rn_manifests['train', k] = os.path.join(
+            tmp, 'parallel_rn_train_{}.txt'.format(k))
+        io.write_paths(rn_manifests['train', k], io.read_paths(
+            manifests['radarnet']['train', k])[:6 * PAR_RN_STEPS])
+    ckpt = {k: os.path.join(tmp, 'parallel_' + k)
+            for k in ('radarnet', 'fusionnet')}
+    trainings = {
+        'radarnet': radarnet_train_argv(rn_manifests, ckpt['radarnet'], 1) +
+        ['--patch_size', str(WIDE_PATCH[0]), str(WIDE_PATCH[1]),
+         '--n_data_parallel', '2', '--n_step_per_checkpoint',
+         str(PAR_RN_STEPS), '--start_step_validation',
+         str(PAR_RN_STEPS + 1)],
+        'fusionnet': train_argv(manifests['fusionnet'], ckpt['fusionnet'],
+                                PAR_FN_STEPS) +
+        ['--n_data_parallel', '2', '--n_step_per_checkpoint', '2',
+         '--start_step_validation', str(PAR_FN_STEPS + 1)]}
+    t0 = time.perf_counter()
+    card = parallel.run_ranks(parallel_rank, (cases, trainings), 2, device,
+                              shared_device=True)
+    card_s = time.perf_counter() - t0
+    worst = parallel_float64(card, cpu_ranks.result())
+    log('parallel (c): a float64 step of a narrow FusionNet (4 frames of '
+        '192x256) and a narrow RadarNet (2 frames of 4 points at {}) on 2 '
+        'gloo ranks sharing the card against the same 2 ranks on the CPU: '
+        'parameters equal on both ranks of each; loss, gradients, '
+        'parameters and running statistics at most {:.3g} of their max-abs '
+        'apart (tolerance {:g})'.format(
+            PAR_RN_NARROW['input_patch_size_image'], worst, PAR_FLOAT64_TOL))
+
+    # (d): 3 K2 launches a RadarNet step; rank 0 also validates at the end,
+    # K1 once and K2 3 times a frame; FusionNet launches none
+    wants = {r: {'column_crop': 3 * PAR_RN_STEPS +
+                 (3 * RN_VAL_FRAMES if r == 0 else 0),
+                 'scatter_quasi_dense': RN_VAL_FRAMES if r == 0 else 0}
+             for r in (0, 1)}
+    for kind, steps, last, restore in (
+            ('radarnet', PAR_RN_STEPS, [PAR_RN_STEPS],
+             lambda path: (check_radarnet_checkpoint(path, PAR_RN_STEPS),
+                           RadarNetModel(**dict(
+                               RADARNET, input_patch_size_image=WIDE_PATCH),
+                               device='cpu').restore_checkpoint(
+                                   path, device='cpu'))),
+            ('fusionnet', PAR_FN_STEPS, [2, PAR_FN_STEPS],
+             lambda path: (check_checkpoint(path, int(os.path.basename(
+                 path)[6:-4])), FusionNetModel(
+                     **FUSIONNET, device='cpu').restore_checkpoint(
+                         path, device='cpu')))):
+        names = ['model-{}.pth'.format(n) for n in last] + \
+            ['model-{}.pth'.format(last[-1])]
+        check(card[0][kind]['saved'] == names and
+              card[1][kind]['saved'] == [],
+              'parallel (d) {}: checkpoints written: rank 0 {}, rank 1 {}'
+              .format(kind, card[0][kind]['saved'], card[1][kind]['saved']))
+        for n in last:
+            restore(os.path.join(ckpt[kind], 'model-{}.pth'.format(n)))
+        with open(os.path.join(ckpt[kind], 'results.txt')) as f:
+            text = f.read()
+        check(text.count('Begin training...') == 1 and
+              'n_devices=2' in text and
+              len(validation_lines(os.path.join(ckpt[kind],
+                                                'results.txt'))) == 1,
+              'parallel (d) {}: results.txt is not rank 0\'s alone, or '
+              'not one validation'.format(kind))
+        for r in (0, 1):
+            t = card[r][kind]['timings']
+            check([e['step'] for e in t] == list(range(1, steps + 1)) and
+                  all(math.isfinite(e['loss']) for e in t),
+                  'parallel (d) {} rank {}: steps {}'.format(kind, r, t))
+        check([e['loss'] for e in card[0][kind]['timings']] ==
+              [e['loss'] for e in card[1][kind]['timings']],
+              'parallel (d) {}: the ranks\' averaged losses differ'.format(
+                  kind))
+    for r in (0, 1):
+        launches = card[r]['radarnet']['launches']
+        check(all(launches[k] == wants[r].get(k, 0) for k in launches) and
+              not any(card[r]['fusionnet']['launches'].values()),
+              'parallel (d) rank {}: launches {} and {}, expected {} and '
+              'none'.format(r, {k: v for k, v in launches.items() if v},
+                            {k: v for k, v in card[r]['fusionnet'][
+                                'launches'].items() if v}, wants[r]))
+        count_launches(record, 'parallel (d) radarnet rank {}'.format(r),
+                       launches, list(wants[r]))
+
+    def numbers(kind, r):
+        """median ms a step and wait of the steps after the first (which
+        chooses cuDNN's algorithms), peak memory, wall seconds"""
+        run = card[r][kind]
+        later = run['timings'][1:]
+        return (float(np.median([e['step_ms'] for e in later])),
+                float(np.median([e['wait_ms'] for e in later])),
+                run['peak'], run['wall'])
+
+    got = {kind: [numbers(kind, r) for r in (0, 1)]
+           for kind in ('fusionnet', 'radarnet')}
+    log('parallel (d): two ranks sharing one card (not a scaling result), '
+        'in {:.2f} s of both ranks\' work with (c). FusionNet at '
+        'bash/train_fusionnet_nuscenes.sh\'s flags (global batch 16, 8 a '
+        'rank, 448x448), {} steps and a validation of {} frames at the end: '
+        'rank 0 / 1 ms a step, median of steps 2-{} {:.2f} / {:.2f}, host '
+        'wait {:.2f} / {:.2f} ms, peak memory {} / {} bytes, wall {:.2f} / '
+        '{:.2f} s; RadarNet at 900x300 (global batch 6, 3 a rank, K2 with '
+        'its gradient on both ranks), {} steps: rank 0 / 1 ms a step, '
+        'median of steps 2-{} {:.2f} / {:.2f}, host wait {:.2f} / {:.2f} '
+        'ms, peak memory {} / {} bytes, wall {:.2f} / {:.2f} s; checkpoints '
+        'from rank 0 only, restored; {}'.format(
+            card_s, PAR_FN_STEPS, VAL_FRAMES, PAR_FN_STEPS,
+            *[got['fusionnet'][r][i] for i in range(4) for r in (0, 1)],
+            PAR_RN_STEPS, PAR_RN_STEPS,
+            *[got['radarnet'][r][i] for i in range(4) for r in (0, 1)],
+            gpu_name_and_power()))
+    return dict(fusionnet=got['fusionnet'], radarnet=got['radarnet'],
+                float64=worst)
+
+
+def parallel_nccl(device):
+    """(e): a train step of a narrow FusionNet wrapped by
+    data_parallel_step inside a one-rank NCCL group on cuda:0, against the
+    unwrapped step on the same weights and batch: loss_info, gradients,
+    parameters and buffers equal bit for bit. Both run under the training
+    numerics with cuDNN's deterministic algorithms (benchmark off), so that
+    two runs of one step are equal at all."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch import parallel
+
+    model, batch, make_step = narrow_case('fusionnet', SEED + 92)
+    batch = tuple(torch.from_numpy(a).to(device) for a in batch)
+    outs = []
+    for wrap in (False, True):
+        m = copy.deepcopy(model).to(device)
+        step = make_step(m)
+        with fm.training_numerics(), torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=True,
+                allow_tf32=False):
+            if wrap:
+                address = 'tcp://127.0.0.1:{}'.format(parallel.free_port())
+                with parallel.process_group('nccl', address, 1, 0, device):
+                    check(torch.distributed.get_backend() == 'nccl',
+                          'parallel (e): the group is not NCCL\'s')
+                    info = parallel.data_parallel_step(step)(batch, {}, 1e-3)
+            else:
+                info = step(batch, {}, 1e-3)
+        torch.cuda.synchronize()
+        outs.append((info, {n: t.detach().clone() for n, t in
+                            list(m.named_parameters()) +
+                            list(m.named_buffers())},
+                     {n: p.grad.clone() for n, p in m.named_parameters()
+                      if p.grad is not None}))
+    (info_a, state_a, grads_a), (info_b, state_b, grads_b) = outs
+    check(sorted(info_a) == sorted(info_b) and
+          all(torch.equal(info_a[k].to(device), info_b[k].to(device))
+              for k in info_a) and
+          all(torch.equal(state_a[k], state_b[k]) for k in state_a) and
+          sorted(grads_a) == sorted(grads_b) and
+          all(torch.equal(grads_a[k], grads_b[k]) for k in grads_a),
+          'parallel (e): the step in a one-rank NCCL group differs from the '
+          'unwrapped step')
+    log('parallel (e): a narrow FusionNet step wrapped by '
+        'data_parallel_step in a one-rank NCCL group on cuda:0 equals the '
+        'unwrapped step bit for bit ({} parameters and buffers, {} '
+        'gradients, loss {:.6f})'.format(len(state_a), len(grads_a),
+                                        float(info_a['loss'])))
+
+
+def phase_parallel(device, record, slice_pipe, rn_checkpoint, manifests,
+                   tmp):
+    """Data parallelism on the one card: (a) sharded serving, (b) the
+    serving CLI's --data_parallel, (c) float64 steps on two ranks card vs
+    CPU (the CPU's ranks run while (a) and (b) use the card), (d) both
+    trainings on two ranks, (e) a one-rank NCCL group. Two shards or ranks
+    share cuda:0: the sharded code is checked, its scaling is not
+    measured."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from rcfd_tpu_torch import parallel
+
+    seconds = {}
+    t0 = time.perf_counter()
+    cases = parallel_cases()
+    with ThreadPoolExecutor(1) as pool:
+        cpu_ranks = pool.submit(parallel.run_ranks, parallel_rank,
+                                (cases, None), 2, 'cpu')
+        ms = parallel_sharded(device, record, slice_pipe)
+        seconds['a'] = time.perf_counter() - t0
+        parallel_cli(device, record, rn_checkpoint)
+        torch.cuda.empty_cache()
+        seconds['b'] = time.perf_counter() - t0 - sum(seconds.values())
+        numbers = parallel_training(device, record, manifests, tmp, cases,
+                                    cpu_ranks)
+        seconds['c, d'] = time.perf_counter() - t0 - sum(seconds.values())
+    parallel_nccl(device)
+    seconds['e'] = time.perf_counter() - t0 - sum(seconds.values())
+    log('parallel: ms per request of 8 frames sharded over two shards of '
+        'cuda:0: {}; (c) float64 card vs CPU at most {:.3g}; seconds of '
+        'the phase by part: {}; {}'.format(
+            ', '.join('{} {:.2f}'.format(k, v) for k, v in ms.items()),
+            numbers['float64'], ', '.join('({}) {:.2f}'.format(k, v)
+                                          for k, v in seconds.items()),
+            gpu_name_and_power()))
+
+
 def native_codes(maps):
     """The 16-bit codes the float writers make of (dense, quasi,
     response)."""
@@ -6336,6 +6962,11 @@ def main():
             torch.cuda.empty_cache()
             with Phase('legacy'):
                 phase_legacy(device, paths, tmp)
+            torch.cuda.empty_cache()
+            with Phase('parallel'):
+                phase_parallel(device, record, slice_pipe, rn_checkpoint,
+                               {'fusionnet': fusionnet_f32['manifests'],
+                                'radarnet': radarnet_f32['manifests']}, tmp)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

@@ -26,7 +26,20 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 8, seed: int = 0,
-                 drop_last: bool = False, prefetch: int = 2):
+                 drop_last: bool = False, prefetch: int = 2,
+                 process_index: int = 0, process_count: int = 1):
+        """``batch_size`` is the global batch. Under data parallelism pass
+        the rank and the world size as (``process_index``,
+        ``process_count``): every rank builds the same global order (same
+        seed and epoch) and yields its contiguous slice of each batch,
+        whose samples draw from the Generators of their global positions,
+        so that the slices equal the same rows of a one-process batch
+        (rcfd_tpu/data/loader.py ``DataLoader``). A ragged last batch is
+        dropped when ``drop_last`` or ``process_count`` > 1."""
+        if batch_size % process_count:
+            raise ValueError('the global batch size {} must divide by the '
+                             'process count {}'.format(batch_size,
+                                                       process_count))
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -34,18 +47,21 @@ class DataLoader:
         self.seed = seed
         self.drop_last = drop_last
         self.prefetch = prefetch
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
         self.start_batch = 0
 
     def __len__(self):
         n = len(self.dataset)
-        if self.drop_last:
+        if self.drop_last or self.process_count > 1:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def set_epoch(self, epoch: int, start_batch: int = 0):
         """The epoch of the next iteration, which yields its batches from
-        ``start_batch`` on (a run resumed inside an epoch)."""
+        ``start_batch`` on, counted in global batches (a run resumed
+        inside an epoch)."""
         self.epoch = epoch
         self.start_batch = start_batch
 
@@ -56,14 +72,18 @@ class DataLoader:
         return np.arange(n)
 
     def batches(self):
-        """(first position, sample indices) of each batch of the epoch."""
+        """(first global position, sample indices) of this process's slice
+        of each batch of the epoch."""
         order = self._order()
+        local = self.batch_size // self.process_count
+        lo = self.process_index * local
         out = []
         for start in range(0, len(order), self.batch_size):
             idx = order[start:start + self.batch_size]
-            if len(idx) < self.batch_size and self.drop_last:
-                continue
-            out.append((start, idx))
+            if len(idx) < self.batch_size and \
+                    (self.drop_last or self.process_count > 1):
+                continue  # a ragged tail cannot be split evenly
+            out.append((start + lo, idx[lo:lo + local]))
         return out
 
     def __iter__(self) -> Iterator:

@@ -1,4 +1,4 @@
-"""FusionNet training and validation on one card (counterpart of
+"""FusionNet training and validation on one card or several (counterpart of
 rcfd_tpu/fusionnet_main.py ``_make_train_step``, ``make_forward_fn``,
 ``iter_forward_outputs``, ``validate`` and ``train``; reference
 src/fusionnet_main.py).
@@ -23,8 +23,14 @@ image panel and two histograms (``log_image_summary``) to TensorBoard.
 RCFD_PROFILE_DIR and RCFD_PROFILE_STEPS trace a window of steps with
 torch.profiler (utils/profiling.py ``TraceWindow``).
 
-Not in the port yet, each refused with a message: data parallelism over
-more than one card (``n_data_parallel`` > 1), ``device='tpu'``.
+Data parallelism (``n_data_parallel``; rcfd_tpu_torch/parallel/mesh.py):
+the loop starts one rank per card (gloo ranks on the CPU), each takes its
+contiguous slice of the global batch and draws its augmentation for its
+slice from the step's seed (every rank the same draws, as every JAX shard
+draws from the replicated key), the gradients, running statistics and
+loss_info are averaged before Adam, and rank 0 alone validates, writes
+summaries and checkpoints while the others wait. ``device='tpu'`` is
+refused with a message.
 
 A run restored at step s resumes at step s + 1 (rcfd_tpu_torch/training.py
 says how this differs from the JAX training loop).
@@ -39,7 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import default_device
+from . import default_device, parallel
 from .data import io as data_utils
 from .data import transport
 from .data.datasets import FusionNetInferenceDataset, FusionNetTrainingDataset
@@ -50,8 +56,9 @@ from .nn import functional as NF
 from .nn.layers import init_parameters
 from .nn.optimize import fold_batch_norm
 from .pipeline import encode_depth, serving_numerics
-from .training import (OptimizerStep, epochs, eval_mode, make_optimizer,
-                       numerics_line, refuse_unported, step_seed,
+from .training import (OptimizerStep, data_parallel_count, epochs,
+                       eval_mode, launch_ranks, make_optimizer,
+                       numerics_line, quiet, refuse_unported, step_seed,
                        step_timing, timed, train_dtype, training_numerics)
 from .utils import eval_utils
 from .utils.checkpoint import find_latest_checkpoint
@@ -319,12 +326,28 @@ def train(train_image_path, train_depth_path, train_response_path,
     'latest' restores the newest checkpoint of ``checkpoint_dirpath``.
     ``timings``, a list, receives a dict per step: the step's milliseconds
     (the card synchronized after it, which it then is every step) and the
-    host's wait for its batch. Returns the best validation results."""
-    refuse_unported(device, n_data_parallel)
+    host's wait for its batch (with data parallelism, each rank's, with
+    its ``rank``).
+
+    ``n_data_parallel`` ranks (``training.data_parallel_count``: None is
+    every visible card, one rank on the CPU) share the global
+    ``batch_size``; above 1 the loop starts them (``launch_ranks``), or,
+    called inside a process group (``parallel.run_ranks``), takes this
+    rank's part. Returns the best validation results."""
+    arguments = dict(locals())
+    refuse_unported(device)
     device = default_device(device)
+    layout = parallel.maybe_initialize_distributed()
+    world = data_parallel_count(device, n_data_parallel, batch_size, layout)
+    if world > parallel.world_size():
+        return launch_ranks(train, arguments, world, device, layout)
+    lead = parallel.is_lead()
+    say = log if lead else quiet
     os.makedirs(checkpoint_dirpath, exist_ok=True)
     checkpoint_path = os.path.join(checkpoint_dirpath, 'model-{}.pth')
-    log_path = os.path.join(checkpoint_dirpath, 'results.txt')
+    # only rank 0 writes the results file
+    log_path = os.path.join(checkpoint_dirpath, 'results.txt') if lead \
+        else None
     event_path = os.path.join(checkpoint_dirpath, 'events')
     best_results = {'step': -1, 'mae': np.inf, 'rmse': np.inf,
                     'imae': np.inf, 'irmse': np.inf}
@@ -343,7 +366,7 @@ def train(train_image_path, train_depth_path, train_response_path,
                                  random_crop_type=augmentation_random_crop_type,
                                  device=device),
         batch_size=batch_size, shuffle=True, num_workers=n_thread, seed=seed,
-        drop_last=True)
+        drop_last=True, process_index=parallel.rank(), process_count=world)
     train_transforms = Transforms(
         normalized_image_range=normalized_image_range,
         random_brightness=augmentation_random_brightness,
@@ -369,7 +392,7 @@ def train(train_image_path, train_depth_path, train_response_path,
     train_step = 0
     if restore_path == 'latest':
         restore_path = find_latest_checkpoint(checkpoint_dirpath)
-        log('Auto-resume from: {}'.format(restore_path), log_path)
+        say('Auto-resume from: {}'.format(restore_path), log_path)
     if restore_path:
         train_step, opt_sd = model.restore_checkpoint(
             restore_path, device=device, return_optimizer_state=True)
@@ -377,43 +400,57 @@ def train(train_image_path, train_depth_path, train_response_path,
             try:
                 optimizer.load_state_dict(opt_sd)
             except Exception as e:
-                log('Could not restore optimizer state ({}); '
+                say('Could not restore optimizer state ({}); '
                     'reinitializing'.format(e), log_path)
+    if world > 1:
+        parallel.broadcast_module(model)  # replicas of rank 0's weights
 
     step_fn = TrainStep(
         model, train_transforms, optimizer, loss_func, w_smoothness,
         w_lidar_loss, loss_smoothness_kernel_size,
         outlier_removal_kernel_size, outlier_removal_threshold,
         ground_truth_dilation_kernel_size)
+    if world > 1:
+        step_fn = parallel.data_parallel_step(step_fn)
     forward_fn = make_forward_fn(
         model, Transforms(normalized_image_range=normalized_image_range))
-    train_summary_writer = SummaryWriter(event_path + '-train')
-    val_summary_writer = SummaryWriter(event_path + '-val')
-    log('Tensorboard summaries: {} ({})'.format(
+    train_summary_writer = SummaryWriter(event_path + '-train', enabled=lead)
+    val_summary_writer = SummaryWriter(event_path + '-val', enabled=lead)
+    say('Tensorboard summaries: {} ({})'.format(
         'enabled' if train_summary_writer.enabled else 'DISABLED',
         event_path), log_path)
-    log_training_banner(
-        log_path, model=model, batch_size=batch_size,
-        n_train_sample=n_train_sample, n_train_step=n_train_step,
-        learning_rates=learning_rates, learning_schedule=learning_schedule,
-        encoder_type=encoder_type, decoder_type=decoder_type,
-        fusion_type=fusion_type, loss_func=loss_func, n_devices=1)
+    if lead:
+        log_training_banner(
+            log_path, model=model, batch_size=batch_size,
+            n_train_sample=n_train_sample, n_train_step=n_train_step,
+            learning_rates=learning_rates,
+            learning_schedule=learning_schedule, encoder_type=encoder_type,
+            decoder_type=decoder_type, fusion_type=fusion_type,
+            loss_func=loss_func, n_devices=world)
 
     generator = torch.Generator(device=device)
     done = train_step  # steps restored from the checkpoint
     time_start = time.time()
-    trace_window = TraceWindow(device)
+    trace_window = TraceWindow(device, enabled=lead)
 
     def run_validation():
+        """Rank 0 alone validates: the parameters are replicated."""
         nonlocal best_results
-        best_results = validate(
-            forward_fn, val_dataset, train_step, best_results,
-            min_evaluate_depth, max_evaluate_depth, val_summary_writer,
-            log_path, eval_batch_size, device)
+        if lead:
+            best_results = validate(
+                forward_fn, val_dataset, train_step, best_results,
+                min_evaluate_depth, max_evaluate_depth, val_summary_writer,
+                log_path, eval_batch_size, device)
+
+    def save_checkpoint():
+        if lead:
+            model.save_checkpoint(checkpoint_path.format(train_step),
+                                  train_step, optimizer.state_dict())
+        parallel.barrier()
 
     with training_numerics():
-        log(numerics_line(step_fn.compute_dtype))
-        log('Begin training...', log_path)
+        say(numerics_line(step_fn.compute_dtype))
+        say('Begin training...', log_path)
         for epoch, start, learning_rate, augmentation_probability in epochs(
                 learning_rates, learning_schedule, augmentation_probabilities,
                 augmentation_schedule, done, steps_per_epoch):
@@ -421,9 +458,10 @@ def train(train_image_path, train_depth_path, train_response_path,
             for batch, wait_ms, t0 in timed(device_prefetch(train_loader,
                                                              device)):
                 train_step += 1
+                # every rank the same draws, for its own slice
                 generator.manual_seed(step_seed(seed, train_step))
-                draws = train_transforms.draws(generator, batch_size,
-                                               augmentation_probability)
+                draws = train_transforms.draws(
+                    generator, batch_size // world, augmentation_probability)
                 loss_info = step_fn(batch, draws, learning_rate)
                 if timings is not None:
                     timings.append(step_timing(device, train_step, t0,
@@ -441,7 +479,7 @@ def train(train_image_path, train_depth_path, train_response_path,
                     loss_value = float(loss_info['loss'])
                     elapsed = time.time() - time_start
                     steps_per_s = (train_step - done) / max(elapsed, 1e-6)
-                    log('Step={:6}/{}  Loss={:.5f}  Time Elapsed={:.2f}h  '
+                    say('Step={:6}/{}  Loss={:.5f}  Time Elapsed={:.2f}h  '
                         'Time Remaining={:.2f}h  {:.2f} steps/s '
                         '({:.1f} samples/s)'.format(
                             train_step, n_train_step, loss_value,
@@ -451,16 +489,14 @@ def train(train_image_path, train_depth_path, train_response_path,
                             steps_per_s, steps_per_s * batch_size), log_path)
                     if train_step >= start_step_validation:
                         run_validation()
-                    model.save_checkpoint(
-                        checkpoint_path.format(train_step), train_step,
-                        optimizer.state_dict())
+                    save_checkpoint()
         trace_window.close()
         run_validation()
-        model.save_checkpoint(checkpoint_path.format(train_step), train_step,
-                              optimizer.state_dict())
+        save_checkpoint()
     train_summary_writer.close()
     val_summary_writer.close()
-    return best_results
+    return parallel.broadcast_object(best_results) if world > 1 \
+        else best_results
 
 
 def load_model(restore_path, input_channels_image, input_channels_depth,

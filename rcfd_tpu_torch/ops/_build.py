@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -125,7 +126,12 @@ def bind(source: str, entry: str, argtypes: tuple):
 LAUNCH_COUNTS = {torch.float32: 'launches', torch.bfloat16: 'launches_bf16'}
 
 
+# sharded serving launches from one thread a shard
+_COUNT_LOCK = threading.Lock()
+
+
 def count_launch(wrapper, dtype):
     """Add one launch of ``dtype``'s instance to ``wrapper``'s count."""
     attr = LAUNCH_COUNTS[dtype]
-    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)

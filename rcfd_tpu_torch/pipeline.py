@@ -1,7 +1,8 @@
 """Two-stage serving pipeline: RadarNet -> quasi-dense scatter ->
 FusionNet, one frame a call (``__call__``, or ``from_raw_radar`` from radar
-returns in the sensor frame) or a batch of frames (``forward_batched``);
-counterpart of rcfd_tpu/pipeline.py ``TwoStagePipeline``.
+returns in the sensor frame), a batch of frames (``forward_batched``) or a
+batch sharded over devices (``forward_sharded``); counterpart of
+rcfd_tpu/pipeline.py ``TwoStagePipeline``.
 
 The reference composes the stages through 16-bit PNGs: the bridge writes
 responses with save_response (x2^14) but FusionNet reads them back with
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import default_device
+from . import default_device, parallel
 from .data import transport
 from .data.transforms import Transforms
 from .geometry.transforms import project_points_to_image
@@ -171,6 +172,7 @@ class TwoStagePipeline:
         route = scatter_cuda if self.pallas_scatter else exact_scatter
         self.scatter = route.scatter_quasi_dense
         self.scatter_batched = route.scatter_quasi_dense_batched
+        self._sharded_key = self._sharded = None  # forward_sharded's replicas
 
     def _tensor(self, x):
         if isinstance(x, np.ndarray):
@@ -269,21 +271,74 @@ class TwoStagePipeline:
         (dense, quasi, response), each (B, H, W); frame b equals
         ``__call__`` of frame b."""
         with serving_numerics():
-            points = self._tensor(points)
-            b, k = points.shape[0], points.shape[1]
-            n_chunks = decode_chunk_count(b, k,
-                                          self.radarnet.perf.decode_chunks)
-            image_t, crops, xs, zs = self.radarnet_stage_batched(
-                images, points, n_chunks)
-            depth_map, response_map = self._scatter_for(k, True)(
-                crops, xs, zs, self._tensor(valid).to(torch.bool),
-                image_height=self.image_height,
-                image_width=self.image_width,
-                patch_size=self.radarnet.input_patch_size_image)
-            depth_map, response_map, input_depth = self.bridge(
-                depth_map, response_map)
-            dense = self.fusionnet(image_t, input_depth)[:, 0]
-            return self._outputs(dense, depth_map, response_map)
+            return self._forward_batched(images, points, valid)
+
+    def _forward_batched(self, images, points, valid):
+        points = self._tensor(points)
+        b, k = points.shape[0], points.shape[1]
+        n_chunks = decode_chunk_count(b, k, self.radarnet.perf.decode_chunks)
+        image_t, crops, xs, zs = self.radarnet_stage_batched(
+            images, points, n_chunks)
+        depth_map, response_map = self._scatter_for(k, True)(
+            crops, xs, zs, self._tensor(valid).to(torch.bool),
+            image_height=self.image_height, image_width=self.image_width,
+            patch_size=self.radarnet.input_patch_size_image)
+        depth_map, response_map, input_depth = self.bridge(depth_map,
+                                                           response_map)
+        dense = self.fusionnet(image_t, input_depth)[:, 0]
+        return self._outputs(dense, depth_map, response_map)
+
+    @torch.inference_mode()
+    def forward_sharded(self, images, points, valid, devices=None):
+        """Data-parallel serving (rcfd_tpu/pipeline.py ``forward_sharded``):
+        the batch split along its leading axis into ``len(devices)``
+        contiguous shards, which must be equal, each served by
+        ``forward_batched``'s path on its device (its own decode chunks,
+        its own scatter: K1 once a shard under ``pallas_scatter=True``),
+        shard i on the process's thread i (``parallel.shard_threads``: the
+        per-point decode waits on the host, and a kept thread keeps cuDNN's
+        plans); the outputs gathered on ``devices[0]``. ``devices``
+        defaults to ``parallel.get_devices(device=self.device)``: every
+        visible card, or the pipeline's CPU. The models are replicated once
+        per device list and kept: a device that repeats reuses one replica,
+        and the pipeline's own device its own models. Arguments and returns
+        as ``forward_batched``'s; each frame equals ``forward_batched`` of
+        its shard run on the shard's thread. On a card, where
+        ``serving_numerics`` autotunes cuDNN (``cudnn.benchmark``) and the
+        plans are kept per thread, a shard thread may choose another
+        convolution algorithm than the caller's thread for the same shape:
+        the frames may then differ from ``forward_batched`` called in the
+        caller's thread in the last bits (dense depth in its float
+        rounding, a quasi or response code at a 14-bit tie or the
+        threshold)."""
+        if devices is None:
+            devices = parallel.get_devices(device=self.device)
+        devices = [_indexed(d) for d in devices]
+        shards = parallel.shard_batch((images, points, valid), len(devices))
+        replicas = self._replicas(devices)
+        with serving_numerics():
+            outs = parallel.shard_threads(len(devices)).map(
+                _serve_shard, list(zip(replicas, devices, shards)))
+        return tuple(torch.cat([o[i].to(devices[0]) for o in outs])
+                     for i in range(3))
+
+    def _replicas(self, devices):
+        """The pipeline a shard on each of ``devices`` is served by."""
+        key = tuple(devices)
+        if self._sharded_key != key:
+            by_device = {_indexed(self.device): self}
+            for device in devices:
+                if device not in by_device:
+                    replica = copy.copy(self)
+                    replica.device = device
+                    replica.radarnet = copy.deepcopy(self.radarnet).to(device)
+                    replica.fusionnet = copy.deepcopy(self.fusionnet).to(
+                        device)
+                    replica._sharded_key = replica._sharded = None
+                    by_device[device] = replica
+            self._sharded = [by_device[d] for d in devices]
+            self._sharded_key = key
+        return self._sharded
 
     @classmethod
     def from_checkpoints(cls, radarnet_restore_path: str,
@@ -328,3 +383,21 @@ class TwoStagePipeline:
         fusionnet.restore_checkpoint(fusionnet_restore_path, device=device)
         return cls(radarnet, fusionnet, image_height, image_width,
                    device=device, **kwargs)
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index: cuda is the current card."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        return torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+def _serve_shard(pipe, device, shard):
+    """``forward_batched``'s path of ``pipe`` on one shard, in the calling
+    thread (inference mode and the current card are the thread's own; the
+    caller holds the serving numerics)."""
+    cuda = torch.cuda.device(device) if device.type == 'cuda' \
+        else contextlib.nullcontext()
+    with torch.inference_mode(), cuda:
+        return pipe._forward_batched(*shard)

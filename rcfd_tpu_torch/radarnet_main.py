@@ -1,8 +1,8 @@
-"""RadarNet training and scatter inference on one card (counterpart of
-rcfd_tpu/radarnet_main.py ``_make_train_step``, ``_make_summary_forward``,
-``make_forward_fn``, ``make_forward_fn_batched``, ``iter_scatter_outputs``,
-``train``, ``validate``, ``run`` and ``log_evaluation_results``; reference
-src/radarnet_main.py).
+"""RadarNet training and scatter inference on one card or several
+(counterpart of rcfd_tpu/radarnet_main.py ``_make_train_step``,
+``_make_summary_forward``, ``make_forward_fn``, ``make_forward_fn_batched``,
+``iter_scatter_outputs``, ``train``, ``validate``, ``run`` and
+``log_evaluation_results``; reference src/radarnet_main.py).
 
 A train step decodes the integer transport batch (the edge-padded frames'
 bottom rows, K radar points a frame, their boxes and ground-truth crops) on
@@ -36,11 +36,13 @@ with torch.profiler (utils/profiling.py ``TraceWindow``).
 
 As in the JAX package, training writes no optimizer state into its
 checkpoints (an empty ``radarnet_optimizer_state_dict``), so a restored run
-starts Adam afresh. Not in the port yet, each refused with a message: data
-parallelism over more than one card (``n_data_parallel`` > 1),
-``device='tpu'``. A run restored at
-step s resumes at step s + 1 (rcfd_tpu_torch/training.py says how this
-differs from the JAX training loop).
+starts Adam afresh. Data parallelism (``n_data_parallel``) is FusionNet's
+(fusionnet_main.py says how): every rank runs the step on its slice, K2 and
+its gradient included at a patch width that is not a multiple of 32, and
+rank 0 alone validates (K1 under ``pallas_scatter=True``).
+``device='tpu'`` is refused with a message. A run restored at step s
+resumes at step s + 1 (rcfd_tpu_torch/training.py says how this differs
+from the JAX training loop).
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import default_device, native
+from . import default_device, native, parallel
 from .data import io as data_utils
 from .data import transport
 from .data.datasets import RadarNetInferenceDataset, RadarNetTrainingDataset
@@ -66,8 +68,9 @@ from .ops import scatter as exact_scatter
 from .ops import scatter_cuda
 from .pipeline import (decode_chunk_count, encode_depth, encode_response,
                        radarnet_crops, serving_numerics)
-from .training import (OptimizerStep, epochs, eval_mode, make_optimizer,
-                       numerics_line, refuse_unported, step_seed,
+from .training import (OptimizerStep, data_parallel_count, epochs,
+                       eval_mode, launch_ranks, make_optimizer,
+                       numerics_line, quiet, refuse_unported, step_seed,
                        step_timing, timed, train_dtype, training_numerics)
 from .utils import eval_utils
 from .utils.checkpoint import find_latest_checkpoint
@@ -463,13 +466,23 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
     ``perf`` is RadarNet's PerfConfig (its scatter and deferred pools
     apply to validation). ``timings``, a list, receives a dict per step:
     the step's milliseconds (the card synchronized after it, which it then
-    is every step) and the host's wait for its batch. Returns the best
-    validation results."""
-    refuse_unported(device, n_data_parallel)
+    is every step) and the host's wait for its batch (with data
+    parallelism, each rank's, with its ``rank``). ``n_data_parallel`` is
+    ``fusionnet_main.train``'s. Returns the best validation results."""
+    arguments = dict(locals())
+    refuse_unported(device)
     device = default_device(device)
+    layout = parallel.maybe_initialize_distributed()
+    world = data_parallel_count(device, n_data_parallel, batch_size, layout)
+    if world > parallel.world_size():
+        return launch_ranks(train, arguments, world, device, layout)
+    lead = parallel.is_lead()
+    say = log if lead else quiet
     os.makedirs(checkpoint_dirpath, exist_ok=True)
     checkpoint_path = os.path.join(checkpoint_dirpath, 'model-{}.pth')
-    log_path = os.path.join(checkpoint_dirpath, 'results.txt')
+    # only rank 0 writes the results file
+    log_path = os.path.join(checkpoint_dirpath, 'results.txt') if lead \
+        else None
     event_path = os.path.join(checkpoint_dirpath, 'events')
     best_results = dict({k: np.inf for k in METRICS}, step=-1,
                         n_valid_points_output=0,
@@ -491,7 +504,7 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
             sample_probability_of_lidar=sample_probability_of_lidar,
             device=device),
         batch_size=batch_size, shuffle=True, num_workers=n_thread, seed=seed,
-        drop_last=True)
+        drop_last=True, process_index=parallel.rank(), process_count=world)
     train_transforms = Transforms(
         normalized_image_range=normalized_image_range,
         random_brightness=augmentation_random_brightness,
@@ -521,7 +534,7 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
     train_step = 0
     if restore_path == 'latest':
         restore_path = find_latest_checkpoint(checkpoint_dirpath)
-        log('Auto-resume from: {}'.format(restore_path), log_path)
+        say('Auto-resume from: {}'.format(restore_path), log_path)
     if restore_path:
         # the JAX package's training saves an empty optimizer state, and a
         # restore of one starts Adam afresh
@@ -531,12 +544,16 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
             try:
                 optimizer.load_state_dict(opt_sd)
             except Exception as e:
-                log('Could not restore optimizer state ({}); '
+                say('Could not restore optimizer state ({}); '
                     'reinitializing'.format(e), log_path)
+    if world > 1:
+        parallel.broadcast_module(model)  # replicas of rank 0's weights
 
     step_fn = TrainStep(model, train_transforms, optimizer, patch_size,
                         max_distance_correspondence,
                         set_invalid_to_negative_class, w_positive_class)
+    if world > 1:
+        step_fn = parallel.data_parallel_step(step_fn)
     # validation frames are full frames, the size of the first
     if val_paths[0]:
         image_height, image_width = data_utils.load_image_u8(
@@ -545,33 +562,43 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
         image_height, image_width = 900, 1600
     forward_fn = make_forward_fn_batched(model, val_transforms, image_height,
                                          image_width)
-    train_summary_writer = SummaryWriter(event_path + '-train')
-    val_summary_writer = SummaryWriter(event_path + '-val')
-    log('Tensorboard summaries: {} ({})'.format(
+    train_summary_writer = SummaryWriter(event_path + '-train', enabled=lead)
+    val_summary_writer = SummaryWriter(event_path + '-val', enabled=lead)
+    say('Tensorboard summaries: {} ({})'.format(
         'enabled' if train_summary_writer.enabled else 'DISABLED',
         event_path), log_path)
-    log('Network: {} / {}  n_parameters={}'.format(
+    say('Network: {} / {}  n_parameters={}'.format(
         encoder_type, decoder_type, model.n_parameters()), log_path)
-    log('Training: batch_size={} patch_size={} K={} n_train_step={} '
+    say('Training: batch_size={} patch_size={} K={} n_train_step={} '
         'n_devices={}'.format(batch_size, patch_size, total_points_sampled,
-                              n_train_step, 1), log_path)
+                              n_train_step, world), log_path)
 
     generator = torch.Generator(device=device)
-    points_shape = (batch_size, total_points_sampled, 3)
+    # every rank draws for its own slice, the same draws
+    local_batch = batch_size // world
+    points_shape = (local_batch, total_points_sampled, 3)
     done = train_step  # steps restored from the checkpoint
     time_start = time.time()
-    trace_window = TraceWindow(device)
+    trace_window = TraceWindow(device, enabled=lead)
 
     def run_validation():
+        """Rank 0 alone validates: the parameters are replicated."""
         nonlocal best_results
-        best_results = validate(
-            forward_fn, val_dataset, train_step, best_results,
-            min_evaluate_depth, max_evaluate_depth, val_summary_writer,
-            log_path, eval_batch_size, device)
+        if lead:
+            best_results = validate(
+                forward_fn, val_dataset, train_step, best_results,
+                min_evaluate_depth, max_evaluate_depth, val_summary_writer,
+                log_path, eval_batch_size, device)
+
+    def save_checkpoint():
+        if lead:
+            model.save_checkpoint(checkpoint_path.format(train_step),
+                                  train_step)
+        parallel.barrier()
 
     with training_numerics():
-        log(numerics_line(step_fn.compute_dtype))
-        log('Begin training...', log_path)
+        say(numerics_line(step_fn.compute_dtype))
+        say('Begin training...', log_path)
         for epoch, start, learning_rate, augmentation_probability in epochs(
                 learning_rates, learning_schedule, augmentation_probabilities,
                 augmentation_schedule, done, steps_per_epoch):
@@ -581,7 +608,7 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
                 train_step += 1
                 generator.manual_seed(step_seed(seed, train_step))
                 draws = train_transforms.draws(
-                    generator, batch_size, augmentation_probability,
+                    generator, local_batch, augmentation_probability,
                     points_shape)
                 loss_info = step_fn(batch, draws, learning_rate)
                 if timings is not None:
@@ -600,23 +627,23 @@ def train(train_image_path, train_radar_path, train_ground_truth_path,
                                             max_distance_correspondence))
                 if train_step % n_step_per_checkpoint == 0:
                     elapsed = (time.time() - time_start) / 3600
-                    log('Step={:6}/{} Time Elapsed={:.2f}h  Time Remaining='
+                    say('Step={:6}/{} Time Elapsed={:.2f}h  Time Remaining='
                         '{:.2f}h'.format(train_step, n_train_step, elapsed,
                                          (n_train_step - train_step) *
                                          elapsed / (train_step - done)),
                         log_path)
-                    log('Loss={:.5f}'.format(float(loss_info['loss'])),
+                    say('Loss={:.5f}'.format(float(loss_info['loss'])),
                         log_path)
                     if train_step >= start_step_validation:
                         run_validation()
-                    model.save_checkpoint(checkpoint_path.format(train_step),
-                                          train_step)
+                    save_checkpoint()
         trace_window.close()
         run_validation()
-        model.save_checkpoint(checkpoint_path.format(train_step), train_step)
+        save_checkpoint()
     train_summary_writer.close()
     val_summary_writer.close()
-    return best_results
+    return parallel.broadcast_object(best_results) if world > 1 \
+        else best_results
 
 
 def load_model(restore_path, patch_size, input_channels_image,

@@ -9,7 +9,11 @@ sets -> dense depth), the port's counterpart of run_pipeline.py.
 It takes the JAX CLI's flags with the same defaults, reads the manifests'
 frames and point sets, serves them on the card through
 ``TwoStagePipeline.from_checkpoints(optimize=True)`` (one frame a request,
-or ``--batch_size`` frames through ``forward_batched``), and writes the same
+or ``--batch_size`` frames through ``forward_batched``; with
+``--data_parallel`` each full batch through ``forward_sharded`` over every
+visible card, a batch size that the card count does not divide refused
+before anything is served, and the tail batch through
+``forward_batched``), and writes the same
 three 16-bit PNG streams (output_depth_fusion, output_depth_radar,
 output_response_radar) and the same MAE/RMSE/iMAE/iRMSE table in
 results.txt.
@@ -18,9 +22,6 @@ The quasi-dense scatter is the JAX CLI's: the exact float max by default,
 the scatter kernel's 14-bit max (K1: the response quantized to 14 bits
 before the max, the first point winning inside one 2^-14 step) with
 RCFD_PALLAS_SCATTER set true. The run says which in one line.
-
-Difference from the JAX CLI: ``--data_parallel`` needs sharded serving,
-which the port does not have yet; it is refused.
 
 Of the JAX package's RCFD_* environment gates this module
 reads the four the port has, once, with their JAX
@@ -39,6 +40,7 @@ import torch
 
 from . import default_device
 from . import native
+from . import parallel
 from .data import io as data_utils
 from .data.datasets import RadarNetInferenceDataset
 from .data.transport import decode_np
@@ -90,26 +92,33 @@ parser.add_argument('--max_points_inference', type=int, default=0,
 parser.add_argument('--batch_size', type=int, default=1,
                     help='frames a request (forward_batched when above 1)')
 parser.add_argument('--data_parallel', action='store_true',
-                    help='not in the port yet: refused')
+                    help='shard each full batch over every visible card '
+                         '(forward_sharded); --batch_size must divide by '
+                         'the card count')
 
 METRICS = ['mae', 'rmse', 'imae', 'irmse']
 STREAMS = ['output_depth_fusion', 'output_depth_radar',
            'output_response_radar']
 
 
-def main(argv=None, device=None):
+def main(argv=None, device=None, devices=None):
     """Run the CLI on ``argv`` (sys.argv[1:] when None), on ``device``
-    (``cuda`` unless ``device='cpu'``). Returns a summary: frames served,
+    (``cuda`` unless ``device='cpu'``); ``devices`` is the device list of
+    ``--data_parallel`` (by default ``parallel.get_devices(device=device)``:
+    every visible card, or the CPU once). Returns a summary: frames served,
     the mean metrics (None without ground truth) and the seconds spent in
     setup, reading, serving (to the outputs on the host) and writing."""
     args = parser.parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit(
-            '--data_parallel needs sharded serving (forward_sharded), which '
-            'rcfd_tpu_torch does not have yet; run without it to serve on '
-            'one device')
     t_start = time.perf_counter()
     device = default_device(device)
+    if args.data_parallel:
+        devices = devices or parallel.get_devices(device=device)
+        if args.batch_size % len(devices):
+            raise SystemExit(
+                '--data_parallel needs batch_size ({}) divisible by the '
+                'device count ({})'.format(args.batch_size, len(devices)))
+    else:
+        devices = None
     perf = perf_from_env()
 
     os.makedirs(args.output_dirpath, exist_ok=True)
@@ -173,6 +182,10 @@ def main(argv=None, device=None):
         for d in dirs.values():
             os.makedirs(d, exist_ok=True)
 
+    if devices is not None:
+        log('Data-parallel serving over {} device(s)'.format(len(devices)),
+            log_path)
+
     n_sample = len(image_paths)
     metrics = {k: np.zeros(n_sample) for k in METRICS}
     seconds = dict(setup=time.perf_counter() - t_start, read=0.0, serve=0.0,
@@ -185,10 +198,11 @@ def main(argv=None, device=None):
         samples = [dataset.get(i) for i in idxs]
         t1 = time.perf_counter()
         if len(idxs) > 1:
-            outs = pipeline.forward_batched(
-                np.stack([s[0] for s in samples]),
-                np.stack([s[1] for s in samples]),
-                np.stack([s[2] for s in samples]))
+            batch = [np.stack([s[j] for s in samples]) for j in range(3)]
+            if devices is not None and len(idxs) == bsz:
+                outs = pipeline.forward_sharded(*batch, devices=devices)
+            else:
+                outs = pipeline.forward_batched(*batch)
         else:
             image, points, valid = samples[0][:3]
             outs = [o[None] for o in pipeline(image[None], points, valid)]

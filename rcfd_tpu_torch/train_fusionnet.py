@@ -1,4 +1,4 @@
-"""CLI: train FusionNet on one card, the port's counterpart of
+"""CLI: train FusionNet on one card or several, the port's counterpart of
 train_fusionnet.py (reference src/train_fusionnet.py).
 
     python -m rcfd_tpu_torch.train_fusionnet --train_image_path ... \\
@@ -6,8 +6,13 @@ train_fusionnet.py (reference src/train_fusionnet.py).
 
 It takes the JAX CLI's flags with the same defaults, plus ``--device``,
 which defaults to ``cuda`` (``--device cpu`` trains on the CPU).
-``--n_data_parallel`` above 1 and ``--device tpu`` are refused, as is an
-RCFD_TRAIN_DTYPE other than float32 and bfloat16. ``--raw_cache_dirpath``
+``--n_data_parallel N`` trains on N ranks that share ``--batch_size`` (one
+a card; gloo ranks with ``--device cpu``; by default every visible card),
+and across hosts under RCFD_COORDINATOR, RCFD_NUM_PROCESSES and
+RCFD_PROCESS_ID (rcfd_tpu_torch/parallel/mesh.py); a batch size that N does
+not divide is refused, as the JAX CLI asserts. ``--device tpu`` is refused,
+as is an RCFD_TRAIN_DTYPE other than float32 and bfloat16.
+``--raw_cache_dirpath``
 (or RCFD_RAW_CACHE) turns on the decode-once raw cache of the loader
 (data/raw_cache.py): the first epoch decodes every file and caches its raw
 array, later epochs map it and crop before converting.
@@ -104,7 +109,9 @@ parser.add_argument('--restore_path', type=str, default=None)
 parser.add_argument('--device', type=str, default='cuda')
 parser.add_argument('--n_thread', type=int, default=10)
 parser.add_argument('--n_data_parallel', type=int, default=None,
-                    help='cards to train on: only 1 is ported')
+                    help='data-parallel ranks sharing --batch_size (one a '
+                         'card; gloo ranks with --device cpu); default: '
+                         'every visible card, 1 on the CPU')
 parser.add_argument('--eval_batch_size', type=int, default=1,
                     help='validation frames per dispatch (identical '
                          'metrics at any value)')

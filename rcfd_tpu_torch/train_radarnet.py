@@ -1,13 +1,16 @@
-"""CLI: train RadarNet on one card, the port's counterpart of
+"""CLI: train RadarNet on one card or several, the port's counterpart of
 train_radarnet.py (reference src/train_radarnet.py).
 
     python -m rcfd_tpu_torch.train_radarnet --train_image_path ... \\
         --checkpoint_dirpath out [--restore_path latest]
 
 It takes the JAX CLI's flags with the same defaults, plus ``--device``,
-which defaults to ``cuda`` (``--device cpu`` trains on the CPU). Refused:
-``--n_data_parallel`` above 1, ``--device tpu``, an RCFD_TRAIN_DTYPE other
-than float32 and bfloat16. ``--raw_cache_dirpath`` (or RCFD_RAW_CACHE)
+which defaults to ``cuda`` (``--device cpu`` trains on the CPU).
+``--n_data_parallel`` is train_fusionnet's (ranks sharing ``--batch_size``,
+one a card, gloo ranks on the CPU, hosts by RCFD_COORDINATOR /
+RCFD_NUM_PROCESSES / RCFD_PROCESS_ID). Refused: a batch size that it does
+not divide, ``--device tpu``, an RCFD_TRAIN_DTYPE other than float32 and
+bfloat16. ``--raw_cache_dirpath`` (or RCFD_RAW_CACHE)
 turns on the decode-once raw cache of the loader (data/raw_cache.py): the
 first epoch decodes every file and caches its raw array, later epochs map
 it. RCFD_TRAIN_DTYPE=bfloat16
@@ -98,7 +101,9 @@ parser.add_argument('--max_evaluate_depth', type=float, default=100)
 parser.add_argument('--device', type=str, default='cuda')
 parser.add_argument('--n_thread', type=int, default=10)
 parser.add_argument('--n_data_parallel', type=int, default=None,
-                    help='cards to train on: only 1 is ported')
+                    help='data-parallel ranks sharing --batch_size (one a '
+                         'card; gloo ranks with --device cpu); default: '
+                         'every visible card, 1 on the CPU')
 parser.add_argument('--max_points_inference', type=int, default=0)
 parser.add_argument('--eval_batch_size', type=int, default=1,
                     help='validation frames per dispatch (identical '

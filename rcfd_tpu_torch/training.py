@@ -1,9 +1,9 @@
 """What the port's two training loops share (``fusionnet_main.train`` and
 ``radarnet_main.train``): the numerics and the training dtype, the
-refusals, Adam, the seed of a
-step's augmentation draws, the optimizer step around a model's loss, the
-walk over the schedules' epochs and their batches, and eval mode for
-validation.
+refusals, the data-parallel count and the launch of its ranks, Adam, the
+seed of a step's augmentation draws, the optimizer step around a model's
+loss, the walk over the schedules' epochs and their batches, and eval mode
+for validation.
 
 A run restored at step s skips the s steps it has done (the epochs before
 step s, and the first batches of the epoch it stops in) and ends at the
@@ -21,6 +21,9 @@ import time
 
 import numpy as np
 import torch
+
+from . import parallel
+from .data import raw_cache
 
 
 @contextlib.contextmanager
@@ -85,19 +88,82 @@ def numerics_line(dtype=None) -> str:
                 cudnn.deterministic))
 
 
-def refuse_unported(device, n_data_parallel):
+def refuse_unported(device):
     """Raise ValueError for what the JAX training loops do and the port
-    does not yet: a TPU, data parallelism over more than one card; and for
-    a training dtype other than float32 and bf16 (``train_dtype``)."""
+    does not: a TPU; and for a training dtype other than float32 and bf16
+    (``train_dtype``)."""
     if str(device).lower() == 'tpu':
         raise ValueError("device 'tpu': rcfd_tpu_torch trains on a CUDA "
                          "device ('cuda') or the CPU ('cpu')")
-    if n_data_parallel is not None and n_data_parallel > 1:
-        raise ValueError(
-            'n_data_parallel={}: rcfd_tpu_torch trains on one card; data '
-            'parallelism across cards is not ported yet'.format(
-                n_data_parallel))
     train_dtype()
+
+
+def data_parallel_count(device, n_data_parallel, batch_size: int,
+                        layout=None) -> int:
+    """The ranks a training runs on, the JAX package's ``n_devices =
+    n_data_parallel or jax.device_count()``: inside a process group its
+    size; else ``n_data_parallel``, or when it is None every visible card
+    of every host (``layout``, ``parallel.maybe_initialize_distributed``'s)
+    on CUDA and one rank a host on the CPU. Raises ValueError where JAX
+    asserts: a ``batch_size`` (global) that the count does not divide; and
+    for more ranks than the hosts' visible cards on CUDA or a count that
+    does not split evenly over the hosts."""
+    if parallel.world_size() > 1:
+        n = parallel.world_size()
+    else:
+        device = torch.device(device)
+        hosts = 1 if layout is None else layout.num_processes
+        local = torch.cuda.device_count() if device.type == 'cuda' else 1
+        n = n_data_parallel or local * hosts
+        if n < 1:
+            raise ValueError('n_data_parallel={}: train on 1 or more '
+                             'ranks'.format(n_data_parallel))
+        if n % hosts:
+            raise ValueError('n_data_parallel={} does not split over {} '
+                             'hosts'.format(n, hosts))
+        if device.type == 'cuda' and n > local * hosts:
+            raise ValueError(
+                'n_data_parallel={}: {} card(s) visible on each of {} '
+                'host(s)'.format(n, local, hosts))
+    if batch_size % n:
+        raise ValueError(
+            'n_data_parallel={}: batch_size ({}) must divide by the '
+            'data-parallel count'.format(n, batch_size))
+    return n
+
+
+def launch_ranks(train_fn, arguments: dict, world: int, device,
+                 layout=None):
+    """Run ``train_fn(**arguments)`` (a training loop that finds itself in
+    a process group and takes its part) on this host's ranks of a group of
+    ``world`` (``parallel.run_ranks``), with this process's raw-cache
+    directory. ``arguments['timings']``, a list, receives every local
+    rank's step entries, each with its ``rank``. Returns the best
+    validation results, which every rank returns alike."""
+    timings = arguments.get('timings')
+    results = parallel.run_ranks(
+        _train_rank, (train_fn, dict(arguments, timings=None),
+                      raw_cache.cache_dir()),
+        world, device, layout=layout)
+    if timings is not None:
+        for _, rank_timings in results:
+            timings.extend(rank_timings)
+    return results[0][0]
+
+
+def _train_rank(device, train_fn, arguments, cache_dir):
+    """One rank of ``launch_ranks``: (best results, its step entries)."""
+    timings = []
+    with raw_cache.raw_cache_for(cache_dir):
+        best = train_fn(**dict(arguments, device=device, timings=timings))
+    for entry in timings:
+        entry['rank'] = parallel.rank()
+    return best, timings
+
+
+def quiet(*args, **kwargs):
+    """``log`` on a data-parallel rank other than 0: nothing (rank 0 logs
+    for the run)."""
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -131,11 +197,15 @@ class OptimizerStep:
         return {k: v.detach() if torch.is_tensor(v) else torch.tensor(v)
                 for k, v in loss_info.items()}
 
-    def __call__(self, batch, draws, learning_rate: float):
-        loss_info = self.backward(batch, draws)
+    def update(self, learning_rate: float):
+        """Adam's step at ``learning_rate`` on the gradients in ``.grad``."""
         for group in self.optimizer.param_groups:
             group['lr'] = learning_rate
         self.optimizer.step()
+
+    def __call__(self, batch, draws, learning_rate: float):
+        loss_info = self.backward(batch, draws)
+        self.update(learning_rate)
         return loss_info
 
 
@@ -179,9 +249,13 @@ def timed(batches):
 def step_timing(device, step: int, t0: float, wait_ms: float, loss) -> dict:
     """A step's entry of ``timings``: its milliseconds from the clock at
     its wait's start (the card synchronized first, which it then is every
-    step), less the wait, and the loss."""
+    step), less the wait, and the loss; on a card also this process's peak
+    of allocated memory so far (``peak_bytes``)."""
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
-    return dict(step=step, wait_ms=wait_ms,
-                step_ms=(time.perf_counter() - t0) * 1e3 - wait_ms,
-                loss=float(loss))
+    entry = dict(step=step, wait_ms=wait_ms,
+                 step_ms=(time.perf_counter() - t0) * 1e3 - wait_ms,
+                 loss=float(loss))
+    if device.type == 'cuda':
+        entry['peak_bytes'] = torch.cuda.max_memory_allocated(device)
+    return entry

@@ -119,10 +119,12 @@ class TraceWindow:
     ``<RCFD_PROFILE_DIR>/trace-steps-<first>-<last>.json`` (``path``)
     with the first and last steps it holds. The card's kernels are traced
     when ``device`` is a CUDA device; the stop synchronizes the card,
-    and no step outside the window waits for it."""
+    and no step outside the window waits for it. ``enabled=False`` (a
+    data-parallel rank other than 0) traces nothing."""
 
-    def __init__(self, device='cpu'):
-        self.dir = os.environ.get('RCFD_PROFILE_DIR') or None
+    def __init__(self, device='cpu', enabled: bool = True):
+        self.dir = (os.environ.get('RCFD_PROFILE_DIR') or None) if enabled \
+            else None
         self.start_step, self.stop_step = parse_steps(
             os.environ.get('RCFD_PROFILE_STEPS', '10-12'))
         self.device = torch.device(device)

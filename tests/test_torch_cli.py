@@ -277,9 +277,12 @@ def test_codec_writers_give_the_float_writers_files(runs):
 
 
 def test_data_parallel_is_refused(runs, tmp_path):
-    with pytest.raises(SystemExit, match='forward_sharded'):
+    """--data_parallel with a batch size (2) that the device count (3) does
+    not divide exits, as the JAX CLI does, before anything is written."""
+    with pytest.raises(SystemExit, match='divisible by the device count'):
         port_cli.main(runs['common'] + ['--output_dirpath', str(tmp_path),
-                                        '--data_parallel'], device='cpu')
+                                        '--data_parallel'], device='cpu',
+                      devices=['cpu'] * 3)
     assert not os.listdir(tmp_path)
 
 

@@ -1271,3 +1271,144 @@ def test_legacy_forward_and_roi_pool_on_card(cuda_device, rng):
                             1 / 8., (7, 7))
     assert torch.equal(got.cpu(), roi_pool.roi_pool(feat, boxes, 1 / 8.,
                                                     (7, 7)))
+
+
+@pytest.mark.cuda
+def test_forward_sharded_on_card(cuda_device, rng):
+    """forward_sharded over [cuda:0, cuda:0] (one replica, two threads)
+    under pallas_scatter=True: K1 launched once a shard, and each shard's
+    frames equal forward_batched of that shard run on the shard's thread
+    (whose cuDNN plans the sharded path uses), bit for bit."""
+    from rcfd_tpu_torch import parallel
+
+    gen = torch.Generator().manual_seed(12)
+    rn = RadarNetModel(**RADARNET_TINY, device='cpu',
+                       perf=PerfConfig(pallas_scatter=True))
+    fn = FusionNetModel(**FUSIONNET_TINY, device='cpu')
+    init_parameters(rn, gen)
+    init_parameters(fn, gen)
+    pipe = pipeline.TwoStagePipeline(rn, fn, H, W, device=cuda_device)
+    frames = [frame_and_points(rng) for _ in range(4)]
+    batch = (np.concatenate([f[0] for f in frames]),
+             np.stack([f[1] for f in frames]),
+             np.stack([f[2] for f in frames]))
+    devices = [torch.device('cuda', 0)] * 2
+    before = sc.scatter_quasi_dense.launches
+    out = pipe.forward_sharded(*batch, devices=devices)
+    torch.cuda.synchronize()
+    assert sc.scatter_quasi_dense.launches - before == 2
+    assert all(r is pipe for r in pipe._sharded)
+    # one shard at a time: forward_batched sets the global cuDNN flags for
+    # its call and restores them after it
+    threads = parallel.shard_threads(2)
+    refs = [threads.submit(i, pipe.forward_batched, *part).result()
+            for i, part in enumerate(parallel.shard_batch(batch, 2))]
+    for i, ref in enumerate(refs):
+        for a, r in zip(out, ref):
+            assert torch.equal(a[2 * i:2 * i + 2], r)
+
+
+@pytest.mark.cuda
+def test_forward_sharded_replicates_a_cpu_pipeline_on_card(cuda_device,
+                                                          rng):
+    """A pipeline built on the CPU, sharded over [cuda:0, cuda:0]: one
+    replica of its models on cuda:0 (weights equal), used by both shards
+    and kept for the next request; K1 once a shard; outputs gathered on
+    cuda:0, each shard equal to the replica's forward_batched of that shard
+    on the shard's thread, bit for bit."""
+    from rcfd_tpu_torch import parallel
+
+    gen = torch.Generator().manual_seed(14)
+    rn = RadarNetModel(**RADARNET_TINY, device='cpu',
+                       perf=PerfConfig(pallas_scatter=True))
+    fn = FusionNetModel(**FUSIONNET_TINY, device='cpu')
+    init_parameters(rn, gen)
+    init_parameters(fn, gen)
+    pipe = pipeline.TwoStagePipeline(rn, fn, H, W, device='cpu')
+    frames = [frame_and_points(rng) for _ in range(4)]
+    batch = (np.concatenate([f[0] for f in frames]),
+             np.stack([f[1] for f in frames]),
+             np.stack([f[2] for f in frames]))
+    devices = [torch.device('cuda', 0)] * 2
+    before = sc.scatter_quasi_dense.launches
+    out = pipe.forward_sharded(*batch, devices=devices)
+    torch.cuda.synchronize()
+    assert sc.scatter_quasi_dense.launches - before == 2
+    replica = pipe._sharded[0]
+    assert replica is not pipe and pipe._sharded[1] is replica
+    assert replica.device == devices[0]
+    for mine, theirs in ((replica.radarnet, pipe.radarnet),
+                         (replica.fusionnet, pipe.fusionnet)):
+        want = theirs.state_dict()
+        for k, t in mine.state_dict().items():
+            assert t.device == devices[0]
+            assert torch.equal(t.cpu(), want[k]), k
+    assert all(o.device == devices[0] for o in out)
+    threads = parallel.shard_threads(2)
+    refs = [threads.submit(i, replica.forward_batched, *part).result()
+            for i, part in enumerate(parallel.shard_batch(batch, 2))]
+    for i, ref in enumerate(refs):
+        for a, r in zip(out, ref):
+            assert torch.equal(a[2 * i:2 * i + 2], r)
+    again = pipe.forward_sharded(*batch, devices=devices)
+    assert pipe._sharded[0] is replica
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_data_parallel_step_on_card_matches_cpu(cuda_device, rng):
+    """One float64 data-parallel train step of a tiny FusionNet and of a
+    tiny RadarNet (a 32x32 patch: K2 has no float64 instance) on two gloo
+    ranks that share the card, against the same two ranks on the CPU:
+    loss_info and every averaged gradient and parameter within 1e-9 of its
+    max-abs, the running statistics within 1e-9; both ranks' parameters
+    equal."""
+    import torch_parallel
+
+    gen = torch.Generator().manual_seed(13)
+    fn = FusionNetModel(**FUSIONNET_TINY, device='cpu', trainable=True)
+    rn_config = RADARNET_TINY
+    rn = RadarNetModel(**rn_config, device='cpu', trainable=True)
+    init_parameters(fn, gen)
+    init_parameters(rn, gen)
+    image = rng.integers(0, 256, (4, 64, 96, 3)).astype(np.float64)
+    maps = [rng.random((4, 64, 96, 1)) * 60 for _ in range(4)]
+    k, ph, pw, w = 3, 32, 32, 48
+    x = rng.integers(0, w, (2, k)).astype(np.float64) + 0.25
+    points = np.stack([x + pw // 2, rng.random((2, k)) * ph,
+                       rng.random((2, k)) * 60 + 5], -1)
+    boxes = np.stack([x, np.zeros_like(x), x + pw, np.full_like(x, ph)], -1)
+    gt = points[..., 2, None, None, None] + rng.uniform(
+        -0.8, 0.8, (2, k, ph, pw, 1))
+    tkw = dict(normalized_image_range=[0, 1])
+    cases = [
+        dict(kind='fusionnet', config=FUSIONNET_TINY,
+             state_dict=fn.state_dict(), transforms=tkw,
+             step=dict(loss_func='l1', w_smoothness=0.0, w_lidar_loss=2.0,
+                       loss_smoothness_kernel_size=-1,
+                       outlier_kernel_size=7, outlier_threshold=1.5,
+                       dilation_kernel_size=-1),
+             batch=(image, *maps), lr=1e-3, draws={}),
+        dict(kind='radarnet', config=rn_config, state_dict=rn.state_dict(),
+             transforms=tkw, step=dict(patch_size=(ph, pw),
+                                       max_distance_correspondence=0.4,
+                                       set_invalid_to_negative_class=False,
+                                       w_positive_class=2.0),
+             batch=(rng.integers(0, 256, (2, ph, w + pw, 3)).astype(
+                 np.float64), points, boxes, gt), lr=1e-3, draws={})]
+    from rcfd_tpu_torch import parallel
+    card = parallel.run_ranks(torch_parallel.step_cases, (cases,), 2,
+                              cuda_device, shared_device=True)
+    cpu = parallel.run_ranks(torch_parallel.step_cases, (cases,), 2, 'cpu')
+    for c, (g0, g1, c0) in enumerate(zip(card[0], card[1], cpu[0])):
+        for key in ('grads', 'params'):
+            for n, v in c0[key].items():
+                np.testing.assert_array_equal(g0[key][n], g1[key][n])
+                assert np.abs(g0[key][n] - v).max() <= 1e-9 * max(
+                    np.abs(v).max(), 1e-300), (c, key, n)
+        for n, v in c0['buffers'].items():
+            np.testing.assert_allclose(g0['buffers'][n], v, rtol=1e-9,
+                                       atol=1e-12, err_msg=n)
+        for n, v in c0['info'].items():
+            assert abs(g0['info'][n] - v) <= 1e-9 * max(abs(v), 1e-300), n

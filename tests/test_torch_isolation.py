@@ -56,7 +56,9 @@ def test_port_sources_include_the_measurement_tool():
                  'rcfd_tpu_torch/save_depth_radar.py',
                  'rcfd_tpu_torch/save_stage_1_depth.py',
                  'rcfd_tpu_torch/eval_stage_1_depth.py',
-                 'rcfd_tpu_torch/ops/roi_pool.py'):
+                 'rcfd_tpu_torch/ops/roi_pool.py',
+                 'rcfd_tpu_torch/parallel/__init__.py',
+                 'rcfd_tpu_torch/parallel/mesh.py'):
         assert path in paths
 
 

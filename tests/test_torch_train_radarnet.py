@@ -852,7 +852,8 @@ def test_cli_needs_a_card_unless_asked_for_cpu(data, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize('flags,env,match', [
     (['--device', 'tpu'], None, 'tpu'),
-    (['--device', 'cpu', '--n_data_parallel', '2'], None, 'n_data_parallel'),
+    # a global batch (2) that the ranks (3) do not divide, as JAX asserts
+    (['--device', 'cpu', '--n_data_parallel', '3'], None, 'n_data_parallel'),
     (['--device', 'cpu'], 'float16', 'RCFD_TRAIN_DTYPE'),
 ])
 def test_cli_refuses_what_is_not_ported(data, tmp_path, monkeypatch, flags,
