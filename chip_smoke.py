@@ -165,6 +165,17 @@ Phases, each printed as it starts and ends:
              once, as in cli: launches, frames/s, the read / serve / write
              split and peak memory; then 1 frame on the card and on the
              CPU under RCFD_PALLAS_SCATTER=0
+  tools      the JAX package's tools as the port runs them
+             (rcfd_tpu_torch.tools): (a) convert_checkpoint.main on the
+             card, .pth -> .npz -> .pth of the run phase's RadarNet and of
+             the train phase's FusionNet (model-15.pth, with its Adam
+             state), each result restored on the card and its state_dict
+             equal to the original's bit for bit, and FusionNet's .pth ->
+             .pth, its Adam state equal to the file's; (b)
+             bridgebench.run_bridge on the run phase's 8 frames and
+             RadarNet, one batch of 8, after one warm-up pass: prefetch,
+             sync and codec, their files byte for byte equal, K1 once a
+             pass (counted), frames/s
   configs    FusionNet in the configurations the port took last, at
              bash/train_fusionnet_nuscenes.sh's widths on the train
              phase's files, 5 steps each: a --n_resolutions_decoder 3, b
@@ -3036,7 +3047,8 @@ def phase_train(device, rn, tmp):
     train_overfit(device)
     torch.cuda.empty_cache()
     return dict(manifests=manifests, step_ms=step_ms, wait_ms=wait_ms,
-                samples_per_s=16e3 / per_step, peak=peak)
+                samples_per_s=16e3 / per_step, peak=peak,
+                checkpoint=os.path.join(ckpt, 'model-15.pth'))
 
 
 # phase train_radarnet: bash/train_radarnet_nuscenes.sh's flags on
@@ -4685,6 +4697,145 @@ def bridge_card_vs_cpu(device, paths, checkpoint, tmp):
             n_excused, n_excused / covered, n_saturated,
             n_saturated / covered, FOLD_TOL,
             ', '.join('{:.3g}'.format(e) for e in crop_err), tol))
+
+
+# -- the JAX package's tools as the port runs them -----------------------------
+
+def same_tree(a, b):
+    """Two loaded checkpoint trees equal: the same keys, tensors of the
+    same dtype, shape and values, other values equal."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a, key=str) == sorted(
+            b, key=str) and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype and \
+            a.shape == b.shape and torch.equal(a, b)
+    return type(a) is type(b) and a == b
+
+
+def tools_convert(device, checkpoints, tmp):
+    """convert_checkpoint.main on the card (the canonical widths are its
+    defaults): each .pth -> .npz -> .pth, restored on the card, its
+    state_dict equal to the original file's bit for bit and the step
+    carried (the .npz drops the optimizer state); a .pth with an Adam
+    state -> .pth carries it unchanged."""
+    import contextlib
+    import io as stdio
+
+    from rcfd_tpu_torch.models import fusionnet, radarnet
+    from rcfd_tpu_torch.tools import convert_checkpoint
+    from rcfd_tpu_torch.utils.checkpoint import load_checkpoint_file
+
+    models = {'radarnet': (radarnet.PTH_KEYS, radarnet.OPTIMIZER_KEY,
+                           RADARNET, radarnet.RadarNetModel),
+              'fusionnet': (fusionnet.PTH_KEYS, 'optimizer_state_dict',
+                            FUSIONNET, fusionnet.FusionNetModel)}
+    for name, path in checkpoints.items():
+        keys, opt_key, config, cls = models[name]
+        want, step, opt = load_checkpoint_file(path, keys, opt_key)
+        chain = [path] + [os.path.join(tmp, 'tools_{}.{}'.format(name, ext))
+                          for ext in ('npz', 'pth')]
+        if opt:
+            chain += [os.path.join(tmp, 'tools_{}_adam.pth'.format(name))]
+        seconds = []
+        for src, dst in zip(chain, chain[1:]):
+            if dst.endswith('_adam.pth'):
+                src = path
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(stdio.StringIO()) as out:
+                got_step = convert_checkpoint.main(
+                    ['--model', name, '--input', src, '--output', dst],
+                    device=device)
+            seconds.append(time.perf_counter() - t0)
+            check(got_step == step and out.getvalue() ==
+                  'converted {} -> {} (step {})\n'.format(src, dst, step),
+                  'tools {}: {} -> {}: step {}, printed {!r}'.format(
+                      name, src, dst, got_step, out.getvalue()))
+        model = cls(**config, device='cpu')
+        check(model.restore_checkpoint(chain[2], device=device) == step,
+              'tools {}: the round trip lost the step'.format(name))
+        got = model.state_dict()
+        check(sorted(got) == sorted(want) and all(
+            got[k].dtype == want[k].dtype and torch.equal(got[k].cpu(),
+                                                          want[k])
+            for k in want), 'tools {}: .pth -> .npz -> .pth restores other '
+            'weights than the original\'s'.format(name))
+        final = torch.load(chain[2], map_location='cpu', weights_only=True)
+        check(not final[opt_key], 'tools {}: the .npz carried an optimizer '
+              'state'.format(name))
+        carried = ''
+        if opt:
+            a, b = (torch.load(p, map_location='cpu', weights_only=True)
+                    for p in (path, chain[3]))
+            check(same_tree(a[opt_key], b[opt_key]), 'tools {}: .pth -> '
+                  '.pth changed the Adam state'.format(name))
+            carried = ('; .pth -> .pth carries the Adam state ({} entries) '
+                       'unchanged in {:.3f} s'.format(
+                           len(a[opt_key]['state']), seconds[-1]))
+        log('tools convert {}: {} -> .npz {:.3f} s -> .pth {:.3f} s on the '
+            'card, restored: {} tensors equal the original\'s bit for bit, '
+            'step {}{}'.format(name, os.path.basename(path), seconds[0],
+                               seconds[1], len(want), step, carried))
+
+
+def tools_bridgebench(device, record, paths, checkpoint, tmp):
+    """bridgebench.run_bridge on the run phase's CLI_FRAMES frames and
+    RadarNet (the bridge's: unfolded, float32), one batch of CLI_FRAMES,
+    after a warm-up pass: prefetch, sync and codec, every launch count set
+    to 0 before the three passes and read after (K1 once a pass), the
+    files of the three modes byte for byte equal. Prints frames/s."""
+    from rcfd_tpu_torch import radarnet_main
+    from rcfd_tpu_torch.data.datasets import RadarNetInferenceDataset
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.tools import bridgebench
+
+    dataset = RadarNetInferenceDataset(paths['image'], paths['radar'],
+                                       max_points=None, device=device)
+    model = bridge_model(checkpoint, device)
+    forwards = {codec: radarnet_main.make_forward_fn_batched(
+        model, Transforms(normalized_image_range=[0, 1]), H, W,
+        codec_encode=codec) for codec in (False, True)}
+    warm, _, _ = bridgebench.run_bridge(
+        'prefetch', forwards[False], dataset, os.path.join(
+            tmp, 'tools_warm'), CLI_FRAMES, device)
+    outs, rates = {}, {}
+    reset_launches()
+    for mode in bridgebench.MODES:
+        dt, n, outs[mode] = bridgebench.run_bridge(
+            mode, forwards[mode == 'codec'], dataset,
+            os.path.join(tmp, 'tools_' + mode), CLI_FRAMES, device)
+        rates[mode] = n / dt
+    launches = read_launches()
+    want = {'scatter_quasi_dense': len(bridgebench.MODES)}
+    check(all(n == want.get(k, 0) for k, n in launches.items()),
+          'tools bridgebench: launches {} (expected {})'.format(launches,
+                                                                want))
+    count_launches(record, 'tools bridgebench', launches, list(want))
+    same = [same_bytes(a.replace('depth_', kind), b.replace('depth_', kind))
+            for mode in ('sync', 'codec')
+            for a, b in zip(outs['prefetch'], outs[mode])
+            for kind in ('depth_', 'resp_')]
+    check(all(same), 'tools bridgebench: {} of {} files of sync and codec '
+          'differ from prefetch\'s'.format(same.count(False), len(same)))
+    log('tools bridgebench: {} frames of 900x1600, K = {}, one batch, after '
+        'a warm-up pass of {:.3f} s: frames/s {}; sync\'s and codec\'s {} '
+        'files equal prefetch\'s byte for byte; launches {}; {}'.format(
+            CLI_FRAMES, dataset.max_points, warm,
+            ', '.join('{} {:.3f}'.format(m, r) for m, r in rates.items()),
+            len(same), {k: v for k, v in launches.items() if v},
+            gpu_name_and_power()))
+
+
+def phase_tools(device, record, paths, rn_checkpoint, fn_checkpoint, tmp):
+    """The JAX package's tools as the port runs them: the converter's
+    round trips (tools_convert), then the bridge harness
+    (tools_bridgebench)."""
+    tools_convert(device, {'radarnet': rn_checkpoint,
+                           'fusionnet': fn_checkpoint}, tmp)
+    tools_bridgebench(device, record, paths, rn_checkpoint, tmp)
 
 
 # -- the model configurations the port took last --------------------------------
@@ -6956,6 +7107,10 @@ def main():
             torch.cuda.empty_cache()
             with Phase('bridge'):
                 phase_bridge(device, record, paths, rn_checkpoint, tmp)
+            torch.cuda.empty_cache()
+            with Phase('tools'):
+                phase_tools(device, record, paths, rn_checkpoint,
+                            fusionnet_f32['checkpoint'], tmp)
             torch.cuda.empty_cache()
             with Phase('configs'):
                 phase_configs(device, fusionnet_f32, fn_inputs, tmp)

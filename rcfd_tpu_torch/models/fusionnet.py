@@ -180,14 +180,16 @@ class FusionNetModel(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     def save_checkpoint(self, path: str, step: int,
-                        optimizer_state_dict: Optional[dict] = None):
+                        optimizer_state_dict: Optional[dict] = None,
+                        jax_counts: bool = False):
         """Write the reference ``.pth`` (``train_step``,
         ``optimizer_state_dict``, ``encoder_state_dict``,
         ``decoder_state_dict``) or, for a path ending ``.npz``, the JAX
         package's native format; either restores in the JAX package's
         ``FusionNetModel.restore_checkpoint``."""
         save_checkpoint(self, path, PTH_KEYS, step, optimizer_state_dict,
-                        model_name='fusionnet')
+                        model_name='fusionnet',
+                        jax_counts=jax_counts)
 
     def restore_checkpoint(self, path: str, device=None,
                            return_optimizer_state: bool = False):

@@ -164,18 +164,25 @@ def optimizer_state_to_file(module, state_dict: dict) -> dict:
     indices) in the file's order, every entry at the common step (JAX keeps
     one count), with zero moments for the parameters torch kept no state
     for and the common step for those whose state it stopped updating
-    (they never had a gradient; JAX keeps zeros for them)."""
+    (they never had a gradient; JAX keeps zeros for them). An entry at the
+    common step is kept as it is, so a state read from a file (JAX writes
+    its step as a Python int) is written back unchanged; the others take a
+    copy of the common step's value, of its type."""
     state = state_dict.get('state') or {}
     if not state:
         return state_dict
     params = list(module.parameters())
-    step = max(float(s['step']) for s in state.values())
+    common = max((s['step'] for s in state.values()), key=float)
     out = {}
     for j, i in enumerate(_file_order(module)):
         zeros = torch.zeros_like(params[i])
         entry = state.get(i) or {'exp_avg': zeros,
                                  'exp_avg_sq': zeros.clone()}
-        out[j] = dict(entry, step=torch.tensor(step))
+        if 'step' not in entry or float(entry['step']) != float(common):
+            # a tensor of its own: Adam steps each parameter's in place
+            entry = dict(entry, step=common.clone() if isinstance(
+                common, torch.Tensor) else common)
+        out[j] = entry
     return dict(state_dict, state=out)
 
 
@@ -226,7 +233,8 @@ def _to_jax_layout(key: str, arr: np.ndarray) -> np.ndarray:
 def save_checkpoint(module, path: str, pth_keys: Mapping[str, str],
                     step: int, optimizer_state_dict: Optional[dict] = None,
                     model_name: str = '',
-                    optimizer_key: str = 'optimizer_state_dict'):
+                    optimizer_key: str = 'optimizer_state_dict',
+                    jax_counts: bool = False):
     """Write ``module``'s weights as the JAX package's ``save_checkpoint``
     does: a path ending ``.npz`` gets the native format (``params/<key>``
     and ``state/<key>`` in JAX layout, ``__manifest__`` with the train step
@@ -235,7 +243,10 @@ def save_checkpoint(module, path: str, pth_keys: Mapping[str, str],
     (the torch.optim.Adam state_dict of ``module.parameters()``, written in
     the file's order by ``optimizer_state_to_file``, or {}) and the
     submodules' state_dicts under ``pth_keys``. Tensors are written from
-    the CPU."""
+    the CPU. With ``jax_counts`` a ``.pth`` holds each batch norm's
+    ``num_batches_tracked`` as the JAX package writes it, an int32 of shape
+    (1,) (torch keeps an int64 scalar; both restore in either package and
+    in the reference)."""
     path = str(path)
     if path.endswith('.npz'):
         buffers = dict(module.named_buffers())
@@ -274,6 +285,10 @@ def save_checkpoint(module, path: str, pth_keys: Mapping[str, str],
                   optimizer_key: cpu(optimizer_state_dict or {})}
     for part, key in pth_keys.items():
         checkpoint[key] = cpu(getattr(module, part).state_dict())
+        if jax_counts:
+            for name, value in checkpoint[key].items():
+                if name.endswith('num_batches_tracked'):
+                    checkpoint[key][name] = value.to(torch.int32).reshape(1)
     torch.save(checkpoint, path)
 
 

@@ -1412,3 +1412,120 @@ def test_data_parallel_step_on_card_matches_cpu(cuda_device, rng):
                                        atol=1e-12, err_msg=n)
         for n, v in c0['info'].items():
             assert abs(g0['info'][n] - v) <= 1e-9 * max(abs(v), 1e-300), n
+
+
+# the JAX bridge harness test's flags (tests/test_bridgebench.py)
+BRIDGEBENCH_ARGV = ['--height', '64', '--width', '96', '--patch', '64', '32',
+                    '--n_frames', '6', '--n_points', '8',
+                    '--eval_batch_size', '4', '--check_only']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_bridgebench_check_only_on_card(cuda_device, dtype):
+    """The bridge harness's --check_only on the card: its three modes agree
+    (prefetch == sync depth, codec == prefetch files, exact), and every
+    forward launches the scatter kernel K1 (the dtype's instance) once: two
+    warm-ups and two batches a pass in three passes."""
+    from rcfd_tpu_torch.tools import bridgebench
+
+    attr = 'launches_bf16' if dtype == 'bfloat16' else 'launches'
+    other = 'launches' if dtype == 'bfloat16' else 'launches_bf16'
+    sc.scatter_quasi_dense.launches = sc.scatter_quasi_dense.launches_bf16 = 0
+    row = bridgebench.main(BRIDGEBENCH_ARGV + ['--dtype', dtype],
+                           device=cuda_device)
+    assert getattr(sc.scatter_quasi_dense, attr) == 2 + 3 * 2
+    assert getattr(sc.scatter_quasi_dense, other) == 0
+    assert row['backend'] == 'cuda' and row['device'] != 'cpu'
+    assert all(row['results'][m]['frames_per_s'] > 0
+               for m in ('prefetch', 'sync', 'codec'))
+
+
+@pytest.mark.cuda
+def test_parity_protocol_two_stage_card_against_cpu(cuda_device, tmp_path):
+    """--synthetic --two_stage at tiny widths on the card (stage 1 through
+    K1) and on the CPU (the exact max), the same drawn checkpoints and
+    frames: with the CPU's metrics as the reference column, every section
+    says PARITY PASS under the tool's own tolerances (10 mm / 0.05 1/km
+    plus 1e-3 relative, 5e-3 relative on stage 1)."""
+    from rcfd_tpu_torch.tools import parity_protocol as pp
+
+    out = {}
+    for side, device in (('card', cuda_device), ('cpu', 'cpu')):
+        before = sc.scatter_quasi_dense.launches
+        out[side] = pp.main(['--synthetic', '--two_stage', '--output_dirpath',
+                             str(tmp_path / side), '--eval_batch_size', '2'],
+                            device=device)[1]
+        assert (sc.scatter_quasi_dense.launches > before) == (side == 'card')
+    for section, tol_rel in (('stage1', 5e-3), ('stage2', 1e-3),
+                             ('fused', 1e-3)):
+        table, verdict = pp.format_table(out['cpu'][section],
+                                         out['card'][section], 10.0, 0.05,
+                                         tol_rel)
+        assert verdict == 'PARITY PASS', (section, table)
+
+
+@pytest.mark.cuda
+def test_convert_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A FusionNet .pth with an Adam state, converted on the card to .npz
+    and back to .pth: the weights restore bit for bit, on the card and on
+    the CPU; the step is carried; the .npz holds no optimizer state, so the
+    final .pth's is empty."""
+    from rcfd_tpu_torch.tools import convert_checkpoint
+
+    model = FusionNetModel(**FUSIONNET_TINY, device='cpu', trainable=True)
+    init_parameters(model, torch.Generator().manual_seed(3))
+    optimizer = torch.optim.Adam(model.parameters(), lr=1e-3)
+    model(torch.rand(1, 3, 64, 96), torch.rand(1, 2, 64, 96))[0].mean() \
+        .backward()
+    optimizer.step()
+    paths = [str(tmp_path / name) for name in ('a.pth', 'b.npz', 'c.pth')]
+    model.save_checkpoint(paths[0], 11, optimizer.state_dict())
+    flags = ['--n_filters_encoder_image', '4', '8', '8', '8', '8', '8',
+             '--n_filters_encoder_depth', '4', '4', '8', '8', '8', '8',
+             '--n_filters_decoder', '8', '8', '8', '8', '8', '8']
+    for src, dst in zip(paths, paths[1:]):
+        assert convert_checkpoint.main(
+            ['--model', 'fusionnet', '--input', src, '--output', dst] + flags,
+            device=cuda_device) == 11
+    assert not torch.load(paths[2], weights_only=True)['optimizer_state_dict']
+    for device in (cuda_device, 'cpu'):
+        got = FusionNetModel(**FUSIONNET_TINY, device='cpu')
+        assert got.restore_checkpoint(paths[2], device=device) == 11
+        for k, v in model.state_dict().items():
+            assert torch.equal(got.state_dict()[k].cpu(), v), k
+
+
+@pytest.mark.cuda
+def test_point_mlp_features_depend_on_the_row_count_on_card(cuda_device,
+                                                            rng):
+    """The open fault of ROADMAP.md §3: on the card, RadarNet's point MLP
+    (FullyConnectedEncoder: one matmul a layer over the B * K rows of a
+    batch) gives the same points other last bits in a batch of 512 rows
+    than in one of 256, because cuBLAS chooses its kernel by the row count
+    (cudnn.deterministic does not reach it). So the _test bridge (K = 128)
+    and the main script (K = 64) write other files at ties. At the
+    canonical widths, 240 points in 256 and in 512 rows under the serving
+    numerics: on the card the features differ (the fault shows), each by
+    at most 1e-5 of the largest (rounding, not a wrong result); on the CPU
+    they are equal bit for bit. When the fault is repaired the card's
+    features are equal too, and this test says so by failing."""
+    from rcfd_tpu_torch.models.networks import FullyConnectedEncoder
+
+    encoder = FullyConnectedEncoder(3, [32, 64, 128, 128, 128],
+                                    128 * 28 * 9).eval()
+    init_parameters(encoder, torch.Generator().manual_seed(0))
+    points = torch.from_numpy(np.stack([
+        rng.uniform(0, 1888, 240), rng.uniform(0, 900, 240),
+        rng.uniform(1, 80, 240)], 1).astype(np.float32))
+    features = {}
+    for device in (cuda_device, torch.device('cpu')):
+        encoder.to(device)
+        with torch.inference_mode(), pipeline.serving_numerics():
+            features[device.type] = [encoder(torch.cat([
+                points, torch.zeros(rows - 240, 3)]).to(device))[:240].cpu()
+                for rows in (256, 512)]
+    a, b = features['cuda']
+    assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+    assert not torch.equal(a, b)
+    assert torch.equal(*features['cpu'])

@@ -58,7 +58,12 @@ def test_port_sources_include_the_measurement_tool():
                  'rcfd_tpu_torch/eval_stage_1_depth.py',
                  'rcfd_tpu_torch/ops/roi_pool.py',
                  'rcfd_tpu_torch/parallel/__init__.py',
-                 'rcfd_tpu_torch/parallel/mesh.py'):
+                 'rcfd_tpu_torch/parallel/mesh.py',
+                 'rcfd_tpu_torch/tools/fixtures.py',
+                 'rcfd_tpu_torch/tools/convert_checkpoint.py',
+                 'rcfd_tpu_torch/tools/bridgebench.py',
+                 'rcfd_tpu_torch/tools/parity_protocol.py',
+                 'rcfd_tpu_torch/tools/tools_exp.py'):
         assert path in paths
 
 
