@@ -234,6 +234,21 @@ Phases, each printed as it starts and ends:
              0 only, restored; (e) a one-rank NCCL
              group on cuda:0, the wrapped step equal to the unwrapped step
              bit for bit
+  gspmd      the 2-D (data x spatial) mesh of FusionNet training
+             (rcfd_tpu_torch.parallel.gspmd) on 8 gloo ranks sharing
+             cuda:0 (a check of the sharded step and its overhead, not of
+             how it scales): (c) a float64 step of a narrow FusionNet (4
+             frames of 192x256, the bash flags' augmentation) on a 2 x 4
+             mesh against one process on the CPU, within 1e-9; (a) a 2 x 2
+             and (b) a 1 x 4 mesh of ranks 0-3 (4-7 wait) at
+             bash/train_fusionnet_nuscenes.sh's widths and flags (global
+             batch 16, 448x448, float32, TF32 off; (b)'s 1/64 level of 7
+             rows in shards of 2, 2, 2, 1), 5 steps each, step 1 held to
+             one float64 process's step on the same batch and draws within
+             4 times one float32 process's distance from it (or 1e-3 of a
+             gradient's max-abs): ms a step and peak memory a rank, the rows each
+             rank moved in at each level; every rank ends with the same
+             parameters and launches no kernel
 
 The resumed runs of phases train (FusionNet, float32), train_radarnet
 (RadarNet, float32, resumed at the 900x300 patch so that K2 and its
@@ -6966,6 +6981,383 @@ def phase_parallel(device, record, slice_pipe, rn_checkpoint, manifests,
             gpu_name_and_power()))
 
 
+# phase gspmd: FusionNet's step on a 2-D (data x spatial) mesh of gloo ranks
+# that share cuda:0 (rcfd_tpu_torch.parallel.gspmd; a check of the sharded
+# step and its overhead, not of how it scales). (a) and (b) at
+# bash/train_fusionnet_nuscenes.sh's widths and flags on full-size batches
+# the ranks draw on the card from SEED
+GSPMD_SHAPE = (16, 448, 448)
+GSPMD_STEPS = 5
+GSPMD_MESHES = {'a': (2, 2), 'b': (1, 4)}
+# the training flags of the bash script's step (loss, outlier removal,
+# dilation, augmentation at probability 1)
+GSPMD_TRANSFORMS = dict(
+    normalized_image_range=[0, 1], random_brightness=[0.8, 1.2],
+    random_contrast=[0.8, 1.2], random_saturation=[0.8, 1.2],
+    random_flip_type=['horizontal'])
+GSPMD_STEP = ('l1', 0.0, 2.0, -1, 7, 1.5, -1)
+# (a), (b): step 1 of the mesh in float32 (TF32 off) is held, as one
+# process's float32 step is, to one process's float64 step on the same
+# weights, batch and draws: each gradient within GSPMD_F32_FACTOR times the
+# one float32 process's own distance from float64 (as a share of the
+# gradient's max-abs), or within GSPMD_F32_FLOOR where that is larger; the
+# running statistics likewise; loss_info within GSPMD_F32_LOSS relative.
+# (The mesh sums in another order, its batch norm takes E[x^2] - mean^2 of
+# global sums where torch's float32 one is two-pass, and cuDNN picks its
+# algorithms per shape.)
+GSPMD_F32_FACTOR, GSPMD_F32_FLOOR, GSPMD_F32_LOSS = 4.0, 1e-3, 1e-5
+# (c): a narrow float64 step on a 2 x 4 mesh on the card against one
+# process on the CPU: 4 frames of 192x256, 3 rows at 1/64 (one shard of
+# four owns none)
+GSPMD_NARROW_SHAPE = (4, 192, 256)
+
+
+def gspmd_batch(device, step):
+    """Step ``step``'s global batch of GSPMD_SHAPE in float32, drawn on
+    the card from SEED + step, and its augmentation draws."""
+    from rcfd_tpu_torch.data.transforms import Transforms
+
+    gen = torch.Generator(device).manual_seed(SEED + 100 + step)
+    n, h, w = GSPMD_SHAPE
+
+    def uniform(c, scale, keep):
+        t = torch.rand((n, h, w, c), generator=gen, device=device) * scale
+        return t * (torch.rand((n, h, w, c), generator=gen,
+                               device=device) < keep)
+
+    batch = (torch.randint(0, 256, (n, h, w, 3), generator=gen,
+                           device=device).float(),
+             uniform(1, 60.0, 0.05), uniform(1, 1.0, 0.05),
+             uniform(1, 70.0, 0.5), uniform(1, 70.0, 0.1))
+    draws = Transforms(**GSPMD_TRANSFORMS).draws(
+        torch.Generator().manual_seed(SEED + 200 + step), n, 1.0)
+    return batch, {k: v.to(device) for k, v in draws.items()}
+
+
+def gspmd_model(device):
+    """FusionNet at the bash widths (FUSIONNET) with weights from SEED +
+    100, trainable, its single-process TrainStep."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.models import FusionNetModel
+    from rcfd_tpu_torch.nn import init_parameters
+
+    model = FusionNetModel(**FUSIONNET, device='cpu', trainable=True)
+    init_parameters(model, torch.Generator().manual_seed(SEED + 100))
+    model.to(device)
+    return model, fm.TrainStep(model, Transforms(**GSPMD_TRANSFORMS),
+                               fm.make_optimizer(model, 1e-3, 0.0),
+                               *GSPMD_STEP)
+
+
+def step_results(model, info):
+    """loss_info, gradients and floating buffers, copied to the host (on
+    the CPU ``.cpu()`` is the tensor itself, which later steps change)."""
+    return dict(info={k: float(v) for k, v in info.items()},
+                grads={n: p.grad.cpu().numpy().copy()
+                       for n, p in model.named_parameters()
+                       if p.grad is not None},
+                buffers={n: b.cpu().numpy().copy()
+                         for n, b in model.named_buffers()
+                         if b.is_floating_point()})
+
+
+def gspmd_reference(device):
+    """Step 1 of (a) and (b) in this one process on the whole batch, in
+    float32 and in float64 (the float32 weights and batch cast), cuDNN's
+    algorithms by its heuristics (no autotuning: both are references, and
+    a float64 autotuning pass would take the phase's time): each
+    backward's ``step_results``, and the float32 step's ms."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        model, step = gspmd_model(device)
+        model.to(dtype)
+        batch, draws = gspmd_batch(device, 1)
+        batch = tuple(t.to(dtype) for t in batch)
+        gspmd_sync(device)
+        t0 = time.perf_counter()
+        with fm.training_numerics(), torch.backends.cudnn.flags(
+                enabled=True, benchmark=False, deterministic=False,
+                allow_tf32=False):
+            info = step.backward(batch, draws)
+        gspmd_sync(device)
+        if dtype == torch.float32:
+            ms = (time.perf_counter() - t0) * 1e3
+        out[dtype] = step_results(model, info)
+        del model, step, batch
+        torch.cuda.empty_cache()
+    return out, ms
+
+
+def gspmd_sync(device):
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def gspmd_wide(device, mesh):
+    """GSPMD_STEPS steps of the bash-width FusionNet on ``mesh``: step 1's
+    backward (its results and the rows this rank moved in, by level),
+    then Adam; the later steps whole. Each step's ms (the card
+    synchronized; step 1's without the copy of its results to the host),
+    the losses, the peak memory, every kernel's launches and the sum of
+    the parameters at the end."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch import parallel
+
+    model, single = gspmd_model(device)
+    step = parallel.gspmd_train_step(single, mesh)
+    reset_launches()
+    if device.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(device)
+    out = dict(ms=[], loss=[])
+    for s in range(1, GSPMD_STEPS + 1):
+        batch, draws = gspmd_batch(device, s)
+        local = tuple(t.contiguous()
+                      for t in parallel.shard_batch_2d(mesh, batch))
+        del batch
+        gspmd_sync(device)
+        t0 = time.perf_counter()
+        with fm.training_numerics():
+            if s == 1:
+                mesh.exchanged.clear()
+                info = step.backward(local, draws)
+                gspmd_sync(device)
+                ms = (time.perf_counter() - t0) * 1e3
+                out['step1'] = step_results(model, info)
+                out['exchanged'] = dict(mesh.exchanged)
+                t0 = time.perf_counter()
+                step.update(1e-3)
+            else:
+                ms = 0.0
+                info = step(local, draws, 1e-3)
+        gspmd_sync(device)
+        out['ms'].append(ms + (time.perf_counter() - t0) * 1e3)
+        out['loss'].append(float(info['loss']))
+    out['peak'] = torch.cuda.max_memory_allocated(device) \
+        if device.type == 'cuda' else 0
+    out['launches'] = read_launches()
+    out['params_sum'] = float(sum(p.detach().double().sum()
+                                  for p in model.parameters()))
+    return out
+
+
+def gspmd_narrow_case():
+    """(c): FN_NARROW with weights from SEED + 93, a batch of
+    GSPMD_NARROW_SHAPE in float64 and its draws (the bash flags'
+    augmentation at probability 1), numpy."""
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.models import FusionNetModel
+    from rcfd_tpu_torch.nn import init_parameters
+
+    rng = np.random.default_rng(SEED + 93)
+    model = FusionNetModel(**FN_NARROW, device='cpu', trainable=True)
+    init_parameters(model, torch.Generator().manual_seed(SEED + 93))
+    shape = GSPMD_NARROW_SHAPE[:3]
+    batch = (rng.integers(0, 256, shape + (3,)).astype(np.float64),
+             *[rng.random(shape + (1,)) * 60 for _ in range(4)])
+    draws = Transforms(**GSPMD_TRANSFORMS).draws(
+        torch.Generator().manual_seed(SEED + 93), shape[0], 1.0)
+    return dict(state_dict={k: v.numpy() for k, v in
+                            model.state_dict().items()},
+                batch=batch, draws={k: v.numpy() for k, v in draws.items()})
+
+
+def gspmd_narrow_step(device, case, mesh=None):
+    """(c)'s float64 backward: on ``mesh`` with this rank's block, or in
+    one process on the whole batch; ``step_results``."""
+    from rcfd_tpu_torch import fusionnet_main as fm
+    from rcfd_tpu_torch import parallel
+    from rcfd_tpu_torch.data.transforms import Transforms
+    from rcfd_tpu_torch.models import FusionNetModel
+
+    model = FusionNetModel(**FN_NARROW, device='cpu', trainable=True)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in
+                           case['state_dict'].items()}, strict=True)
+    model = model.to(device, torch.float64)
+    step = fm.TrainStep(model, Transforms(**GSPMD_TRANSFORMS),
+                        fm.make_optimizer(model, 1e-3, 0.0), *GSPMD_STEP)
+    batch = case['batch']
+    if mesh is not None:
+        step = parallel.gspmd_train_step(step, mesh)
+        batch = parallel.shard_batch_2d(mesh, batch)
+    batch = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in batch)
+    draws = {k: torch.from_numpy(v).to(device)
+             for k, v in case['draws'].items()}
+    with fm.training_numerics():
+        info = step.backward(batch, draws)
+    return step_results(model, info)
+
+
+def gspmd_rank(device, narrow):
+    """One of 8 ranks sharing the card: (c) on the 2 x 4 mesh of all 8,
+    then (a) and (b) on meshes of ranks 0-3 while 4-7 wait."""
+    import torch.distributed as dist
+
+    from rcfd_tpu_torch import parallel
+
+    out = {'c': gspmd_narrow_step(device, narrow,
+                                  parallel.get_mesh_2d(2, 4))}
+    for name, shape in GSPMD_MESHES.items():
+        mesh = parallel.get_mesh_2d(*shape, ranks=range(4))
+        if mesh is not None:
+            out[name] = gspmd_wide(device, mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def gspmd_distance(got, ref):
+    """How far ``got``'s step results lie from ``ref``'s: loss_info
+    relative, each gradient and floating buffer as a share of its
+    max-abs."""
+    def share(a, b):
+        return float(np.abs(a - b).max() / max(float(np.abs(b).max()),
+                                               1e-30))
+
+    return dict(info={k: abs(got['info'][k] - v) / max(abs(v), 1e-30)
+                      for k, v in ref['info'].items()},
+                grads={n: share(got['grads'][n], v)
+                       for n, v in ref['grads'].items()},
+                buffers={n: share(got['buffers'][n], v)
+                         for n, v in ref['buffers'].items()})
+
+
+def gspmd_close(name, got, ref, tol):
+    """loss_info, every gradient and every floating buffer of ``got``
+    within ``tol`` of ``ref``'s (``gspmd_distance``). Returns the largest
+    gradient distance."""
+    check(sorted(got['grads']) == sorted(ref['grads']),
+          'gspmd {}: other parameters have gradients'.format(name))
+    d = gspmd_distance(got, ref)
+    for part in ('info', 'grads', 'buffers'):
+        for n, err in d[part].items():
+            check(err <= tol, 'gspmd {}: {} {} {:.3g} off (tolerance '
+                  '{:g})'.format(name, part, n, err, tol))
+    return max(d['grads'].values())
+
+
+def gspmd_f32_check(name, got, single, exact):
+    """(a), (b): ``got`` (the mesh's float32 step 1) against ``exact`` (one
+    process in float64) beside ``single`` (one process in float32), by the
+    rule at GSPMD_F32_FACTOR. Returns (the mesh's and the one process's
+    largest gradient distances from float64, the mesh's from float32)."""
+    check(sorted(got['grads']) == sorted(exact['grads']),
+          'gspmd {}: other parameters have gradients'.format(name))
+    mesh, one = gspmd_distance(got, exact), gspmd_distance(single, exact)
+    for k, err in mesh['info'].items():
+        check(err <= GSPMD_F32_LOSS, 'gspmd {}: {} {:.3g} off float64'
+              .format(name, k, err))
+    for part in ('grads', 'buffers'):
+        for n, err in mesh[part].items():
+            bound = max(GSPMD_F32_FACTOR * one[part][n], GSPMD_F32_FLOOR)
+            check(err <= bound, 'gspmd {}: {} {} {:.3g} of its max-abs off '
+                  'float64, one float32 process {:.3g}'.format(
+                      name, part, n, err, one[part][n]))
+    return (max(mesh['grads'].values()), max(one['grads'].values()),
+            max(gspmd_distance(got, single)['grads'].values()))
+
+
+def phase_gspmd(device):
+    """The 2-D (data x spatial) mesh on the one card: 8 gloo ranks share
+    cuda:0 (NCCL refuses two ranks on one GPU). (c) a narrow float64 step
+    on a 2 x 4 mesh against one process on the CPU, within
+    PAR_FLOAT64_TOL; (a) 2 x 2 and (b) 1 x 4 meshes of FusionNet at
+    bash/train_fusionnet_nuscenes.sh's widths and flags (global batch 16,
+    448x448; (b)'s 1/64 level of 7 rows is shards of 2, 2, 2, 1), 5 steps
+    each, step 1 held to this process's float64 step on the same batch
+    and draws by GSPMD_F32_FACTOR's rule: ms a step, peak memory a rank,
+    the rows each rank moved in at each level. Every rank of a mesh ends
+    with the same parameters; no kernel launches (FusionNet's step has
+    none)."""
+    from rcfd_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    seconds = {}
+    narrow = gspmd_narrow_case()
+    cpu = gspmd_narrow_step(torch.device('cpu'), narrow)
+    ref, ref_ms = gspmd_reference(device)
+    seconds['references'] = time.perf_counter() - t0
+    ranks = parallel.run_ranks(gspmd_rank, (narrow,), 8, device,
+                               shared_device=True)
+    seconds['ranks'] = time.perf_counter() - t0 - seconds['references']
+    worst = 0.0
+    for r in range(8):
+        got = ranks[r]['c']
+        check(all(np.array_equal(got['grads'][n], v)
+                  for n, v in ranks[0]['c']['grads'].items()),
+              'gspmd (c): rank {} holds other gradients'.format(r))
+        worst = max(worst, gspmd_close('(c) rank {}'.format(r), got, cpu,
+                                       PAR_FLOAT64_TOL))
+    log('gspmd (c): a float64 step of a narrow FusionNet (4 frames of '
+        '192x256, the bash flags\' augmentation at probability 1, outlier '
+        'removal) on a 2 x 4 mesh of 8 gloo ranks sharing the card against '
+        'one process on the CPU: loss_info, gradients and running '
+        'statistics at most {:.3g} of their max-abs apart (tolerance {:g}); '
+        'loss {:.6f}'.format(worst, PAR_FLOAT64_TOL,
+                              ranks[0]['c']['info']['loss']))
+    single, exact = ref[torch.float32], ref[torch.float64]
+    for name, shape in GSPMD_MESHES.items():
+        runs = [ranks[r][name] for r in range(4)]
+        ms = [float(np.median(run['ms'][1:])) for run in runs]
+        log('gspmd ({}): FusionNet at the bash widths and flags (global '
+            'batch 16, 448x448, float32, TF32 off) on a {} x {} (data x '
+            'spatial) mesh of 4 gloo ranks sharing cuda:0 (correctness and '
+            'overhead, not scaling): ms a step, median of steps 2-{}, by '
+            'rank: {}; step 1 ms {} (with cuDNN\'s autotuning; one process '
+            '{:.2f} without it); peak memory by rank {} bytes; losses {} (one '
+            'process\'s step 1 {:.6f}, float64 {:.6f})'.format(
+                name, *shape, GSPMD_STEPS,
+                ', '.join('{:.2f}'.format(v) for v in ms),
+                ', '.join('{:.2f}'.format(run['ms'][0]) for run in runs),
+                ref_ms, [run['peak'] for run in runs],
+                ', '.join('{:.6f}'.format(v) for v in runs[0]['loss']),
+                single['info']['loss'], exact['info']['loss']))
+        for r, run in enumerate(runs):
+            log('gspmd ({}) rank {}: rows moved in at step 1 by level '
+                '(height: rows from other ranks, rows the all_gathers '
+                'moved with padding): {}'.format(name, r, ', '.join(
+                    '{}: {}, {}'.format(h, *v)
+                    for h, v in sorted(run['exchanged'].items(),
+                                       reverse=True))))
+        got = gspmd_distance(runs[0]['step1'], exact)
+        one = gspmd_distance(single, exact)
+        top = sorted(got['grads'], key=lambda n: -got['grads'][n])[:4]
+        log('gspmd ({}): step 1 (rank 0; every rank holds the same '
+            'gradients) from one float64 process: loss {:.3g} (one float32 '
+            'process {:.3g}); largest gradient distances (share of '
+            'max-abs) {}'.format(
+                name, got['info']['loss'], one['info']['loss'],
+                ', '.join('{} {:.3g} (one float32 process {:.3g})'.format(
+                    n, got['grads'][n], one['grads'][n]) for n in top)))
+        errs = [gspmd_f32_check('({}) rank {}'.format(name, r),
+                                run['step1'], single, exact)
+                for r, run in enumerate(runs)]
+        check(len({run['params_sum'] for run in runs}) == 1 and
+              all(run['loss'] == runs[0]['loss'] for run in runs) and
+              all(math.isfinite(v) for v in runs[0]['loss']),
+              'gspmd ({}): the ranks\' parameters or losses differ: {}'
+              .format(name, [(run['params_sum'], run['loss'])
+                             for run in runs]))
+        check(not any(v for run in runs for v in run['launches'].values()),
+              'gspmd ({}): a kernel launched'.format(name))
+        log('gspmd ({}): step 1 against one process in float64: gradients '
+            'at most {:.3g} of their max-abs off (one float32 process '
+            '{:.3g}; the mesh from that process {:.3g}); rule: within {:g} '
+            'times the float32 process\'s distance or {:g}; every rank '
+            'the same parameters after {} steps; no kernel launched'.format(
+                name, max(e[0] for e in errs), errs[0][1],
+                max(e[2] for e in errs), GSPMD_F32_FACTOR, GSPMD_F32_FLOOR,
+                GSPMD_STEPS))
+    seconds['all'] = time.perf_counter() - t0
+    log('gspmd: seconds {}; one card shows correctness and overhead, never '
+        'scaling; {}'.format(', '.join('{} {:.2f}'.format(k, v)
+                                       for k, v in seconds.items()),
+                             gpu_name_and_power()))
+
+
 def native_codes(maps):
     """The 16-bit codes the float writers make of (dense, quasi,
     response)."""
@@ -7122,6 +7514,9 @@ def main():
                 phase_parallel(device, record, slice_pipe, rn_checkpoint,
                                {'fusionnet': fusionnet_f32['manifests'],
                                 'radarnet': radarnet_f32['manifests']}, tmp)
+    torch.cuda.empty_cache()
+    with Phase('gspmd'):
+        phase_gspmd(device)
 
     kernels = list(record.values())
     check(all(k['launches'] for k in kernels),

@@ -170,8 +170,22 @@ class FusionNetEncoder(nn.Module):
         return layers[-1], layers[:-1]
 
 
+# the point MLP's row tile: every product of FullyConnectedEncoder has this
+# many rows, whatever the batch's row count (B x K)
+MLP_TILE_ROWS = 256
+
+
 class FullyConnectedEncoder(nn.Module):
-    """MLP point encoder (src/networks.py:1007-1067)."""
+    """MLP point encoder (src/networks.py:1007-1067).
+
+    ``forward`` runs the MLP over tiles of MLP_TILE_ROWS rows, the last
+    padded with zero rows that are dropped at the end, one tile after
+    another: each product has the same shape at any row count, and each
+    tile starts at a multiple of 256 rows, 16-byte aligned. cuBLAS picks
+    its kernel by a product's shape (and its operands' alignment), so one
+    product over all B x K rows gave the same points other last bits on the
+    card at another row count (the bridge's K = 128 against the main
+    script's K = 64). A point's features now depend on the point alone."""
 
     def __init__(self, input_channels: int = 3,
                  n_neurons: List[int] = (32, 64, 96, 128, 256),
@@ -186,7 +200,12 @@ class FullyConnectedEncoder(nn.Module):
             for i in range(len(dims) - 1)])
 
     def forward(self, x):
-        return self.mlp(x)
+        n, t = x.shape[0], MLP_TILE_ROWS
+        padded = max(-(-n // t), 1) * t
+        if padded != n:
+            x = torch.cat([x, x.new_zeros(padded - n, x.shape[1])])
+        return torch.cat([self.mlp(x[i:i + t])
+                          for i in range(0, padded, t)])[:n]
 
 
 class RadarNetV1Encoder(nn.Module):

@@ -237,8 +237,14 @@ def run_ranks(fn, args, world: int, device, shared_device: bool = False,
     backend = 'nccl' if device.type == 'cuda' and not shared_device \
         else 'gloo'
     with tempfile.TemporaryDirectory(prefix='rcfd-ranks-') as out:
-        spec = (fn, args, str(device), shared_device, backend, address,
-                world, first, out, torch.get_num_threads())
+        # fn and args go to the ranks in a file: spawn writes a process's
+        # arguments into a pipe that the child reads once its interpreter
+        # is up, so arguments larger than the pipe's buffer would start
+        # the ranks one after another
+        with open(os.path.join(out, 'call.pkl'), 'wb') as f:
+            pickle.dump((fn, args), f)
+        spec = (str(device), shared_device, backend, address, world, first,
+                out, torch.get_num_threads())
         if n_local == 1:
             _rank_entry(0, *spec)
         else:
@@ -265,10 +271,12 @@ def run_ranks(fn, args, world: int, device, shared_device: bool = False,
     return results
 
 
-def _rank_entry(local_rank, fn, args, device, shared_device, backend,
-                address, world, first, out, threads):
+def _rank_entry(local_rank, device, shared_device, backend, address, world,
+                first, out, threads):
     """One rank of ``run_ranks``: its device, its group, ``fn``, and its
     result written for the caller."""
+    with open(os.path.join(out, 'call.pkl'), 'rb') as f:
+        fn, args = pickle.load(f)
     torch.set_num_threads(threads)
     device = torch.device(device)
     if device.type == 'cuda':
