@@ -39,31 +39,41 @@ SOURCE = 'fused_skip_gather_add.cu'
 MAX_WINDOW_ELEMS = 2 ** 31 - 1
 MAX_WINDOWS = 65535
 
-# The bf16 instances of this module's kernel and of crop_cuda.py's stage a
-# tile of TILE_ROWS input rows of one image in shared memory (csrc/
-# row_tiles.cuh, whose tile_rows and tile_elems row_tile mirrors): at most
-# SMEM_LIMIT bytes a block, the tile's rows padded by TILE_PAD elements
+# The bf16 instance of this module's kernel and both instances of
+# crop_cuda.py's stage a tile of TILE_ROWS input rows of one image in shared
+# memory (csrc/row_tiles.cuh, whose tile_rows and tile_elems row_tile
+# mirrors): at most SMEM_LIMIT bytes a block, the tile's rows padded by
+# TILE_PAD elements
 TILE_ROWS = 8
+MAX_TILE_ROWS = 64
 SMEM_LIMIT = 232448
 TILE_PAD = 16
 
 
-def row_tile(rows: int, stride: int, n_images: int):
-    """The launch geometry of a bf16 row-tile kernel over ``n_images``
-    images of ``rows`` input rows, each staged ``stride`` 2-byte elements
-    wide: (rows a block stages, its dynamic shared-memory bytes, blocks).
-    TILE_ROWS rows, halved while the tile does not fit in SMEM_LIMIT bytes;
-    ValueError when one row does not fit."""
+def row_tile(rows: int, stride: int, n_images: int, elem_bytes: int = 2,
+             row_bytes: int = 0, block_bytes: int = 0):
+    """The launch geometry of a row-tile kernel over ``n_images`` images of
+    ``rows`` input rows, each staged ``stride`` elements of ``elem_bytes``
+    bytes wide (2: bf16, 4: float32): (rows a block stages, its dynamic
+    shared-memory bytes, blocks). TILE_ROWS rows, doubled up to
+    MAX_TILE_ROWS while twice the rows move at most ``block_bytes`` at
+    ``row_bytes`` a row (the column crop's rows; K3 asks for no growth),
+    then halved while the tile does not fit in SMEM_LIMIT bytes; ValueError
+    when one row does not fit."""
     def nbytes(r):
-        return (-(-r * stride // 8) * 8 + TILE_PAD) * 2
+        return (-(-r * stride // 8) * 8 + TILE_PAD) * elem_bytes
 
     r = TILE_ROWS
+    while row_bytes > 0 and r < MAX_TILE_ROWS and \
+            2 * r * row_bytes <= block_bytes:
+        r *= 2
     while r > 1 and nbytes(r) > SMEM_LIMIT:
         r //= 2
     if nbytes(r) > SMEM_LIMIT:
         raise ValueError(
-            'a row of {} bf16 elements does not fit in the {} bytes of shared '
-            'memory a block can use'.format(stride, SMEM_LIMIT))
+            'a row of {} elements of {} bytes does not fit in the {} bytes of '
+            'shared memory a block can use'.format(stride, elem_bytes,
+                                                   SMEM_LIMIT))
     return r, nbytes(r), -(-rows // r) * n_images
 
 

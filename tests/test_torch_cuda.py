@@ -87,6 +87,8 @@ def _counts():
     return {name + suffix: getattr(wrapper, 'launches' + suffix)
             for name, wrapper in (('K1', sc.scatter_quasi_dense),
                                   ('K2', cc.batch_column_crop),
+                                  ('K2_backward',
+                                   cc.batch_column_crop_backward),
                                   ('K3', fs.fused_skip_gather_add))
             for suffix in ('', '_bf16')}
 
@@ -623,7 +625,9 @@ def test_bf16_row_tiles_of_wide_rows_on_card(cuda_device, rng):
 @pytest.mark.cuda
 def test_bf16_row_tiles_refuse_rows_too_wide(cuda_device):
     """A row too wide for a block's shared memory raises ValueError before
-    any launch; float32, which stages nothing, takes it."""
+    any launch, in bf16 and in float32 (whose crop stages row tiles too, of
+    4-byte elements: a row half as wide is the limit); a float32 row that
+    fits launches."""
     wide = fs.SMEM_LIMIT // 2
     zeros = lambda *shape, d=torch.bfloat16: torch.zeros(  # noqa: E731
         shape, dtype=d, device=cuda_device)
@@ -635,11 +639,175 @@ def test_bf16_row_tiles_refuse_rows_too_wide(cuda_device):
                                  starts, corr, corr)
     with pytest.raises(ValueError, match='shared memory'):
         cc.batch_column_crop(zeros(1, 1, 1, wide - 8), starts, 8)
+    with pytest.raises(ValueError, match='shared memory'):
+        cc.batch_column_crop(zeros(1, 1, 1, wide // 2 - 8, d=torch.float32),
+                             starts, 8)
     assert _launched(before)
-    out = cc.batch_column_crop(zeros(1, 1, 1, wide - 8, d=torch.float32),
+    fits = fs.SMEM_LIMIT // 4 - 16  # the widest float32 row of one a tile
+    assert fs.row_tile(1, fits, 1, 4)[:2] == (1, fs.SMEM_LIMIT)
+    out = cc.batch_column_crop(zeros(1, 1, 1, fits - 8, d=torch.float32),
                                starts, 8)
     torch.cuda.synchronize()
     assert _launched(before, K2=1) and not bool(out.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('c, ph', [(3, 4), (3, 5), (4, 6)])
+@pytest.mark.parametrize('win', [4, 22, 43])
+def test_column_crop_float32_row_tiles_on_card(cuda_device, rng, win, c, ph,
+                                               offset):
+    """K2's float32 row-tile kernel: 12 rows (a last tile of 4; the vector
+    path, with vectors across two rows at win 22 and 43), 15 rows (the
+    scalar path, unless win = 4) and 24; two images, starts at every residue mod 4
+    and mod 8, at 0 and w, past w and below 0; rows at offset 1 (staged
+    without 16-byte loads); bit for bit against the plain version, one
+    launch of the float32 instance. Then the C entry point alone into an
+    `out` that starts one element past an allocation (the scalar path)."""
+    n, k, w = 2, 16, 61
+    rows = _at_offset(torch.from_numpy(rng.standard_normal(
+        (n, c, ph, w), dtype=np.float32)).to(cuda_device), offset)
+    starts = torch.from_numpy(_residue_starts(rng, n, k, 0, w)).to(
+        cuda_device)
+    ref = cc.batch_column_crop_plain(rows, starts, win)
+    before = _counts()
+    out = cc.batch_column_crop(rows, starts, win)
+    torch.cuda.synchronize()
+    assert _launched(before, K2=1)
+    assert torch.equal(out, ref)
+
+    moved = torch.full((ref.numel() + 1,), float('nan'), device=cuda_device)
+    err = cc._kernel(torch.float32)(
+        rows.data_ptr(), starts.data_ptr(), n * k, k, c * ph, w, win,
+        moved[1:].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(moved[1:].view(ref.shape), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('offset', [0, 1])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('win', [4, 8, 22])
+def test_column_crop_covered_columns_on_card(cuda_device, rng, win, dtype,
+                                             offset):
+    """Windows that cannot cover their image's row (K * win <= w, as at a
+    training step) make the crop kernel read each window's columns from
+    device memory instead of staging the rows: three images of 3 windows,
+    12 rows, w 70, starts at 0, at w, past w, below 0, duplicated, at odd
+    columns; rows at offset 1 (unaligned reads); bit for bit against the
+    plain version, one launch of the dtype's instance. Then the C entry
+    point alone into an `out` one element past an allocation (the scalar
+    path)."""
+    n, k, c, ph, w = 3, 3, 3, 4, 70
+    starts = np.array([[0, 0, 62], [31, 70, 80], [-3, 33, 47]], np.int32)
+    rows = _at_offset(torch.from_numpy(rng.standard_normal(
+        (n, c, ph, w), dtype=np.float32)).to(cuda_device, dtype), offset)
+    starts = torch.from_numpy(starts).to(cuda_device)
+    assert k * win <= w
+    ref = cc.batch_column_crop_plain(rows, starts, win)
+    before = _counts()
+    out = cc.batch_column_crop(rows, starts, win)
+    torch.cuda.synchronize()
+    assert _launched(before, **{'K2' + ('' if dtype == torch.float32
+                                         else '_bf16'): 1})
+    assert torch.equal(out, ref)
+
+    moved = torch.zeros(ref.numel() + 1, dtype=dtype, device=cuda_device)
+    err = cc._kernel(dtype)(
+        rows.data_ptr(), starts.data_ptr(), n * k, k, c * ph, w, win,
+        moved[1:].data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert torch.equal(moved[1:].view(ref.shape), ref)
+
+
+@pytest.mark.cuda
+def test_column_crop_float32_row_tiles_of_wide_rows_on_card(cuda_device,
+                                                            rng):
+    """float32 rows too wide for 8 a tile: w + win = 30,043 stages one row
+    (120 KB of dynamic shared memory); bit for bit against the plain
+    version."""
+    n, k, c, ph, w, win = 2, 14, 2, 5, 30_000, 43
+    assert fs.row_tile(c * ph, w + win, n, 4)[:2] == (1, 120_256)
+    rows = torch.from_numpy(rng.standard_normal(
+        (n, c, ph, w), dtype=np.float32)).to(cuda_device)
+    starts = torch.from_numpy(_residue_starts(rng, n, k, 0, w)).to(
+        cuda_device)
+    before = _counts()
+    out = cc.batch_column_crop(rows, starts, win)
+    torch.cuda.synchronize()
+    assert _launched(before, K2=1)
+    assert torch.equal(out, cc.batch_column_crop_plain(rows, starts, win))
+
+
+def _step_crop_case(rng, device, scale, dtype=torch.float32, n=6, k=4,
+                    c=128):
+    """The column crop at a 900x300 training step's pool ``scale`` (1/8,
+    1/16, 1/32 of the padded 900x1900 frame): rows (n, c, ph, w_f) of
+    ``dtype``, starts (n, k) with 0 and w_f among them, and win."""
+    from rcfd_tpu_torch.ops.roi_pool import variable_bin_window
+
+    ph, pw = 900 // scale, 300 // scale
+    w_f = -(-1900 // scale)  # the map of a 900x1900 padded frame
+    _, win = variable_bin_window(300, 1.0 / scale, pw)
+    rows = torch.from_numpy(rng.standard_normal(
+        (n, c, ph, w_f), dtype=np.float32)).to(device, dtype)
+    starts = rng.integers(0, w_f + 1, (n, k)).astype(np.int32)
+    starts[0, :2] = [0, w_f]
+    return rows, torch.from_numpy(starts).to(device), win
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('scale', [8, 16, 32])
+def test_column_crop_backward_kernel_matches_plain_on_card(cuda_device, rng,
+                                                           scale, dtype):
+    """The backward kernel at the training step's shapes (6 frames of 4
+    windows) and at 64 and 300 windows an image (more than one 256-window
+    pass of its list; starts at every residue mod 8, at 0 and w, outside
+    [0, w]): bit for bit against the k-ordered plain version, one launch of
+    the dtype's instance, nothing else launched."""
+    label = '' if dtype == torch.float32 else '_bf16'
+    for n, k, c in ((6, 4, 128), (2, 64, 16), (1, 300, 4)):
+        rows, starts, win = _step_crop_case(rng, cuda_device, scale, dtype,
+                                            n, k, c)
+        if k > 4:
+            starts = torch.from_numpy(_residue_starts(
+                rng, n, k, 0, rows.shape[3])).to(cuda_device)
+        grad = torch.from_numpy(rng.standard_normal(
+            (n * k,) + tuple(rows.shape[1:3]) + (win,),
+            dtype=np.float32)).to(cuda_device, dtype)
+        ref = cc.batch_column_crop_backward_plain(grad, starts, rows.shape,
+                                                  win)
+        before = _counts()
+        out = cc.batch_column_crop_backward(grad, starts, rows.shape, win)
+        torch.cuda.synchronize()
+        assert _launched(before, **{'K2_backward' + label: 1}), (n, k)
+        assert out.dtype == dtype and out.shape == rows.shape
+        assert torch.equal(out, ref), (n, k, float(
+            (out.float() - ref.float()).abs().max()))
+
+
+@pytest.mark.cuda
+def test_column_crop_backward_wrapper_refuses_bad_cuda_tensors(cuda_device,
+                                                               rng):
+    rows, starts = _crop_inputs(rng, cuda_device)
+    win = 7
+    grad = torch.zeros((12,) + tuple(rows.shape[1:3]) + (win,),
+                       device=cuda_device)
+    back = cc.batch_column_crop_backward
+    with pytest.raises(ValueError, match='contiguous'):
+        back(grad.transpose(2, 3).contiguous().transpose(2, 3), starts,
+             rows.shape, win)
+    with pytest.raises(NotImplementedError):
+        back(grad.double(), starts, rows.shape, win)
+    with pytest.raises(NotImplementedError):
+        back(grad, starts.long(), rows.shape, win)
+    with pytest.raises(ValueError):
+        back(grad, starts.cpu(), rows.shape, win)
+    with pytest.raises(ValueError):
+        back(grad, starts, rows.shape, win + 1)
 
 
 # tiny bf16 pipelines on the card: (RadarNet config, perf, the launches of
@@ -825,8 +993,9 @@ def test_column_crop_gradient_on_card(cuda_device, rng, scale):
     frames of 4 windows at the 1/8, 1/16 and 1/32 pools, starts at 0 and at
     W among them): the windows bit for bit, one launch, and the rows'
     gradient within 1e-5 of its max-abs (index_add_ adds overlapping
-    windows with atomics, in another order); the node saves the starts
-    only."""
+    windows in another order than autograd's) and equal to the k-ordered
+    plain backward bit for bit, one launch of the backward kernel; the node
+    saves the starts only."""
     from rcfd_tpu_torch.ops.roi_pool import variable_bin_window
 
     ph, pw = 900 // scale, 300 // scale
@@ -850,11 +1019,15 @@ def test_column_crop_gradient_on_card(cuda_device, rng, scale):
     grad = torch.randn(out.shape, device=cuda_device,
                        generator=torch.Generator(
                            device=cuda_device).manual_seed(1))
+    before_b = _counts()
     g_k, = torch.autograd.grad(out, rows_k, grad)
     g_p, = torch.autograd.grad(ref, rows_p, grad)
     torch.cuda.synchronize()
+    assert _launched(before_b, K2_backward=1)
     assert cc.batch_column_crop.launches == before + 1  # none backward
     assert float((g_k - g_p).abs().max()) <= 1e-5 * float(g_p.abs().max())
+    assert torch.equal(g_k, cc.batch_column_crop_backward_plain(
+        grad, starts, rows.shape, win))
 
 
 @pytest.mark.cuda
@@ -863,8 +1036,9 @@ def test_column_crop_bf16_gradient_on_card(cuda_device, rng, scale):
     """K2's bf16 instance with its gradient (bf16 training) at the 900x300
     step's shapes: the windows equal the plain crop's bit for bit, one bf16
     launch, and the rows' bf16 gradient is the float32 sum of the windows'
-    bf16 gradients rounded once (within one bf16 rounding of its max-abs:
-    the float32 atomics' order moves the sum's last bits)."""
+    bf16 gradients rounded once (within one bf16 rounding of its max-abs of
+    the float32 sum of the same gradients; equal bit for bit to the
+    k-ordered plain backward), one launch of the bf16 backward kernel."""
     from rcfd_tpu_torch.ops.roi_pool import variable_bin_window
 
     ph, pw = 900 // scale, 300 // scale
@@ -884,12 +1058,17 @@ def test_column_crop_bf16_gradient_on_card(cuda_device, rng, scale):
                        generator=torch.Generator(
                            device=cuda_device).manual_seed(1)).to(
                                torch.bfloat16)
+    before_b = _counts()
     g_k, = torch.autograd.grad(out, rows_k, grad)
+    torch.cuda.synchronize()
+    assert _launched(before_b, K2_backward_bf16=1)
     assert g_k.dtype == torch.bfloat16
     ref = cc.batch_column_crop_backward_plain(
         grad.float(), starts, rows.shape, win).to(torch.bfloat16).float()
     assert float((g_k.float() - ref).abs().max()) <= \
         2.0 ** -8 * float(ref.abs().max())
+    assert torch.equal(g_k, cc.batch_column_crop_backward_plain(
+        grad, starts, rows.shape, win))
 
 
 @pytest.mark.cuda
