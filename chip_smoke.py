@@ -145,7 +145,7 @@ Phases, each printed as it starts and ends:
              bf16 instance (3 launches, and 3 of its bf16 backward kernel)
              against the plain crop, and K2 bf16's forward and backward
              held bit for bit and timed at the step's shapes; one bf16
-             step of a narrow model of each kind card vs CPU at two seeds,
+             step of a narrow model of each kind card vs CPU at one seed,
              against the CPU's float64 step
   run        the standalone run drivers (rcfd_tpu_torch.run_radarnet.main
              and run_fusionnet.main, in process) with
@@ -180,7 +180,22 @@ Phases, each printed as it starts and ends:
              RadarNet, one batch of 8, after one warm-up pass: prefetch,
              sync and codec, their files byte for byte equal, K1 once a
              pass (counted), frames/s
-  configs    FusionNet in the configurations the port took last, at
+  bench_tools  the JAX package's measurement tools as the port runs them
+             (rcfd_tpu_torch.tools): roofline's analytic records of both
+             serving graphs (bf16, b = 32; b = 4, K = 64) on the card
+             against --dry's on the meta device, op for op; then each
+             tool's main once at the JAX
+             tool's shapes with the fewest chained calls that give a slope
+             (roofline fusionnet_b32, trainbench tiny of both families,
+             stagebench, rnstagebench, fnbisect, pipebisect's scatter and
+             full cuts under PerfConfig(pallas_scatter=True), microbench's
+             default ops, fusedskip_bench, fusepool_experiment): each row
+             parsed, its numbers finite, its device the card's line; K1 in
+             rnstagebench, pipebisect and microbench and K3 in
+             fusedskip_bench (counted), no other launch; K1 on its first
+             launch's inputs in each run and K3 in fusedskip_bench equal
+             to their plain versions, bit for bit
+  configs   FusionNet in the configurations the port took last, at
              bash/train_fusionnet_nuscenes.sh's widths on the train
              phase's files, 5 steps each: a --n_resolutions_decoder 3, b
              --encoder_type resnet18 batch_norm (image only), c
@@ -247,7 +262,7 @@ Phases, each printed as it starts and ends:
              and (b) a 1 x 4 mesh of ranks 0-3 (4-7 wait) at
              bash/train_fusionnet_nuscenes.sh's widths and flags (global
              batch 16, 448x448, float32, TF32 off; (b)'s 1/64 level of 7
-             rows in shards of 2, 2, 2, 1), 5 steps each, step 1 held to
+             rows in shards of 2, 2, 2, 1), 3 steps each, step 1 held to
              one float64 process's step on the same batch and draws within
              4 times one float32 process's distance from it (or 1e-3 of a
              gradient's max-abs): ms a step and peak memory a rank, the rows each
@@ -292,6 +307,7 @@ time by kernel.
 
 import contextlib
 import copy
+import io
 import json
 import math
 import os
@@ -3887,8 +3903,9 @@ BF16_CROP_STEP_TOL = 5e-2
 # these batches (tests/test_torch_train_bf16.py holds the CPU's to the JAX
 # package's bf16 step, which is farther from float64)
 BF16_LOSS_RTOL, BF16_STATS_TOL, BF16_TRUTH_TOL = 2.0 ** -7, 2e-2, 0.5
-# two seeds (three until the smoke's phases neared 1,100 s of its 1,200)
-BF16_SEEDS = tuple(SEED + 40 + i for i in range(2))
+# one seed (three until the smoke's phases neared 1,100 s of its 1,200, two
+# until phase bench_tools came)
+BF16_SEEDS = tuple(SEED + 40 + i for i in range(1))
 # a narrow FusionNet at 192x256 (its 1/64 batch norms normalize 24 values:
 # bf16 over a handful of values is all cancellation)
 FN_NARROW = dict(FUSIONNET, n_filters_encoder_image=[8, 16, 16, 16, 16, 16],
@@ -4119,18 +4136,20 @@ def phase_train_bf16(device, record, trained):
                         torch.bfloat16)
     torch.cuda.empty_cache()
     for name in ('radarnet', 'fusionnet'):
+        t0 = time.perf_counter()
         readings = [train_bf16_card_vs_cpu(device, name, seed)
                     for seed in BF16_SEEDS]
+        seconds = (time.perf_counter() - t0) / len(BF16_SEEDS)
         span = lambda key: '{:.3g}-{:.3g}'.format(  # noqa: E731
             min(r[key] for r in readings), max(r[key] for r in readings))
         log('train_bf16 {}: one bf16 step of a narrow model card vs CPU at '
             'seeds {}: loss rel err {} (tolerance {:g}), running statistics '
             '{} of their largest (tolerance {:g}); gradients from the CPU\'s '
             'float64 step, of its largest gradient: card {}, CPU {} '
-            '(tolerance {:g}); card vs CPU {}'.format(
+            '(tolerance {:g}); card vs CPU {}; {:.2f} s a seed'.format(
                 name, list(BF16_SEEDS), span('loss_err'), BF16_LOSS_RTOL,
                 span('stats_err'), BF16_STATS_TOL, span('card_err'),
-                span('cpu_err'), BF16_TRUTH_TOL, span('apart')))
+                span('cpu_err'), BF16_TRUTH_TOL, span('apart'), seconds))
     torch.cuda.empty_cache()
 
 
@@ -4910,6 +4929,172 @@ def phase_tools(device, record, paths, rn_checkpoint, fn_checkpoint, tmp):
     tools_convert(device, {'radarnet': rn_checkpoint,
                            'fusionnet': fn_checkpoint}, tmp)
     tools_bridgebench(device, record, paths, rn_checkpoint, tmp)
+
+
+# -- the JAX package's measurement tools on the card ------------------------------
+
+# phase bench_tools: each measurement tool of rcfd_tpu_torch/tools once, at
+# the JAX tool's shapes (pipebisect: two of its cuts; microbench: its
+# default ops), with the fewest chained calls that give a slope
+BENCH_TOOL_RUNS = (
+    ('roofline', ['--graph', 'fusionnet_b32', '--n_iters', '1']),
+    ('trainbench', ['--n_steps', '4', '--n_warmup', '1']),
+    ('trainbench', ['--family', 'radarnet', '--n_steps', '4',
+                    '--n_warmup', '1']),
+    ('stagebench', ['--n', '1']),
+    ('rnstagebench', ['--n_lo', '1', '--n_hi', '2']),
+    ('fnbisect', ['--n_scan', '1']),
+    ('pipebisect', ['--n_scan', '1', '--cuts', 'scatter', 'full']),
+    ('microbench', []),
+    ('fusedskip_bench', []),
+    ('fusepool_experiment', []),
+)
+
+
+def finite_numbers(value):
+    """Every number in a JSON value, recursively."""
+    if isinstance(value, dict):
+        return [n for v in value.values() for n in finite_numbers(v)]
+    if isinstance(value, list):
+        return [n for v in value for n in finite_numbers(v)]
+    if isinstance(value, (int, float)) and not isinstance(value, bool):
+        return [value]
+    return []
+
+
+def bench_tool(device, name, argv, **kwargs):
+    """``rcfd_tpu_torch.tools.<name>.main(argv)`` on the card, its output
+    caught: its last line must be the JSON row it returns, with the card's
+    line and every number finite. Returns (row, seconds)."""
+    import importlib
+    tool = importlib.import_module('rcfd_tpu_torch.tools.' + name)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        row = tool.main(argv, **kwargs)
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    for line in lines[:-1]:
+        log('  {}: {}'.format(name, line))
+    check(json.loads(lines[-1]) == json.loads(json.dumps(row)),
+          'bench_tools {}: the last line is not the row'.format(name))
+    check(row['device'] == gpu_name_and_power(),
+          'bench_tools {}: device {!r}'.format(name, row['device']))
+    check(all(np.isfinite(v) for v in finite_numbers(row)),
+          'bench_tools {}: a number is not finite: {}'.format(name, row))
+    torch.cuda.empty_cache()
+    return row, seconds
+
+
+def bench_roofline_records(device):
+    """roofline's analytic records of both graphs on the card (one call of
+    each, bf16, at the JAX defaults) against --dry's on the meta device:
+    equal op for op, and the dispatch bytes equal."""
+    from rcfd_tpu_torch.tools import roofline
+    for graph, batch in (('fusionnet_b32', 32), ('pipeline_k64', 4)):
+        t0 = time.perf_counter()
+        card, card_bytes = roofline.graph_records(graph, batch, 'bfloat16',
+                                                  device)
+        dry, dry_bytes = roofline.graph_records(graph, batch, 'bfloat16',
+                                                'meta')
+        check(card == dry, 'bench_tools roofline {}: the card\'s {} records '
+              'differ from --dry\'s {}'.format(graph, len(card), len(dry)))
+        check(card_bytes == dry_bytes, 'bench_tools roofline {}: dispatch '
+              'bytes {} on the card, {} on meta'.format(graph, card_bytes,
+                                                        dry_bytes))
+        log('bench_tools roofline {} b={}: the card\'s {} records equal '
+            '--dry\'s (meta) op for op; analytic {} B, {} FLOP; dispatch {} '
+            'B ({:.2f} s)'.format(graph, batch, len(card),
+                                  roofline.totals(card)[1],
+                                  roofline.totals(card)[2], card_bytes,
+                                  time.perf_counter() - t0))
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def first_scatter_launch():
+    """Within the block, the inputs of K1's first launch (the scatter's
+    ``_launch``, which every wrapper of K1 goes through), cloned, in a
+    list."""
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    caught, launch = [], sc._launch
+
+    def spy(*args):
+        if not caught:
+            caught.append(tuple(a.clone() if torch.is_tensor(a) else a
+                                for a in args))
+        return launch(*args)
+
+    sc._launch = spy
+    try:
+        yield caught
+    finally:
+        sc._launch = launch
+
+
+def scatter_against_plain(args):
+    """K1 on a launch's inputs against its plain version, the max abs
+    difference of the two maps (this launch is not counted: it comes after
+    the run's count is read)."""
+    from rcfd_tpu_torch.ops import scatter_cuda as sc
+    crops, xs, zs, valid, h, w, threshold = args
+    got = sc._launch(*args)
+    ref = sc.scatter_quasi_dense_batched_plain(
+        crops, xs, zs, valid, h, w, tuple(crops.shape[2:]), threshold)
+    return max(float((g - r).abs().max()) for g, r in zip(got, ref))
+
+
+def phase_bench_tools(device, record, tmp):
+    """The measurement tools of rcfd_tpu_torch/tools on the card: the
+    roofline's records on the card against --dry's; K1 and K3 against
+    their plain versions at the tools' shapes; then each tool's main
+    (BENCH_TOOL_RUNS; trainbench's fixtures in ``tmp``), launches set to 0
+    before each and read after: K1 bf16 in rnstagebench (its scatter
+    stage) and in pipebisect (PerfConfig(pallas_scatter=True)), K1 in
+    microbench's scatter, K3 bf16 in fusedskip_bench, nothing else; every
+    row parsed, its numbers finite; K1 on the inputs of its first launch
+    in each run against its plain version, and K3 in fusedskip_bench (the
+    tool's own comparison), bit for bit. Prints each row and its
+    seconds."""
+    from rcfd_tpu_torch.nn.perf import PerfConfig
+    bench_roofline_records(device)
+    expect = {'rnstagebench': {'scatter_quasi_dense bf16'},
+              'pipebisect': {'scatter_quasi_dense bf16'},
+              'microbench': {'scatter_quasi_dense'},
+              'fusedskip_bench': {'fused_skip_gather_add bf16'}}
+    for name, argv in BENCH_TOOL_RUNS:
+        kwargs = {}
+        if name == 'trainbench':
+            argv = argv + ['--data_dir', os.path.join(tmp, 'trainbench_' + (
+                'radarnet' if 'radarnet' in argv else 'fusionnet'))]
+        if name == 'pipebisect':
+            kwargs['perf'] = PerfConfig(pallas_scatter=True)
+        reset_launches()
+        with first_scatter_launch() as caught:
+            row, seconds = bench_tool(device, name, argv, **kwargs)
+        launches = read_launches()
+        if caught:
+            err = scatter_against_plain(caught[0])
+            check(err == 0.0, 'bench_tools {}: K1 against its plain version '
+                  'at {}: {}'.format(name, tuple(caught[0][0].shape), err))
+            log('bench_tools {}: K1 equals its plain version on its first '
+                'launch\'s inputs, crops {} {}'.format(
+                    name, tuple(caught[0][0].shape), caught[0][0].dtype))
+            del caught[:]
+        want = expect.get(name, set())
+        check({k for k, n in launches.items() if n} == want,
+              'bench_tools {}: launches {} (expected {})'.format(
+                  name, {k: n for k, n in launches.items() if n}, want))
+        if want:
+            count_launches(record, 'bench_tools ' + name, launches,
+                           sorted(want))
+        if name == 'fusedskip_bench':
+            check(row['k3_vs_plain'] == 0.0, 'bench_tools fusedskip_bench: '
+                  'K3 against its plain version {}'.format(
+                      row['k3_vs_plain']))
+        log('bench_tools {} {} ({:.2f} s; launches {}): {}'.format(
+            name, ' '.join(argv), seconds,
+            {k: n for k, n in launches.items() if n}, json.dumps(row)))
 
 
 # -- the model configurations the port took last --------------------------------
@@ -7048,7 +7233,8 @@ def phase_parallel(device, record, slice_pipe, rn_checkpoint, manifests,
 # bash/train_fusionnet_nuscenes.sh's widths and flags on full-size batches
 # the ranks draw on the card from SEED
 GSPMD_SHAPE = (16, 448, 448)
-GSPMD_STEPS = 5
+# three steps a mesh (five until phase bench_tools came)
+GSPMD_STEPS = 3
 GSPMD_MESHES = {'a': (2, 2), 'b': (1, 4)}
 # the training flags of the bash script's step (loss, outlier removal,
 # dilation, augmentation at probability 1)
@@ -7327,7 +7513,7 @@ def phase_gspmd(device):
     on a 2 x 4 mesh against one process on the CPU, within
     PAR_FLOAT64_TOL; (a) 2 x 2 and (b) 1 x 4 meshes of FusionNet at
     bash/train_fusionnet_nuscenes.sh's widths and flags (global batch 16,
-    448x448; (b)'s 1/64 level of 7 rows is shards of 2, 2, 2, 1), 5 steps
+    448x448; (b)'s 1/64 level of 7 rows is shards of 2, 2, 2, 1), 3 steps
     each, step 1 held to this process's float64 step on the same batch
     and draws by GSPMD_F32_FACTOR's rule: ms a step, peak memory a rank,
     the rows each rank moved in at each level. Every rank of a mesh ends
@@ -7565,6 +7751,9 @@ def main():
             with Phase('tools'):
                 phase_tools(device, record, paths, rn_checkpoint,
                             fusionnet_f32['checkpoint'], tmp)
+            torch.cuda.empty_cache()
+            with Phase('bench_tools'):
+                phase_bench_tools(device, record, tmp)
             torch.cuda.empty_cache()
             with Phase('configs'):
                 phase_configs(device, fusionnet_f32, fn_inputs, tmp)

@@ -44,7 +44,6 @@ import argparse
 import json
 import os
 import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -60,6 +59,7 @@ from ..data.transforms import Transforms
 from ..nn.layers import init_parameters
 from ..nn.perf import perf_from_env
 from ..pipeline import serving_numerics
+from . import timing
 from .fixtures import make_radarnet_fixture
 
 MODES = ('prefetch', 'sync', 'codec')
@@ -155,19 +155,6 @@ def check_modes(outs):
                                      '{}'.format(c))
 
 
-def device_line(device) -> str:
-    """The card's name and power limit as nvidia-smi gives them, or
-    'cpu'."""
-    if torch.device(device).type != 'cuda':
-        return 'cpu'
-    proc = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True, timeout=60)
-    if proc.returncode != 0:
-        raise RuntimeError('nvidia-smi failed: {}'.format(proc.stderr))
-    return proc.stdout.strip().splitlines()[0]
-
-
 def build_parser():
     parser = argparse.ArgumentParser(
         prog='python -m rcfd_tpu_torch.tools.bridgebench')
@@ -249,7 +236,7 @@ def main(argv=None, device=None):
             'patch': list(args.patch), 'n_points': args.n_points,
             'eval_batch_size': args.eval_batch_size, 'dtype': args.dtype,
             'backend': device.type, 'check_only': args.check_only,
-            'results': results, 'device': device_line(device)}
+            'results': results, 'device': timing.card_line(device)}
         print(json.dumps(row))
         return row
     finally:

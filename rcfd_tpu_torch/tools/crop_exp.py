@@ -51,7 +51,7 @@ import torch
 from ..ops import _build
 from ..ops import crop_cuda as cc
 from ..ops.roi_pool import variable_bin_window
-from . import bridgebench
+from . import timing
 
 HBM_BYTES_PER_S = 3.35e12
 SCALES = (8, 16, 32)
@@ -250,7 +250,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit('crop_exp runs on the card only')
     device = torch.device('cuda')
-    card = bridgebench.device_line(device)
+    card = timing.card_line(device)
     print(card, flush=True)
     files = build_variants(args.parent_csrc)
     rng = np.random.default_rng(args.seed)

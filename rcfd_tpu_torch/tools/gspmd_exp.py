@@ -25,7 +25,7 @@ import torch
 import torch.distributed as dist
 
 from .. import parallel
-from . import bridgebench
+from . import timing
 
 DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
 
@@ -106,7 +106,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit('gspmd_exp runs on the card only')
-    card = bridgebench.device_line('cuda')
+    card = timing.card_line('cuda')
     print(card, flush=True)
     result = dict(device=card, gloo_cuda={})
     for dtype in DTYPES:

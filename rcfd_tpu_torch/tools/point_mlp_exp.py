@@ -43,20 +43,11 @@ from ..models import FusionNetModel
 from ..models.networks import MLP_TILE_ROWS, FullyConnectedEncoder
 from ..nn.layers import init_parameters
 from ..pipeline import TwoStagePipeline, serving_numerics
-from . import bridgebench
+from . import bridgebench, serving_config, timing
 
 N_POINTS = 240
 ROWS = (256, 512, 1024, 4096)
 OFFSETS = (64, 128)
-# bench.py's CONFIG (the serving benchmark's FusionNet)
-FUSIONNET = dict(
-    input_channels_image=3, input_channels_depth=2,
-    encoder_type='fusionnet18_batch_norm',
-    n_filters_encoder_image=[32, 64, 128, 256, 256, 256],
-    n_filters_encoder_depth=[16, 32, 64, 128, 128, 128],
-    fusion_type='weight_and_project', decoder_type='multiscale_batch_norm',
-    n_resolution_decoder=1, n_filters_decoder=[256, 256, 128, 64, 64, 32],
-    min_predict_depth=1.0, max_predict_depth=100.0)
 
 
 def single(encoder, x):
@@ -136,7 +127,7 @@ def paired_requests(device, rounds, seed=0):
     the encoder's forward as ``single`` and ``tiles`` in turns: the median
     ms of each, and of their per-round difference."""
     rn = bridgebench.build_model((900, 288), torch.float32, device, seed)
-    fn = FusionNetModel(**FUSIONNET, device='cpu')
+    fn = FusionNetModel(**serving_config.FUSIONNET, device='cpu')
     init_parameters(fn, torch.Generator().manual_seed(seed + 1))
     pipe = TwoStagePipeline(rn, fn.to(device), 900, 1600, device=device)
     rng = np.random.default_rng(seed)
@@ -188,7 +179,7 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit('point_mlp_exp runs on the card only')
     device = torch.device('cuda')
-    card = bridgebench.device_line(device)
+    card = timing.card_line(device)
     print(card, flush=True)
     encoder = FullyConnectedEncoder(3, [32, 64, 128, 128, 128],
                                     128 * 28 * 9).eval()

@@ -52,7 +52,7 @@ from ..models import FusionNetModel
 from ..nn.layers import init_parameters
 from ..ops import scatter_cuda as sc
 from .. import radarnet_main
-from . import bridgebench, parity_protocol
+from . import bridgebench, parity_protocol, timing
 from .fixtures import make_radarnet_fixture
 
 PARITY_FRAMES, PARITY_POINTS = 8, 64
@@ -270,7 +270,7 @@ def main(argv=None):
     runs = set(args.only or ('bridgebench', 'parity', 'ties'))
     if not torch.cuda.is_available():
         raise SystemExit('tools_exp runs on the card only')
-    card = bridgebench.device_line('cuda')
+    card = timing.card_line('cuda')
     print(card, flush=True)
     result = dict(device=card)
     with tempfile.TemporaryDirectory() as tmp:

@@ -63,7 +63,19 @@ def test_port_sources_include_the_measurement_tool():
                  'rcfd_tpu_torch/tools/convert_checkpoint.py',
                  'rcfd_tpu_torch/tools/bridgebench.py',
                  'rcfd_tpu_torch/tools/parity_protocol.py',
-                 'rcfd_tpu_torch/tools/tools_exp.py'):
+                 'rcfd_tpu_torch/tools/tools_exp.py',
+                 'rcfd_tpu_torch/tools/timing.py',
+                 'rcfd_tpu_torch/tools/serving_config.py',
+                 'rcfd_tpu_torch/tools/roofline.py',
+                 'rcfd_tpu_torch/tools/trainbench.py',
+                 'rcfd_tpu_torch/tools/stagebench.py',
+                 'rcfd_tpu_torch/tools/rnstagebench.py',
+                 'rcfd_tpu_torch/tools/fnbisect.py',
+                 'rcfd_tpu_torch/tools/pipebisect.py',
+                 'rcfd_tpu_torch/tools/microbench.py',
+                 'rcfd_tpu_torch/tools/fusedskip_bench.py',
+                 'rcfd_tpu_torch/tools/fusepool_experiment.py',
+                 'rcfd_tpu_torch/tools/bench_tools_exp.py'):
         assert path in paths
 
 
@@ -85,6 +97,47 @@ def test_source_imports_nothing_forbidden(path):
     # kernels are built by hand with nvcc, not by torch.utils.cpp_extension
     assert not re.search(r'^\s*(?:import|from)\s+torch\.utils\.cpp_extension',
                          text, re.M), path
+
+
+# the root bench.py and the tests' helpers: the port keeps its own copies
+# (tools/serving_config.py, tools/fixtures.py)
+ROOT_BENCH_OR_TESTS_IMPORT = re.compile(
+    r'^\s*(?:import|from)\s+(?:bench\b|tests\b|fixtures\b|torch_parity\b|'
+    r'conftest\b)', re.M)
+
+
+@pytest.mark.parametrize('path', sorted(_port_sources()),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_source_imports_no_bench_or_tests_module(path):
+    """No port source imports the root bench.py or a module of tests/
+    (the JAX tools import both)."""
+    with open(path) as f:
+        text = f.read()
+    assert not ROOT_BENCH_OR_TESTS_IMPORT.findall(text), path
+
+
+TOOL_MAINS = ('convert_checkpoint', 'bridgebench', 'parity_protocol',
+              'roofline', 'trainbench', 'stagebench', 'rnstagebench',
+              'fnbisect', 'pipebisect', 'microbench', 'fusedskip_bench',
+              'fusepool_experiment')
+
+
+@pytest.mark.parametrize('name', TOOL_MAINS)
+def test_tool_main_runs_on_the_card_by_default(name):
+    """Each counterpart of a JAX tool has ``main(argv=None,
+    device=None)``, and None is the card: without one it raises and asks
+    for device='cpu' rather than run on the CPU."""
+    import importlib
+    import inspect
+    tool = importlib.import_module('rcfd_tpu_torch.tools.' + name)
+    params = inspect.signature(tool.main).parameters
+    assert list(params)[:2] == ['argv', 'device']
+    assert params['argv'].default is None and params['device'].default is None
+    if torch.cuda.is_available():
+        pytest.skip('a card is present')
+    from rcfd_tpu_torch import default_device
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        default_device(params['device'].default)
 
 
 ROOT_SETUP_IMPORT = re.compile(
